@@ -1,0 +1,105 @@
+"""Model trees across the two packages, and the port's flat row layout.
+
+No single JAX counterpart: the reference ravels trees inline
+(`repro.kernels.ops.wagg_stacked`, `repro.comms.codecs`). The port's
+model tree is a nested dict of tensors with the reference's keys and
+layouts (conv weights HWIO), so conversion is a leaf-by-leaf copy:
+
+* `tree_from_numpy(np_tree, device)` — a reference ``{"params",
+  "state"}`` tree (numpy leaves, e.g. ``jax.tree.map(np.asarray, t)``)
+  into the port's; `tree_to_numpy` goes back.
+
+The FLAT ROW LAYOUT is the reference's ravel order: `jax.tree.leaves`
+order (dict keys sorted at every level, so ``params`` before ``state``),
+each leaf raveled C-order in its reference layout. A converted tree thus
+ravels to the same (P,) vector `ops.wagg_stacked` builds — which the q8
+codec of a later slice needs, since one int8 scale covers 256
+consecutive raveled parameters. For ResNet-18-CIFAR, P = 11,497,024
+params + 9,600 BN stats = 11,506,624.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+def leaves_with_paths(tree, prefix=()):
+    """[(path, leaf)] in the reference's ravel order (sorted keys)."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(leaves_with_paths(tree[k], prefix + (k,)))
+        return out
+    return [(prefix, tree)]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def unflatten(leaves, like: dict) -> dict:
+    """Leaves in ravel order -> a tree shaped like `like`."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+    return build(like)
+
+
+def tree_from_numpy(np_tree, device="cpu") -> dict:
+    """Reference tree with numpy (or array-like) leaves -> port tree."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                    np_tree)
+
+
+def tree_to_numpy(tree) -> dict:
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+class FlatSpec(NamedTuple):
+    """Where each leaf lives in a flat row: (path, shape, offset, size)."""
+
+    entries: tuple
+    size: int
+
+
+def flat_spec(tree) -> FlatSpec:
+    entries, off = [], 0
+    for path, leaf in leaves_with_paths(tree):
+        n = leaf.numel()
+        entries.append((path, tuple(leaf.shape), off, n))
+        off += n
+    return FlatSpec(tuple(entries), off)
+
+
+def ravel_into(tree, row: torch.Tensor, spec: FlatSpec) -> None:
+    """Write `tree`'s leaves into the (P,) float32 `row` in place."""
+    for (path, _, off, n), (_, leaf) in zip(spec.entries,
+                                            leaves_with_paths(tree)):
+        row[off:off + n].copy_(leaf.reshape(-1))
+
+
+def ravel(tree) -> torch.Tensor:
+    """(P,) float32 row of `tree` in the flat row layout."""
+    spec = flat_spec(tree)
+    first = leaves_with_paths(tree)[0][1]
+    row = torch.empty(spec.size, dtype=torch.float32, device=first.device)
+    ravel_into(tree, row, spec)
+    return row
+
+
+def unravel(row: torch.Tensor, spec: FlatSpec) -> dict:
+    """(P,) row -> tree whose leaves are views into `row`."""
+    tree: dict = {}
+    for path, shape, off, n in spec.entries:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = row[off:off + n].view(shape)
+    return tree

@@ -1,0 +1,114 @@
+"""Model aggregation schemes — the paper's core contribution (Eq. 11).
+
+Counterpart of `repro.core.aggregation` (`SCHEME_WEIGHTS`,
+`AGGREGATORS`, `cohort_weighted_sum`, `_weighted_stacked_sum`, the
+weight functions). Every entry has the dispatch signature
+
+    aggregate(cohort: CohortBatch, cfg) -> tree
+
+  flsimco  — blur-weighted (Eq. 11), weight_n ∝ (ΣL − L_n)/ΣL — the paper
+  fedavg   — baseline1: uniform average
+  discard  — baseline2: drop clients above cfg.blur_threshold, then fedavg
+  softmax  — w ∝ softmax(−L/T), T = 5
+  inverse  — w ∝ 1/(L+eps), eps = 1
+
+Every weighted sum goes through `kernels.ops.wagg_flat` — the CUDA
+kernel on the card, its plain version on the CPU. There is no tree-map
+backend switch.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.convert import unravel
+from repro_torch.kernels import ops
+
+
+def _weighted_stacked_sum(flat: torch.Tensor, spec, weights,
+                          mask=None) -> dict:
+    """sum_m w_m * row[m] over an (m, P) cohort buffer, unraveled into
+    the model tree (leaves are views of the one (P,) result)."""
+    w = torch.as_tensor(weights, dtype=torch.float32, device=flat.device)
+    return unravel(ops.wagg_flat(flat, w, mask), spec)
+
+
+def cohort_weighted_sum(cohort, w_valid) -> dict:
+    """(n,) weights over the valid rows, zero-padded, applied with the
+    cohort's validity mask."""
+    return _weighted_stacked_sum(cohort.flat, cohort.spec,
+                                 cohort.padded_weights(w_valid),
+                                 mask=cohort.mask)
+
+
+def flsimco_weights(blur_levels, normalize: bool = True) -> torch.Tensor:
+    """Eq. (11): w_n = (ΣL − L_n) / ΣL   [/ (N−1) when normalized]."""
+    L = torch.as_tensor(blur_levels, dtype=torch.float32)
+    n = L.shape[0]
+    total = L.sum()
+    w = (total - L) / torch.clamp(total, min=1e-12)
+    if normalize:
+        s = w.sum()
+        # degenerate cases (single client, or all-zero blur) -> uniform
+        w = torch.where(s > 1e-12, w / torch.clamp(s, min=1e-12),
+                        torch.full_like(w, 1.0 / n))
+    return w
+
+
+def discard_weights(blur_levels, threshold: float) -> torch.Tensor:
+    """Baseline2: uniform over clients with blur L <= threshold (FedAvg
+    over all if every client exceeds it)."""
+    L = torch.as_tensor(blur_levels, dtype=torch.float32)
+    keep = (L <= threshold).float()
+    n_keep = keep.sum()
+    return torch.where(n_keep > 0, keep / torch.clamp(n_keep, min=1.0),
+                       torch.full_like(keep, 1.0 / keep.shape[0]))
+
+
+def softmax_weights(blur_levels, temperature: float = 5.0) -> torch.Tensor:
+    L = torch.as_tensor(blur_levels, dtype=torch.float32)
+    return torch.softmax(-L / temperature, dim=0)
+
+
+def inverse_weights(blur_levels, eps: float = 1.0) -> torch.Tensor:
+    L = torch.as_tensor(blur_levels, dtype=torch.float32)
+    w = 1.0 / (L + eps)
+    return w / w.sum()
+
+
+def _weights_flsimco(cohort, cfg):
+    return flsimco_weights(cohort.valid_blur, cfg.normalize_weights)
+
+
+def _weights_fedavg(cohort, cfg):
+    return torch.full((cohort.n,), 1.0 / cohort.n, dtype=torch.float32,
+                      device=cohort.flat.device)
+
+
+def _weights_discard(cohort, cfg):
+    return discard_weights(cohort.valid_blur, cfg.blur_threshold)
+
+
+def _weights_softmax(cohort, cfg):
+    return softmax_weights(cohort.valid_blur)
+
+
+def _weights_inverse(cohort, cfg):
+    return inverse_weights(cohort.valid_blur)
+
+
+SCHEME_WEIGHTS = {
+    "flsimco": _weights_flsimco,
+    "fedavg": _weights_fedavg,
+    "discard": _weights_discard,
+    "softmax": _weights_softmax,
+    "inverse": _weights_inverse,
+}
+
+
+def _make_dispatch(weight_fn):
+    def dispatch(cohort, cfg):
+        return cohort_weighted_sum(cohort, weight_fn(cohort, cfg))
+    return dispatch
+
+
+AGGREGATORS = {name: _make_dispatch(fn) for name, fn in SCHEME_WEIGHTS.items()}

@@ -1,0 +1,95 @@
+"""FLSimCo Sec. 4 Step 2 image augmentations — counterpart of
+`repro.core.ssl` (`pi1`, `pi2`, `_grayscale`, `_color_jitter`).
+
+    pi1: horizontal flip (p=.5) -> grayscale (p=.2)
+    pi2: color jitter (brightness/contrast/saturation/hue, range .4,
+         p=.8) -> grayscale (p=.4) -> clip to [0, 1]
+
+The reference draws inside each view from a jax key. Here each view is a
+draw (`draw_pi1` / `draw_pi2`, from a CPU `torch.Generator`, returning
+the masks and factors) and an apply (`pi1` / `pi2`, pure functions of the
+images and the draws), so a round's plan can hold its draws and a test
+can hand the port the reference's draws. Images stay NHWC, as in the
+reference.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+GRAY_W = (0.299, 0.587, 0.114)
+
+
+def _grayscale(x: torch.Tensor) -> torch.Tensor:
+    g = (x[..., 0:1] * GRAY_W[0] + x[..., 1:2] * GRAY_W[1]
+         + x[..., 2:3] * GRAY_W[2])
+    return g.expand(x.shape)
+
+
+def _bernoulli(gen, p: float, b: int) -> torch.Tensor:
+    return torch.rand(b, generator=gen) < p
+
+
+def _uniform(gen, shape, lo: float, hi: float) -> torch.Tensor:
+    return lo + (hi - lo) * torch.rand(shape, generator=gen)
+
+
+def draw_pi1(gen: torch.Generator, b: int) -> dict:
+    """pi1's random choices for a batch of b: flip and grayscale masks."""
+    return {"flip": _bernoulli(gen, 0.5, b), "gray": _bernoulli(gen, 0.2, b)}
+
+
+def draw_pi2(gen: torch.Generator, b: int, rng: float = 0.4) -> dict:
+    """pi2's random choices: apply/grayscale masks, jitter factors
+    (b,1,1,1) in [1-rng, 1+rng] and hue (b,1,1) in [-rng, rng]."""
+    return {"apply": _bernoulli(gen, 0.8, b),
+            "brightness": _uniform(gen, (b, 1, 1, 1), 1 - rng, 1 + rng),
+            "contrast": _uniform(gen, (b, 1, 1, 1), 1 - rng, 1 + rng),
+            "saturation": _uniform(gen, (b, 1, 1, 1), 1 - rng, 1 + rng),
+            "hue": _uniform(gen, (b, 1, 1), -rng, rng),
+            "gray": _bernoulli(gen, 0.4, b)}
+
+
+def draws_to(draws: dict, device) -> dict:
+    return {k: v.to(device) for k, v in draws.items()}
+
+
+def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    return torch.where(mask[:, None, None, None], a, b)
+
+
+def _color_jitter(x: torch.Tensor, d: dict) -> torch.Tensor:
+    x = x * d["brightness"]
+    mean = x.mean(dim=(1, 2, 3), keepdim=True)
+    x = (x - mean) * d["contrast"] + mean
+    g = _grayscale(x)
+    x = g + (x - g) * d["saturation"]
+    # hue: rotate chroma around the gray axis (small-angle YIQ rotation)
+    theta = d["hue"][..., None] * math.pi
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    y = _grayscale(x)
+    r, g_, b = x[..., 0:1], x[..., 1:2], x[..., 2:3]
+    i = 0.596 * r - 0.274 * g_ - 0.322 * b
+    q = 0.211 * r - 0.523 * g_ + 0.312 * b
+    i2 = cos * i - sin * q
+    q2 = sin * i + cos * q
+    yv = y[..., 0:1]
+    return torch.cat([
+        yv + 0.956 * i2 + 0.621 * q2,
+        yv - 0.272 * i2 - 0.647 * q2,
+        yv - 1.106 * i2 + 1.703 * q2,
+    ], dim=-1)
+
+
+def pi1(x: torch.Tensor, d: dict) -> torch.Tensor:
+    """Horizontal flip -> grayscale. x: (B,H,W,3) in [0,1]."""
+    x = _where(d["flip"], x.flip(2), x)
+    return _where(d["gray"], _grayscale(x), x)
+
+
+def pi2(x: torch.Tensor, d: dict) -> torch.Tensor:
+    """Color jitter -> grayscale -> clip to [0, 1]."""
+    x = _where(d["apply"], _color_jitter(x, d), x)
+    x = _where(d["gray"], _grayscale(x), x)
+    return torch.clamp(x, 0.0, 1.0)

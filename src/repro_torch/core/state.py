@@ -1,0 +1,114 @@
+"""Explicit federated-learning state — counterpart of `repro.core.state`
+(`FLConfig`, `FLState`, `pack_host_rng`, `unpack_host_rng`).
+
+`FLState` holds everything that changes from round to round: the RSU
+model, the packed host `numpy.random.RandomState` (cohort ids and batch
+indices, MT19937 — bitwise the reference's stream) and the state of the
+CPU `torch.Generator` that takes the place of the reference's jax key
+(velocities, augmentation draws). So
+
+    state, rec = run_round(state, scenario)      # core/scenario.py
+
+is pure: the same state in gives the same state out.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.mobility import BLUR_KMH_100
+
+ROADMAP_FOR = {
+    "client": "ROADMAP.md Queue A, item 7 (FedCo)",
+    "codec": "ROADMAP.md Queue A, item 5 (codecs)",
+    "topology": "ROADMAP.md Queue A, item 8 (MultiRSU, handover)",
+}
+
+
+def not_ported(what: str, value) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}={value!r} is not ported to repro_torch yet; see "
+        f"{ROADMAP_FOR[what]}")
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    n_vehicles: int = 95          # fleet size (Table 1)
+    vehicles_per_round: int = 5   # N_r (Fig. 5: 5 or 10)
+    local_iters: int = 1          # local SGD iterations per round
+    batch_size: int = 512         # Table 1 / Sec. 5.2
+    rounds: int = 150             # R^max
+    lr: float = 0.9               # Table 1 (cosine annealed)
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    tau_alpha: float = 0.1
+    tau_beta: float = 1.0
+    aggregator: str = "flsimco"   # any AGGREGATORS name
+    client: Optional[str] = None  # None selects "dtssl", the only port
+    blur_threshold: float = BLUR_KMH_100   # in blur units (Eq. 2)
+    normalize_weights: bool = True
+    codec: str = "identity"
+    seed: int = 0
+
+    def __post_init__(self):
+        from repro_torch.core.aggregation import AGGREGATORS
+        if self.aggregator == "fedco" or self.client not in (None, "dtssl"):
+            raise not_ported("client", self.client or "fedco")
+        if self.client is None:
+            object.__setattr__(self, "client", "dtssl")
+        if self.aggregator not in AGGREGATORS:
+            raise ValueError(f"unknown aggregator {self.aggregator!r}; "
+                             f"valid: {sorted(AGGREGATORS)}")
+        if self.codec != "identity":
+            raise not_ported("codec", self.codec)
+
+
+def pack_host_rng(rng: np.random.RandomState) -> dict:
+    """Serialize a `RandomState` into a dict of arrays."""
+    name, keys, pos, has_gauss, cached = rng.get_state(legacy=True)
+    if name != "MT19937":
+        raise ValueError(f"expected an MT19937 RandomState, got {name}")
+    return {"mt_keys": np.asarray(keys, np.uint32),
+            "mt_pos": np.int64(pos),
+            "has_gauss": np.int64(has_gauss),
+            "cached_gaussian": np.float64(cached)}
+
+
+def unpack_host_rng(packed: dict) -> np.random.RandomState:
+    """Rebuild the `RandomState` a `pack_host_rng` snapshot described."""
+    rng = np.random.RandomState()
+    rng.set_state(("MT19937",
+                   np.asarray(packed["mt_keys"], np.uint32),
+                   int(packed["mt_pos"]),
+                   int(packed["has_gauss"]),
+                   float(packed["cached_gaussian"])))
+    return rng
+
+
+def generator_from(gen_state: torch.Tensor) -> torch.Generator:
+    gen = torch.Generator()
+    gen.set_state(gen_state)
+    return gen
+
+
+@dataclass(frozen=True)
+class FLState:
+    """One immutable snapshot of the federated state machine.
+
+    global_tree   RSU model ({"params", "state"} dict of tensors)
+    gen_state     CPU torch.Generator state (velocities, augmentations)
+    host_rng      packed numpy RandomState (cohort + batch-index draws)
+    round         next round index (drives the cosine LR schedule)
+    """
+
+    global_tree: Any
+    gen_state: torch.Tensor
+    host_rng: dict
+    round: int = 0
+
+    def replace(self, **kw) -> "FLState":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,86 @@
+"""Public wrappers around the port's kernels — counterpart of
+`repro.kernels.ops` (`wagg_flat`, `dt_loss`).
+
+Each wrapper runs the hand-written CUDA kernel when its tensors lie on a
+CUDA device and the plain version (kernels/ref.py) when they lie on the
+CPU. There is no other path: a CUDA input the kernel refuses raises, and
+a failed build or launch raises too.
+
+* ``wagg_flat(stacked (m, P), w (m,), mask=None)`` — Eq.-11 weighted sum.
+* ``dt_loss(q, k, tau_alpha, tau_beta)`` — mean DT loss, differentiable:
+  a `torch.autograd.Function` whose forward is the DT kernel and whose
+  backward is the plain-torch port of the reference's `_dt_bwd` (the
+  reference has no backward kernel either), with the Eq.-6 weight
+  treated as a constant.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import dt_loss as _dt_kernel
+from repro_torch.kernels import wagg as _wagg_kernel
+
+
+def _on_cuda(*ts) -> bool:
+    devs = {t.device.type for t in ts if t is not None}
+    if devs == {"cuda"}:
+        return True
+    if devs == {"cpu"}:
+        return False
+    raise ValueError(f"inputs must all lie on one CUDA device or all on the "
+                     f"CPU, got {sorted(devs)}")
+
+
+def wagg_flat(stacked: torch.Tensor, w: torch.Tensor,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """stacked (m, P) x w (m,) -> (P,) float32; `mask` (m,) zeroes rows
+    (padding rows of a bucketed cohort) inside the kernel."""
+    if _on_cuda(stacked, w, mask):
+        return _wagg_kernel.wagg_cuda(stacked, w, mask)
+    return ref.wagg_ref(stacked, w, mask)
+
+
+def dt_loss_fwd(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
+                tau_beta: float):
+    """(loss_vec, lse_a, lse_b, pos), each (M,) float32."""
+    if _on_cuda(q, k):
+        return _dt_kernel.dt_loss_fwd_cuda(q, k, tau_alpha, tau_beta)
+    return ref.dt_loss_fwd_ref(q, k, tau_alpha, tau_beta)
+
+
+class _DTLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, tau_alpha, tau_beta):
+        loss_vec, lse_a, lse_b, pos = dt_loss_fwd(q, k, tau_alpha, tau_beta)
+        ctx.save_for_backward(q, k, lse_a, lse_b, pos)
+        ctx.taus = (tau_alpha, tau_beta)
+        return loss_vec.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        """d/dq, d/dk of mean_i [-w_i (pos_i/ta - lse_a_i)] with w_i held
+        constant (stop-gradient, Eq. 6): dL/dsim_ij = w_i/(ta M) (p_a_ij -
+        delta_ij). Materialises the (M, M) matrix, as the reference does."""
+        q, k, lse_a, lse_b, pos = ctx.saved_tensors
+        ta, tb = ctx.taus
+        m = q.shape[0]
+        qf, kf = q.float(), k.float()
+        sim = qf @ kf.T
+        log_pa = pos / ta - lse_a
+        w_a = 1.0 - torch.exp(log_pa)
+        w_b = 1.0 - torch.exp(pos / tb - lse_b)
+        weight = w_b / torch.clamp(w_a, min=1e-8)
+        p_a = torch.exp(sim / ta - lse_a[:, None])
+        coef = (g * weight / (ta * m))[:, None]
+        dsim = coef * (p_a - torch.eye(m, dtype=torch.float32,
+                                       device=q.device))
+        dq = (dsim @ kf).to(q.dtype)
+        dk = (dsim.T @ qf).to(k.dtype)
+        return dq, dk, None, None
+
+
+def dt_loss(q: torch.Tensor, k: torch.Tensor, tau_alpha: float = 0.1,
+            tau_beta: float = 1.0) -> torch.Tensor:
+    """Mean dual-temperature loss over in-batch similarities (fused)."""
+    return _DTLoss.apply(q, k, tau_alpha, tau_beta)

@@ -22,3 +22,7 @@ def pytest_configure(config):
         "in a subprocess with XLA_FLAGS=--xla_force_host_platform_"
         "device_count=8; this conftest imports jax, so forcing cannot "
         "happen in-process)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "inside the test's fixture when torch.cuda.is_available() is False")
