@@ -13,8 +13,9 @@ the JAX package `repro`. Phases, each of which must pass:
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card, at the main path's shapes —
    * wagg at m = 5, P = 11,506,624 (ResNet-18-CIFAR's flat row): plain,
-     masked, and padded to m = 8 with n = 5 (bitwise equal to the
-     unpadded call); atol 1e-5 against `ref.wagg_ref`;
+     masked, padded to m = 8 with n = 5 (bitwise equal to the unpadded
+     call), and cut to P - 3 columns (bitwise equal to the aligned call's
+     first P - 3); atol 1e-5 against `ref.wagg_ref`;
    * dt_loss at (512, 128) and (500, 128): loss, lse_a, lse_b, pos at
      atol 2e-5 against `ref.dt_loss_fwd_ref`; gradients of the mean loss
      through the autograd.Function at atol 1e-5 against autograd of the
@@ -122,6 +123,15 @@ def kernel_phase(dev):
     if not err <= WAGG_TOL:
         raise AssertionError(f"wagg: max abs err {err} > {WAGG_TOL}")
     del xp
+    # P % 4 == 1: rows are no longer 16-byte aligned, so every column
+    # takes the kernel's column-by-column branch, with the same sums
+    xr = x[:, :WAGG_P - 3].contiguous()
+    out_r = ops.wagg_flat(xr, w)
+    torch.cuda.synchronize()
+    if not torch.equal(out_r, out[:WAGG_P - 3]):
+        raise AssertionError("wagg: ragged call (P % 4 == 1) is not bitwise "
+                             "equal to the aligned call")
+    del xr
     ms = _time_ms(lambda: ops.wagg_flat(x, w, ones))
     plain_ms = _time_ms(lambda: ref.wagg_ref(x, w, ones))
     lib_ms = _time_ms(lambda: torch.matmul(w, x))
@@ -136,7 +146,7 @@ def kernel_phase(dev):
                  "bound_by": "bytes" if b_bytes >= b_ops else "operations",
                  "library_ms": lib_ms})
     print(f"[kernels] wagg m={m} P={WAGG_P}: max_abs_err={err:.3e} "
-          f"padded==unpadded bitwise; kernel {ms:.4f} ms, plain "
+          f"padded==unpadded, ragged==aligned bitwise; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, w@x {lib_ms:.4f} ms", flush=True)
     del x
 

@@ -15,8 +15,9 @@ row layout of convert.py, so aggregation reads the buffer as it is.
   velocities  (m,) per-client velocities (attached by the topology)
   blur        (m,) Eq.-2 blur levels (attached by the topology)
 
-Padding rows (m > n) replicate a finite row and get weight 0, so the
-masked aggregation is bitwise equal to the unpadded one.
+Padding rows (m > n) are allocated as zeros and get weight 0, so the
+masked aggregation (fmaf(0, 0, acc) == acc) is bitwise equal to the
+unpadded one.
 """
 from __future__ import annotations
 
@@ -42,13 +43,14 @@ class CohortBatch:
     @classmethod
     def empty(cls, spec: FlatSpec, m: int, n: Optional[int] = None,
               device="cpu") -> "CohortBatch":
-        """An (m, P) buffer for m rows, n of them valid (default m)."""
+        """An (m, P) buffer for m rows, n of them valid (default m); the
+        m - n padding rows are zero."""
         n = m if n is None else int(n)
         if not 1 <= n <= m:
             raise ValueError(f"valid count {n} not in [1, {m}]")
-        return cls(flat=torch.empty((m, spec.size), dtype=torch.float32,
-                                    device=device),
-                   spec=spec,
+        flat = torch.empty((m, spec.size), dtype=torch.float32, device=device)
+        flat[n:].zero_()
+        return cls(flat=flat, spec=spec,
                    losses=torch.zeros(m, dtype=torch.float32, device=device),
                    mask=(torch.arange(m, device=device) < n).float(), n=n)
 

@@ -8,9 +8,9 @@
     state, rec = run_round(state, sc)            # one pure round
     state, history = run(sc, state, rounds=5)    # or many
 
-Same signatures as the reference, plus ``device``: the scenario runs on
-CUDA unless ``device="cpu"`` is passed, and raises if CUDA is asked for
-and missing. Building a scenario turns on the float32 parity mode
+Same signatures as the reference; `Scenario` also takes ``device``: the
+scenario runs on CUDA unless ``device="cpu"`` is passed, and raises if
+CUDA is asked for and missing. Building a scenario turns on the float32 parity mode
 (runtime.py). Slice 1 accepts ``topology="single"``, ``client="dtssl"``
 and ``codec="identity"``; anything else raises NotImplementedError naming
 the ROADMAP.md entry that ports it.
@@ -145,17 +145,15 @@ class Scenario:
                        round=0)
 
 
-def run_round(state: FLState, scenario: Scenario, parallel: bool = True,
-              device=None):
+def run_round(state: FLState, scenario: Scenario, parallel: bool = True):
     """One federated round: (state, scenario) -> (state, record). Pure.
-    `device` defaults to the scenario's."""
-    return scenario.topology.run_round(state, scenario, parallel=parallel,
-                                       device=device)
+    Runs on the scenario's device."""
+    return scenario.topology.run_round(state, scenario, parallel=parallel)
 
 
 def run(scenario: Scenario, state: Optional[FLState] = None,
         rounds: Optional[int] = None, parallel: bool = True,
-        log_every: int = 0, publish=None, device=None):
+        log_every: int = 0, publish=None):
     """Run `rounds` rounds (default cfg.rounds) from `state` (default the
     scenario's round-0 state). Returns (final state, list of records).
     ``publish(round, tree)`` is called after every round."""
@@ -163,8 +161,7 @@ def run(scenario: Scenario, state: Optional[FLState] = None,
         state = scenario.init_state()
     history = []
     for _ in range(rounds if rounds is not None else scenario.cfg.rounds):
-        state, rec = run_round(state, scenario, parallel=parallel,
-                               device=device)
+        state, rec = run_round(state, scenario, parallel=parallel)
         history.append(rec)
         if publish is not None:
             publish(state.round, state.global_tree)

@@ -16,6 +16,10 @@ A round is split as the reference splits it:
 * `SingleRSU.execute` runs a plan: batches, motion blur, local training,
   Eq.-11 aggregation, the round record.
 
+The phases are marked with `torch.profiler.record_function` ranges
+(``round.plan``, ``round.batches``, ``round.clients``,
+``round.aggregate``), which `trace_round` reads from a profiled round.
+
 So a test can hand `execute` a plan whose draws were replayed from the
 reference's keys.
 """
@@ -25,6 +29,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.convert import tree_map
 from repro_torch.core import aggregation as agg
@@ -33,7 +38,6 @@ from repro_torch.core.clients import CLIENT_UPDATES
 from repro_torch.core.mobility import apply_motion_blur
 from repro_torch.core.state import (FLState, generator_from, pack_host_rng,
                                     unpack_host_rng)
-from repro_torch.runtime import resolve_device
 
 
 @dataclass(frozen=True)
@@ -90,36 +94,38 @@ class SingleRSU:
 
     name = "single"
 
-    def run_round(self, state: FLState, scenario, parallel: bool = True,
-                  device=None):
+    def run_round(self, state: FLState, scenario, parallel: bool = True):
         """One round: (state, scenario) -> (new state, record). `parallel`
         is accepted for the reference's signature; the port trains the
         cohort client by client either way."""
-        rng = unpack_host_rng(state.host_rng)
-        gen = generator_from(state.gen_state)
-        plan = _cohort_plan(rng, gen, state.round, scenario)
+        with record_function("round.plan"):
+            rng = unpack_host_rng(state.host_rng)
+            gen = generator_from(state.gen_state)
+            plan = _cohort_plan(rng, gen, state.round, scenario)
         tree, rec = self.execute(state.global_tree, scenario, plan,
-                                 state.round, device)
+                                 state.round)
         return state.replace(global_tree=tree, gen_state=gen.get_state(),
                              host_rng=pack_host_rng(rng),
                              round=state.round + 1), rec
 
-    def execute(self, tree: dict, scenario, plan: CohortPlan, rnd: int,
-                device=None):
-        """Run `plan` from the global `tree`. Returns (new tree, record)."""
-        cfg, mob = scenario.cfg, scenario.mobility
-        device = scenario.device if device is None else resolve_device(device)
-        tree = tree_map(lambda t: t.to(device), tree)
-        batches = [_client_images(scenario, c, idx, v, device)
-                   for c, idx, v in zip(plan.ids, plan.batch_idx,
-                                        plan.velocities)]
-        draws = [[(ssl.draws_to(d1, device), ssl.draws_to(d2, device))
-                  for d1, d2 in client] for client in plan.draws]
-        cohort = CLIENT_UPDATES[cfg.client].run_cohort(cfg, tree, batches,
-                                                       draws, plan.lr)
-        v = plan.velocities.to(device)
-        cohort = cohort.with_stats(velocities=v, blur=mob.blur_level(v))
-        new_tree = agg.AGGREGATORS[cfg.aggregator](cohort, cfg)
+    def execute(self, tree: dict, scenario, plan: CohortPlan, rnd: int):
+        """Run `plan` from the global `tree` on the scenario's device.
+        Returns (new tree, record)."""
+        cfg, mob, device = scenario.cfg, scenario.mobility, scenario.device
+        with record_function("round.batches"):
+            tree = tree_map(lambda t: t.to(device), tree)
+            batches = [_client_images(scenario, c, idx, v, device)
+                       for c, idx, v in zip(plan.ids, plan.batch_idx,
+                                            plan.velocities)]
+            draws = [[(ssl.draws_to(d1, device), ssl.draws_to(d2, device))
+                      for d1, d2 in client] for client in plan.draws]
+        with record_function("round.clients"):
+            cohort = CLIENT_UPDATES[cfg.client].run_cohort(
+                cfg, tree, batches, draws, plan.lr)
+        with record_function("round.aggregate"):
+            v = plan.velocities.to(device)
+            cohort = cohort.with_stats(velocities=v, blur=mob.blur_level(v))
+            new_tree = agg.AGGREGATORS[cfg.aggregator](cohort, cfg)
         losses = cohort.valid_losses.cpu().numpy().astype(np.float64)
         rec = {"round": rnd, "loss": float(np.mean(losses)),
                "velocities": plan.velocities.tolist(), "lr": plan.lr,

@@ -10,6 +10,7 @@ plain version and the gradient live in `kernels.ops`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,7 +22,9 @@ MAX_D = 256      # shared-memory tiles of csrc/dt_loss.cu
 _c = ctypes
 
 
+@functools.cache
 def _lib():
+    """The configured C entry point (built and loaded at first launch)."""
     fn = build.load("dt_loss").dt_loss_fwd_launch
     fn.argtypes = [_c.c_void_p] * 6 + [_c.c_int, _c.c_int, _c.c_int,
                                        _c.c_float, _c.c_float, _c.c_void_p]

@@ -11,6 +11,7 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,9 +22,10 @@ LAUNCHES = 0
 _c = ctypes
 
 
+@functools.cache
 def _lib():
-    lib = build.load("wagg")
-    fn = lib.wagg_launch
+    """The configured C entry point (built and loaded at first launch)."""
+    fn = build.load("wagg").wagg_launch
     fn.argtypes = [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                    _c.c_int, _c.c_longlong, _c.c_void_p]
     fn.restype = _c.c_int

@@ -4,18 +4,16 @@
 
 (with ``src`` on PYTHONPATH, on a machine with one CUDA card). Builds the
 paper's Table-1 scenario (as chip_smoke.py's main path does), warms up,
-then measures one more round two ways:
+then runs one more round under `torch.profiler` and reports:
 
-* phases on the host clock, each ended by ``torch.cuda.synchronize()``:
-  the plan (host RNG + generator draws), batch gather + motion blur, the
-  client steps, the Eq.-11 aggregation — the same calls
-  `SingleRSU.execute` makes, made one at a time;
-* the whole round under `torch.profiler`: device time by kernel, and the
-  device's busy and idle share of the round's wall time.
+* each phase that `SingleRSU` marks with a ``round.*`` range (plan,
+  batches, clients, aggregate): its host time, and the device span of
+  the kernels launched inside it;
+* device time by kernel and by host op, and the device's busy and idle
+  share of the round's wall time.
 
 Prints one JSON line, and with ``--out DIR`` also writes the profiler's
-chrome trace there. The profiler's own overhead is only in the profiled
-round; the phase round runs unprofiled.
+chrome trace there. All times include the profiler's own overhead.
 """
 from __future__ import annotations
 
@@ -27,49 +25,14 @@ import time
 
 import torch
 
-from repro_torch.core import aggregation as agg
-from repro_torch.core import ssl
-from repro_torch.core.clients import CLIENT_UPDATES
 from repro_torch.core.scenario import Scenario, run_round
-from repro_torch.core.state import generator_from, unpack_host_rng
-from repro_torch.core.topology import _client_images, _cohort_plan
 from repro_torch.kernels import build
 
 TABLE1 = dict(topology="single", client="dtssl", aggregator="flsimco",
               partitioner="dirichlet", alpha=0.1, n_per_class=5000,
               min_per_client=520, n_vehicles=95, vehicles_per_round=5,
               batch_size=512, local_iters=1)
-
-
-def _phase_round(sc, state) -> dict:
-    """One round, phase by phase (what SingleRSU.execute does)."""
-    cfg, mob, dev = sc.cfg, sc.mobility, sc.device
-    out = {}
-
-    def lap(name, t0):
-        torch.cuda.synchronize()
-        out[name] = time.perf_counter() - t0
-        return time.perf_counter()
-
-    t = time.perf_counter()
-    rng, gen = unpack_host_rng(state.host_rng), generator_from(state.gen_state)
-    plan = _cohort_plan(rng, gen, state.round, sc)
-    t = lap("plan_s", t)
-    batches = [_client_images(sc, c, idx, v, dev)
-               for c, idx, v in zip(plan.ids, plan.batch_idx,
-                                    plan.velocities)]
-    draws = [[(ssl.draws_to(a, dev), ssl.draws_to(b, dev)) for a, b in cl]
-             for cl in plan.draws]
-    t = lap("batches_s", t)
-    cohort = CLIENT_UPDATES[cfg.client].run_cohort(
-        cfg, state.global_tree, batches, draws, plan.lr)
-    t = lap("clients_s", t)
-    v = plan.velocities.to(dev)
-    cohort = cohort.with_stats(velocities=v, blur=mob.blur_level(v))
-    agg.AGGREGATORS[cfg.aggregator](cohort, cfg)
-    lap("aggregate_s", t)
-    out["round_s"] = sum(out.values())
-    return out
+PHASE = "round."
 
 
 def _profiled_round(sc, state, out_dir) -> dict:
@@ -86,11 +49,27 @@ def _profiled_round(sc, state, out_dir) -> dict:
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "trace_round.json"))
+    # the round.* ranges appear as host ranges and as device annotations
+    # (one per stream the range launched on); a phase's device span runs
+    # from the first annotation's start to the last one's end
+    phases, spans = {}, {}
+    for e in prof.events():
+        if not e.name.startswith(PHASE):
+            continue
+        ph = phases.setdefault(e.name[len(PHASE):], {})
+        if e.device_type == DeviceType.CUDA:
+            lo, hi = spans.get(e.name, (e.time_range.start, e.time_range.end))
+            spans[e.name] = (min(lo, e.time_range.start),
+                             max(hi, e.time_range.end))
+            ph["device_span_ms"] = (spans[e.name][1] - spans[e.name][0]) / 1e3
+        else:
+            ph["host_ms"] = e.time_range.elapsed_us() / 1e3
+    events = prof.key_averages()
     # kernels are the device-side events; host-side aten ops carry the
     # device time of the kernels they launched as their "self" time
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    ops = [e for e in events if e.device_type == DeviceType.CPU
+    real = [e for e in events if not e.key.startswith(PHASE)]
+    kernels = [e for e in real if e.device_type == DeviceType.CUDA]
+    ops = [e for e in real if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
 
@@ -99,7 +78,8 @@ def _profiled_round(sc, state, out_dir) -> dict:
         return [{"name": e.key[:90], "count": e.count,
                  "device_ms": e.self_device_time_total / 1e3} for e in evs]
 
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+    return {"wall_s": wall, "phases": phases,
+            "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": sum(e.count for e in kernels),
             "top_ops": top(ops, 12), "top_kernels": top(kernels, 8)}
@@ -108,7 +88,7 @@ def _profiled_round(sc, state, out_dir) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rounds", type=int, default=2,
-                   help="unmeasured warm-up rounds before the two measured")
+                   help="unmeasured warm-up rounds before the profiled one")
     p.add_argument("--out", default=None,
                    help="directory for the chrome trace (none by default)")
     args = p.parse_args(argv)
@@ -118,12 +98,11 @@ def main(argv=None) -> int:
     for _ in range(args.rounds):
         state, _ = run_round(state, sc)
     torch.cuda.synchronize()
-    phases = _phase_round(sc, state)
     prof = _profiled_round(sc, state, args.out)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "phases": phases, "profiled": prof,
+    print(json.dumps({"card": smi, "profiled": prof,
                       "peak_mem_gib": torch.cuda.max_memory_allocated()
                       / 2 ** 30}))
     return 0

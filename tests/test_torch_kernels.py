@@ -160,6 +160,10 @@ def test_wagg_kernel_matches_plain_on_card(cuda, N, P):
     wp = torch.cat([w, w.new_zeros(3)])
     mp = torch.cat([torch.ones_like(w), w.new_zeros(3)])
     assert torch.equal(ops.wagg_flat(xp, wp, mp), ops.wagg_flat(x, w))
+    # a misaligned stack takes the column-by-column branch: same sums
+    xm = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(N, P)
+    assert xm.is_contiguous() and xm.data_ptr() % 16
+    assert torch.equal(ops.wagg_flat(xm, w, mask), out)
     with pytest.raises(ValueError):
         ops.wagg_flat(x.double(), w.double())
 

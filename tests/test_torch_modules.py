@@ -331,8 +331,8 @@ def test_padded_cohort_aggregates_bitwise_like_unpadded(name):
     out = []
     for m in (3, 4):
         c = CohortBatch.empty(spec, m, n=3)
-        for i in range(m):               # padding replicates the last row
-            c.write(i, trees[min(i, 2)], 0.0)
+        for i in range(3):               # padding rows stay as allocated
+            c.write(i, trees[i], 0.0)
         c = c.with_stats(velocities=blur / 0.58, blur=blur)
         out.append(convert.ravel(tagg.AGGREGATORS[name](c, FLConfig())))
     assert torch.equal(out[0], out[1])
