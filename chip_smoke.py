@@ -28,6 +28,27 @@ the JAX package `repro`. Phases, each of which must pass:
    Dirichlet 0.1, 5 per round, batch 512, ResNet-18-CIFAR at full width)
    through `Scenario` / `run_round`, with every kernel launch counter set
    to 0 just before and read just after.
+5. Comms path: 3 more Table-1 rounds from round 0 with
+   ``codec="delta_int8"`` through `Scenario` / `run`, each published into
+   a ``ModelStore(codec="delta_int8")`` bootstrapped with round 0; the
+   counters, zeroed just before, must read q8_encode 6 and q8_decode 6
+   (3 cohort roundtrips, 3 publishes), wagg 3 and dt_loss 15.
+6. Serve path: a fleet of 95 vehicles fetches from an
+   ``RSUServer(start=False)`` over that store, driven by `drain_once`,
+   with held rounds that give every reply kind (current, delta, full,
+   shed); every applied reply must be bitwise the served tree, no request
+   lost, and q8_decode launched once per delta hop applied (counters
+   zeroed just before). Then a short threaded pass through
+   `repro_torch.launch.serve.serve_campaign` (served/s, fetch p50/p99),
+   and one more round with ``codec="delta"`` and with
+   ``codec="identity"`` from the same state, bitwise equal on the card.
+
+The q8 kernels are held against their plain versions in phase 2, at
+(5, Ppad) and (1, Ppad), Ppad = 11,506,688: codes, scales, residuals and
+the decode bitwise equal; a ragged P (through `ops`) bitwise equal to the
+aligned call's columns; an all-zero block decodes to zeros. The library
+yardstick of the decode is ``torch.mul(codes.view(N, -1, 256),
+scales[..., None])``; the encode has none.
 
 The last three lines of standard output are the ``kernels`` JSON line,
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``. On any
@@ -50,6 +71,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
 WAGG_P = 11_506_624         # ResNet-18-CIFAR params + BN stats
+BQ = 256                    # q8 block: parameters sharing one scale
+Q8_PPAD = -(-WAGG_P // BQ) * BQ
 WAGG_TOL = 1e-5
 DT_FWD_TOL = 2e-5
 DT_GRAD_TOL = 1e-5
@@ -88,6 +111,12 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def _max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def _bound(nbytes: float, flops: float):
+    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                       else "operations")
 
 
 def kernel_phase(dev):
@@ -135,15 +164,13 @@ def kernel_phase(dev):
     ms = _time_ms(lambda: ops.wagg_flat(x, w, ones))
     plain_ms = _time_ms(lambda: ref.wagg_ref(x, w, ones))
     lib_ms = _time_ms(lambda: torch.matmul(w, x))
-    nbytes = 4 * (m * WAGG_P + WAGG_P + 2 * m)
-    flops = 2 * m * WAGG_P
-    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    bound_ms, bound_by = _bound(4 * (m * WAGG_P + WAGG_P + 2 * m),
+                                2 * m * WAGG_P)
     rows.append({"name": "wagg", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/wagg.cu",
                  "replaces": "src/repro/kernels/wagg.py:26",
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": 1e3 * max(b_bytes, b_ops),
-                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                 "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": lib_ms})
     print(f"[kernels] wagg m={m} P={WAGG_P}: max_abs_err={err:.3e} "
           f"padded==unpadded, ragged==aligned bitwise; kernel {ms:.4f} ms, plain "
@@ -182,19 +209,89 @@ def kernel_phase(dev):
                       _time_ms(lambda: ref.dt_loss_fwd_ref(q, k, 0.1, 1.0),
                                iters=200))
     M, D = 512, 128
-    b_bytes = 4 * (2 * M * D + 4 * M) / HBM_BYTES_PER_S
-    b_ops = 2 * M * M * D / F32_FLOP_PER_S
+    bound_ms, bound_by = _bound(4 * (2 * M * D + 4 * M), 2 * M * M * D)
     rows.append({"name": "dt_loss", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/dt_loss.cu",
                  "replaces": "src/repro/kernels/dt_loss.py:33",
                  "max_abs_err": max(errs), "ms": timing[0],
-                 "plain_ms": timing[1],
-                 "bound_ms": 1e3 * max(b_bytes, b_ops),
-                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                 "library_ms": None})
+                 "plain_ms": timing[1], "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None})
     print(f"[kernels] dt_loss (512,128): kernel {timing[0]:.4f} ms, plain "
           f"{timing[1]:.4f} ms", flush=True)
     return rows
+
+
+def q8_kernels(dev):
+    """q8_encode / q8_decode against the plain versions at (5, Ppad) (the
+    cohort roundtrip) and (1, Ppad) (a snapshot publish or fetch)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    times = {}
+    for n in (5, 1):
+        x = torch.randn((n, Q8_PPAD), generator=g, device=dev) * 1e-2
+        e = torch.randn((n, Q8_PPAD), generator=g, device=dev) * 1e-4
+        x[:, WAGG_P:] = 0.0      # the codec's zero padding past P
+        e[:, WAGG_P:] = 0.0
+        x[:, :BQ] = 0.0          # one all-zero block
+        e[:, :BQ] = 0.0
+        codes, scales, new_ef = ops.q8_encode_flat(x, e)
+        out = ops.q8_decode_flat(codes, scales)
+        c_r, s_r, e_r = ref.q8_encode_ref(x, e)
+        out_r = ref.q8_decode_ref(codes, scales)
+        # ragged P (not a multiple of 256): ops pads it with zeros
+        c_g, s_g, e_g = ops.q8_encode_flat(x[:, :WAGG_P], e[:, :WAGG_P])
+        out_g = ops.q8_decode_flat(c_g, s_g)
+        torch.cuda.synchronize()
+        if not (torch.equal(codes, c_r) and torch.equal(scales, s_r)
+                and torch.equal(new_ef, e_r)):
+            raise AssertionError(f"q8_encode ({n}, Ppad): not bitwise equal "
+                                 f"to the plain version")
+        if not torch.equal(out, out_r):
+            raise AssertionError(f"q8_decode ({n}, Ppad): not bitwise equal "
+                                 f"to the plain version")
+        if not (torch.equal(c_g, codes[:, :WAGG_P])
+                and torch.equal(s_g, scales)
+                and torch.equal(e_g, new_ef[:, :WAGG_P])
+                and torch.equal(out_g, out[:, :WAGG_P])):
+            raise AssertionError(f"q8 ({n}, {WAGG_P}): ragged call is not "
+                                 f"bitwise equal to the aligned call")
+        if scales[:, 0].any() or codes[:, :BQ].any() or out[:, :BQ].any():
+            raise AssertionError("q8: the all-zero block does not decode "
+                                 "to zeros")
+        del c_r, s_r, e_r, out_r, c_g, s_g, e_g, out_g
+        times[n] = (
+            _time_ms(lambda: ops.q8_encode_flat(x, e)),
+            _time_ms(lambda: ref.q8_encode_ref(x, e)),
+            _time_ms(lambda: ops.q8_decode_flat(codes, scales)),
+            _time_ms(lambda: ref.q8_decode_ref(codes, scales)),
+            _time_ms(lambda: torch.mul(codes.view(n, -1, BQ),
+                                       scales[..., None])))
+        print(f"[kernels] q8 ({n}, {Q8_PPAD}): codes, scales, new_ef and "
+              f"decode bitwise equal to the plain versions, ragged "
+              f"P={WAGG_P} == aligned, zero block exact; encode "
+              f"{times[n][0]:.4f} ms (plain {times[n][1]:.4f}), decode "
+              f"{times[n][2]:.4f} ms (plain {times[n][3]:.4f}, torch.mul "
+              f"{times[n][4]:.4f})", flush=True)
+        del x, e, codes, scales, new_ef, out
+    n, elems = 5, 5 * Q8_PPAD
+    blocks = elems // BQ
+    enc_bound = _bound(elems * (4 + 4 + 1 + 4) + blocks * 4,
+                       elems * 5 + blocks * 2)
+    dec_bound = _bound(elems * (1 + 4) + blocks * 4, elems)
+    common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/"
+              "qdelta.cu", "max_abs_err": 0.0}
+    enc_ms, enc_plain, dec_ms, dec_plain, dec_lib = times[n]
+    return [dict(common, name="q8_encode",
+                 replaces="src/repro/kernels/qdelta.py:32", ms=enc_ms,
+                 plain_ms=enc_plain, bound_ms=enc_bound[0],
+                 bound_by=enc_bound[1], library_ms=None),
+            dict(common, name="q8_decode",
+                 replaces="src/repro/kernels/qdelta.py:46", ms=dec_ms,
+                 plain_ms=dec_plain, bound_ms=dec_bound[0],
+                 bound_by=dec_bound[1], library_ms=dec_lib)]
 
 
 def cross_check(dev):
@@ -233,8 +330,22 @@ def cross_check(dev):
                              f"abs {max_abs}, relative {rel}")
 
 
+def _zero_counts() -> None:
+    from repro_torch.kernels import dt_loss, qdelta, wagg
+    wagg.LAUNCHES = dt_loss.LAUNCHES = 0
+    qdelta.ENCODE_LAUNCHES = qdelta.DECODE_LAUNCHES = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import dt_loss, qdelta, wagg
+    return {"wagg": wagg.LAUNCHES, "dt_loss": dt_loss.LAUNCHES,
+            "q8_encode": qdelta.ENCODE_LAUNCHES,
+            "q8_decode": qdelta.DECODE_LAUNCHES}
+
+
 def main_path(dev):
-    """3 Table-1 rounds; returns launches per kernel."""
+    """3 Table-1 rounds; returns (launches per kernel, the scenario, the
+    final state)."""
     import math
 
     import torch
@@ -242,14 +353,10 @@ def main_path(dev):
     from repro_torch.convert import ravel
     from repro_torch.core.aggregation import flsimco_weights
     from repro_torch.core.scenario import Scenario, run_round
-    from repro_torch.kernels import dt_loss as dt_kernel
-    from repro_torch.kernels import wagg as wagg_kernel
+    from repro_torch.trace_round import TABLE1
 
     t0 = time.time()
-    sc = Scenario(topology="single", client="dtssl", aggregator="flsimco",
-                  partitioner="dirichlet", alpha=0.1, n_per_class=5000,
-                  min_per_client=520, n_vehicles=95, vehicles_per_round=5,
-                  batch_size=512, local_iters=1, device=dev)
+    sc = Scenario(device=dev, **TABLE1)
     state = sc.init_state()
     print(f"[main] data {len(sc.dataset[0])} images over "
           f"{len(sc.data)} vehicles, set-up {time.time() - t0:.2f} s",
@@ -257,8 +364,7 @@ def main_path(dev):
     before = ravel(state.global_tree).clone()
     rounds = 3
     torch.cuda.synchronize()
-    wagg_kernel.LAUNCHES = 0
-    dt_kernel.LAUNCHES = 0
+    _zero_counts()
     for _ in range(rounds):
         t = time.time()
         state, rec = run_round(state, sc)
@@ -272,7 +378,7 @@ def main_path(dev):
             raise AssertionError(f"round {rec['round']}: loss not finite")
         if abs(float(w.sum()) - 1.0) > 1e-6:
             raise AssertionError(f"Eq.-11 weights sum to {float(w.sum())}")
-    launches = {"wagg": wagg_kernel.LAUNCHES, "dt_loss": dt_kernel.LAUNCHES}
+    launches = _counts()
     after = ravel(state.global_tree)
     if after.shape != before.shape or not bool(torch.isfinite(after).all()):
         raise AssertionError("global tree has the wrong shape or is not "
@@ -280,12 +386,173 @@ def main_path(dev):
     if torch.equal(after, before):
         raise AssertionError("global tree did not change")
     want = {"wagg": rounds, "dt_loss": rounds * sc.cfg.vehicles_per_round
-            * sc.cfg.local_iters}
+            * sc.cfg.local_iters, "q8_encode": 0, "q8_decode": 0}
     print(f"[main] launches {launches} (expected {want}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
-    return launches
+    return launches, sc, state
+
+
+def comms_path(dev, main_sc, main_state):
+    """3 Table-1 rounds with codec="delta_int8" through `run`, published
+    into a delta_int8 store. Returns (launches, scenario, state, store)."""
+    import math
+
+    import torch
+
+    from repro_torch.comms.codecs import flat_width
+    from repro_torch.convert import ravel
+    from repro_torch.core.scenario import Scenario, run
+    from repro_torch.serve import ModelStore
+    from repro_torch.trace_round import TABLE1
+
+    sc = Scenario(device=dev, codec="delta_int8", data=main_sc.data,
+                  **TABLE1)
+    state = sc.init_state()
+    store = ModelStore(codec="delta_int8")
+    store.publish(state.round, state.global_tree)
+    rounds = 3
+    torch.cuda.synchronize()
+    _zero_counts()
+    for _ in range(rounds):
+        t = time.time()
+        state, (rec,) = run(sc, state, rounds=1, publish=store.publish)
+        torch.cuda.synchronize()
+        print(f"[comms] round {rec['round']} (delta_int8, published): "
+              f"{time.time() - t:.3f} s, loss {rec['loss']:.6f}", flush=True)
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"comms round {rec['round']}: loss not "
+                                 f"finite")
+    launches = _counts()
+    per = sc.cfg.vehicles_per_round * sc.cfg.local_iters
+    want = {"wagg": rounds, "dt_loss": rounds * per, "q8_encode": 2 * rounds,
+            "q8_decode": 2 * rounds}
+    print(f"[comms] launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"comms launches {launches} != {want}")
+    ef = state.comms["ef"]
+    tree = ravel(state.global_tree)
+    if tuple(ef.shape) != (sc.cfg.vehicles_per_round,
+                           flat_width(state.global_tree)) \
+            or not bool(torch.isfinite(ef).all()) \
+            or not bool(torch.isfinite(tree).all()):
+        raise AssertionError("comms: EF or tree of the wrong shape or not "
+                             "finite")
+    if store.rounds() != list(range(rounds + 1)):
+        raise AssertionError(f"comms: store holds rounds {store.rounds()}")
+    ident = ravel(main_state.global_tree)
+    start = ravel(sc.init_state().global_tree)
+    print(f"[comms] after {rounds} rounds, delta_int8 vs identity tree: max "
+          f"abs diff {float((tree - ident).abs().max()):.3e}, "
+          f"{float((tree - ident).norm() / (ident - start).norm()):.3e} of "
+          f"the identity run's update; EF max abs "
+          f"{float(ef.abs().max()):.3e}; snapshot payload "
+          f"{store.get(rounds).delta_nbytes} bytes", flush=True)
+    return launches, sc, state, store
+
+
+def serve_path(store):
+    """95 vehicles against an RSUServer driven by drain_once, every reply
+    kind; returns the counts of reply kinds."""
+    import torch
+
+    from repro_torch.convert import ravel
+    from repro_torch.serve import RSUServer, ServePolicy, apply_reply
+
+    latest = store.latest_round
+    server = RSUServer(store, ServePolicy(max_lag=1, queue_limit=64),
+                       start=False)
+    # held rounds cycle over every published round: the latest is
+    # "current", one behind is a 1-hop "delta", older ones are "full",
+    # and whatever exceeds the 64-deep queue is "shed"
+    held = [i % (latest + 1) for i in range(95)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.time()
+    pends = [server.submit(h) for h in held]
+    while server.drain_once(block=False):
+        pass
+    kinds, hops, bad = {}, 0, 0
+    for h, pend in zip(held, pends):
+        rep = pend.result(timeout=0)
+        kind = rep.kind if rep.status == "ok" else rep.status
+        kinds[kind] = kinds.get(kind, 0) + 1
+        if rep.status != "ok":
+            continue
+        tree = apply_reply(rep, store.get(h).served_tree, codec=store.codec)
+        hops += len(rep.payloads) if rep.kind == "delta" else 0
+        if not torch.equal(ravel(tree),
+                           ravel(store.get(rep.round).served_tree)):
+            bad += 1
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = _counts()
+    st = server.stats()
+    lost = st["submitted"] - st["served"] - st["shed"]
+    print(f"[serve] 95 vehicles: replies {kinds}, {hops} delta hops "
+          f"applied, {bad} trees not bitwise the served tree, {lost} lost; "
+          f"launches {launches}; {wall:.3f} s", flush=True)
+    if set(kinds) != {"current", "delta", "full", "shed"}:
+        raise AssertionError(f"serve: reply kinds {kinds} miss one")
+    if bad or lost or st["submitted"] != 95:
+        raise AssertionError(f"serve: {bad} mismatches, {lost} lost, "
+                             f"{st['submitted']} submitted")
+    if launches["q8_decode"] != hops or launches["q8_encode"] != 0:
+        raise AssertionError(f"serve: launches {launches}, {hops} hops")
+    return kinds
+
+
+def threaded_serve(sc, state):
+    """A short threaded pass through launch/serve.py's serve_campaign:
+    parity and accounting (no launch counts: fetchers decode at once)."""
+    from repro_torch.launch.serve import serve_campaign
+
+    res = serve_campaign(sc, rounds=2, vehicles=200, fetchers=8,
+                         codec="delta_int8", max_lag=2, queue_limit=64,
+                         state=state)
+    st = res["server"]
+    print(f"[serve] threaded: 2 Table-1 rounds trained while 8 fetchers "
+          f"issued 200 fetches: {res['served']} served, {res['shed']} shed, "
+          f"{res['served_per_s']:.1f} served/s over {res['wall_s']:.2f} s, "
+          f"fetch p50 {res['p50_us'] / 1e3:.3f} ms, p99 "
+          f"{res['p99_us'] / 1e3:.3f} ms, batches {st['batches']}, "
+          f"{res['mismatches']} mismatches, {res['lost']} lost", flush=True)
+    if res["mismatches"] or res["lost"] or not res["served"]:
+        raise AssertionError(f"threaded serve: {res['mismatches']} "
+                             f"mismatches, {res['lost']} lost, "
+                             f"{res['served']} served")
+
+
+def lossless_round(dev, data, state):
+    """One more round from `state` with codec="delta" and with "identity":
+    the trees are bitwise equal (cuDNN held to deterministic algorithms,
+    so that the two rounds' convolutions sum in the same order)."""
+    import torch
+
+    from repro_torch.convert import ravel
+    from repro_torch.core.scenario import Scenario, run_round
+    from repro_torch.trace_round import TABLE1
+
+    state = state.replace(comms=None)
+    trees = []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for codec in ("delta", "identity"):
+            sc = Scenario(device=dev, codec=codec, data=data, **TABLE1)
+            st, _ = run_round(state, sc)
+            trees.append(ravel(st.global_tree))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    torch.cuda.synchronize()
+    same = torch.equal(trees[0], trees[1])
+    print(f"[comms] one round with codec=delta and with codec=identity "
+          f"from round {state.round}: trees bitwise equal {same}",
+          flush=True)
+    if not same or torch.equal(trees[0], ravel(state.global_tree)):
+        raise AssertionError("delta round is not bitwise the identity "
+                             "round, or did not train")
 
 
 def run() -> int:
@@ -312,11 +579,16 @@ def run() -> int:
           f"{[os.path.basename(p) for p in libs]}", flush=True)
     set_parity_mode()
     dev = torch.device("cuda", 0)
-    rows = kernel_phase(dev)
+    rows = kernel_phase(dev) + q8_kernels(dev)
     cross_check(dev)
-    launches = main_path(dev)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    launches, main_sc, main_state = main_path(dev)
+    comms_launches, sc, state, store = comms_path(dev, main_sc, main_state)
+    serve_path(store)
+    threaded_serve(sc, state)
+    lossless_round(dev, main_sc.data, state)
+    for r in rows:      # each kernel's count on the path that runs it
+        r["launches"] = (comms_launches if r["name"].startswith("q8")
+                         else launches)[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,14 @@ layouts (conv weights HWIO), so conversion is a leaf-by-leaf copy:
 * `tree_from_numpy(np_tree, device)` — a reference ``{"params",
   "state"}`` tree (numpy leaves, e.g. ``jax.tree.map(np.asarray, t)``)
   into the port's; `tree_to_numpy` goes back.
+* `comms_from_numpy(np_comms, device)` — the reference's
+  ``FLState.comms`` (None, or ``{"ef": (m, Ppad)}``) into the port's.
 
 The FLAT ROW LAYOUT is the reference's ravel order: `jax.tree.leaves`
 order (dict keys sorted at every level, so ``params`` before ``state``),
 each leaf raveled C-order in its reference layout. A converted tree thus
 ravels to the same (P,) vector `ops.wagg_stacked` builds — which the q8
-codec of a later slice needs, since one int8 scale covers 256
+codec (comms/codecs.py) needs, since one int8 scale covers 256
 consecutive raveled parameters. For ResNet-18-CIFAR, P = 11,497,024
 params + 9,600 BN stats = 11,506,624.
 """
@@ -60,6 +62,16 @@ def tree_from_numpy(np_tree, device="cpu") -> dict:
 
 def tree_to_numpy(tree) -> dict:
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def comms_from_numpy(np_comms, device="cpu"):
+    """Reference ``FLState.comms`` (numpy or array-like leaves) -> the
+    port's: None stays None, ``{"ef": (m, Ppad)}`` becomes float32
+    tensors on `device`."""
+    if np_comms is None:
+        return None
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in np_comms.items()}
 
 
 class FlatSpec(NamedTuple):

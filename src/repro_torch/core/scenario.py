@@ -11,9 +11,9 @@
 Same signatures as the reference; `Scenario` also takes ``device``: the
 scenario runs on CUDA unless ``device="cpu"`` is passed, and raises if
 CUDA is asked for and missing. Building a scenario turns on the float32 parity mode
-(runtime.py). Slice 1 accepts ``topology="single"``, ``client="dtssl"``
-and ``codec="identity"``; anything else raises NotImplementedError naming
-the ROADMAP.md entry that ports it.
+(runtime.py). The port accepts ``topology="single"``, ``client="dtssl"``
+and every codec of ``comms.codecs.CODECS``; any other topology or client
+raises NotImplementedError naming the ROADMAP.md entry that ports it.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.comms.codecs import comms_init_state
 from repro_torch.convert import tree_map
 from repro_torch.core.mobility import MobilityModel
 from repro_torch.core.state import FLConfig, FLState, not_ported, pack_host_rng
@@ -136,13 +137,15 @@ class Scenario:
         return self._lr_fn
 
     def init_state(self) -> FLState:
-        """The round-0 `FLState`, deterministic in cfg.seed."""
+        """The round-0 `FLState` (model, both RNG streams, the codec's
+        comms state), deterministic in cfg.seed."""
         seed = self.cfg.seed
-        return FLState(global_tree=self.init_tree(),
+        tree = self.init_tree()
+        return FLState(global_tree=tree,
                        gen_state=torch.Generator().manual_seed(seed)
                        .get_state(),
                        host_rng=pack_host_rng(np.random.RandomState(seed)),
-                       round=0)
+                       round=0, comms=comms_init_state(self.cfg, tree))
 
 
 def run_round(state: FLState, scenario: Scenario, parallel: bool = True):

@@ -24,7 +24,6 @@ from repro_torch.core.mobility import BLUR_KMH_100
 
 ROADMAP_FOR = {
     "client": "ROADMAP.md Queue A, item 7 (FedCo)",
-    "codec": "ROADMAP.md Queue A, item 5 (codecs)",
     "topology": "ROADMAP.md Queue A, item 8 (MultiRSU, handover)",
 }
 
@@ -51,10 +50,11 @@ class FLConfig:
     client: Optional[str] = None  # None selects "dtssl", the only port
     blur_threshold: float = BLUR_KMH_100   # in blur units (Eq. 2)
     normalize_weights: bool = True
-    codec: str = "identity"
+    codec: str = "identity"       # any CODECS name (comms/codecs.py)
     seed: int = 0
 
     def __post_init__(self):
+        from repro_torch.comms.codecs import CODECS
         from repro_torch.core.aggregation import AGGREGATORS
         if self.aggregator == "fedco" or self.client not in (None, "dtssl"):
             raise not_ported("client", self.client or "fedco")
@@ -63,8 +63,9 @@ class FLConfig:
         if self.aggregator not in AGGREGATORS:
             raise ValueError(f"unknown aggregator {self.aggregator!r}; "
                              f"valid: {sorted(AGGREGATORS)}")
-        if self.codec != "identity":
-            raise not_ported("codec", self.codec)
+        if self.codec not in CODECS:
+            raise ValueError(f"unknown codec {self.codec!r}; valid: "
+                             f"{sorted(CODECS)}")
 
 
 def pack_host_rng(rng: np.random.RandomState) -> dict:
@@ -103,12 +104,16 @@ class FLState:
     gen_state     CPU torch.Generator state (velocities, augmentations)
     host_rng      packed numpy RandomState (cohort + batch-index draws)
     round         next round index (drives the cosine LR schedule)
+    comms         per-codec comms state: None, or for delta_int8
+                  {"ef": (vehicles_per_round, Ppad) float32} on the
+                  scenario's device (comms/codecs.py)
     """
 
     global_tree: Any
     gen_state: torch.Tensor
     host_rng: dict
     round: int = 0
+    comms: Optional[dict] = None
 
     def replace(self, **kw) -> "FLState":
         return dataclasses.replace(self, **kw)

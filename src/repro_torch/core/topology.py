@@ -14,10 +14,11 @@ A round is split as the reference splits it:
   `torch.Generator` (in place of the reference's jax key chain), and the
   cosine lr;
 * `SingleRSU.execute` runs a plan: batches, motion blur, local training,
-  Eq.-11 aggregation, the round record.
+  the codec stage (`comms.codecs.roundtrip_cohort`, which threads the
+  codec's comms state), Eq.-11 aggregation, the round record.
 
 The phases are marked with `torch.profiler.record_function` ranges
-(``round.plan``, ``round.batches``, ``round.clients``,
+(``round.plan``, ``round.batches``, ``round.clients``, ``round.comms``,
 ``round.aggregate``), which `trace_round` reads from a profiled round.
 
 So a test can hand `execute` a plan whose draws were replayed from the
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.comms.codecs import roundtrip_cohort
 from repro_torch.convert import tree_map
 from repro_torch.core import aggregation as agg
 from repro_torch.core import ssl
@@ -102,15 +104,16 @@ class SingleRSU:
             rng = unpack_host_rng(state.host_rng)
             gen = generator_from(state.gen_state)
             plan = _cohort_plan(rng, gen, state.round, scenario)
-        tree, rec = self.execute(state.global_tree, scenario, plan,
-                                 state.round)
+        tree, comms, rec = self.execute(state.global_tree, state.comms,
+                                        scenario, plan, state.round)
         return state.replace(global_tree=tree, gen_state=gen.get_state(),
                              host_rng=pack_host_rng(rng),
-                             round=state.round + 1), rec
+                             round=state.round + 1, comms=comms), rec
 
-    def execute(self, tree: dict, scenario, plan: CohortPlan, rnd: int):
-        """Run `plan` from the global `tree` on the scenario's device.
-        Returns (new tree, record)."""
+    def execute(self, tree: dict, comms, scenario, plan: CohortPlan,
+                rnd: int):
+        """Run `plan` from the global `tree` and the codec's `comms` state
+        on the scenario's device. Returns (new tree, new comms, record)."""
         cfg, mob, device = scenario.cfg, scenario.mobility, scenario.device
         with record_function("round.batches"):
             tree = tree_map(lambda t: t.to(device), tree)
@@ -119,18 +122,23 @@ class SingleRSU:
                                             plan.velocities)]
             draws = [[(ssl.draws_to(d1, device), ssl.draws_to(d2, device))
                       for d1, d2 in client] for client in plan.draws]
+            v = plan.velocities.to(device)
         with record_function("round.clients"):
             cohort = CLIENT_UPDATES[cfg.client].run_cohort(
                 cfg, tree, batches, draws, plan.lr)
-        with record_function("round.aggregate"):
-            v = plan.velocities.to(device)
             cohort = cohort.with_stats(velocities=v, blur=mob.blur_level(v))
+        # comms tier: the RSU aggregates what survived the V2I link
+        # (encode -> decode against the broadcast base model); identity
+        # passes the cohort through, the lossless delta codec is bitwise
+        with record_function("round.comms"):
+            cohort, comms = roundtrip_cohort(cfg, cohort, tree, comms)
+        with record_function("round.aggregate"):
             new_tree = agg.AGGREGATORS[cfg.aggregator](cohort, cfg)
         losses = cohort.valid_losses.cpu().numpy().astype(np.float64)
         rec = {"round": rnd, "loss": float(np.mean(losses)),
                "velocities": plan.velocities.tolist(), "lr": plan.lr,
                "topology": self.name}
-        return new_tree, rec
+        return new_tree, comms, rec
 
 
 TOPOLOGIES = {"single": SingleRSU}

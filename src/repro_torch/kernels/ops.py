@@ -1,5 +1,6 @@
 """Public wrappers around the port's kernels — counterpart of
-`repro.kernels.ops` (`wagg_flat`, `dt_loss`).
+`repro.kernels.ops` (`wagg_flat`, `dt_loss`, `q8_encode_flat`,
+`q8_decode_flat`).
 
 Each wrapper runs the hand-written CUDA kernel when its tensors lie on a
 CUDA device and the plain version (kernels/ref.py) when they lie on the
@@ -12,6 +13,10 @@ a failed build or launch raises too.
   backward is the plain-torch port of the reference's `_dt_bwd` (the
   reference has no backward kernel either), with the Eq.-6 weight
   treated as a constant.
+* ``q8_encode_flat(flat (N, P), ef (N, P))`` and
+  ``q8_decode_flat(codes, scales)`` — the blockwise-int8 delta codec
+  (one float32 scale per BQ = 256 columns), P zero-padded to a multiple
+  of BQ as the reference's wrappers pad it.
 """
 from __future__ import annotations
 
@@ -19,7 +24,9 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import dt_loss as _dt_kernel
+from repro_torch.kernels import qdelta as _q8_kernel
 from repro_torch.kernels import wagg as _wagg_kernel
+from repro_torch.kernels.qdelta import BQ
 
 
 def _on_cuda(*ts) -> bool:
@@ -84,3 +91,42 @@ def dt_loss(q: torch.Tensor, k: torch.Tensor, tau_alpha: float = 0.1,
             tau_beta: float = 1.0) -> torch.Tensor:
     """Mean dual-temperature loss over in-batch similarities (fused)."""
     return _DTLoss.apply(q, k, tau_alpha, tau_beta)
+
+
+def _pad_cols(x: torch.Tensor, multiple: int):
+    p = x.shape[1]
+    pad = (-p) % multiple
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x, p
+
+
+def q8_encode_flat(flat: torch.Tensor, ef: torch.Tensor):
+    """Blockwise-int8 encode of an (N, P) float32 delta matrix with its
+    (N, P) error-feedback residual. Returns (codes (N, P) int8, scales
+    (N, ceil(P / BQ)) float32, new_ef (N, P) float32); semantics of
+    `ref.q8_encode_ref` on the zero-padded matrix. (The reference's
+    interpret path keeps P // BQ scales; the codecs always pass
+    P % BQ == 0, where the two agree.)"""
+    x, p = _pad_cols(flat, BQ)
+    e, _ = _pad_cols(ef, BQ)
+    if _on_cuda(x, e):
+        codes, scales, new_ef = _q8_kernel.q8_encode_cuda(x.contiguous(),
+                                                          e.contiguous())
+    else:
+        codes, scales, new_ef = ref.q8_encode_ref(x, e, block=BQ)
+    return codes[:, :p], scales, new_ef[:, :p]
+
+
+def q8_decode_flat(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(N, P) int8 codes with (N, ceil(P / BQ)) float32 scales -> (N, P)
+    float32 (semantics of `ref.q8_decode_ref`)."""
+    c, p = _pad_cols(codes, BQ)
+    if tuple(scales.shape) != (c.shape[0], c.shape[1] // BQ):
+        raise ValueError(f"q8: scales {tuple(scales.shape)} do not match "
+                         f"codes {tuple(codes.shape)} (one per {BQ} columns)")
+    if _on_cuda(c, scales):
+        out = _q8_kernel.q8_decode_cuda(c.contiguous(), scales.contiguous())
+    else:
+        out = ref.q8_decode_ref(c, scales, block=BQ)
+    return out[:, :p]

@@ -1,14 +1,15 @@
 """Where a round's time goes on the card.
 
-    python -m repro_torch.trace_round [--rounds 2] [--out DIR]
+    python -m repro_torch.trace_round [--rounds 2] [--codec identity] [--out DIR]
 
 (with ``src`` on PYTHONPATH, on a machine with one CUDA card). Builds the
-paper's Table-1 scenario (as chip_smoke.py's main path does), warms up,
-then runs one more round under `torch.profiler` and reports:
+paper's Table-1 scenario (as chip_smoke.py's main path does) with the
+given codec, warms up, then runs one more round under `torch.profiler`
+and reports:
 
 * each phase that `SingleRSU` marks with a ``round.*`` range (plan,
-  batches, clients, aggregate): its host time, and the device span of
-  the kernels launched inside it;
+  batches, clients, comms, aggregate): its host time, and the device
+  span of the kernels launched inside it;
 * device time by kernel and by host op, and the device's busy and idle
   share of the round's wall time.
 
@@ -89,11 +90,13 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rounds", type=int, default=2,
                    help="unmeasured warm-up rounds before the profiled one")
+    p.add_argument("--codec", default="identity",
+                   choices=["identity", "delta", "delta_int8"])
     p.add_argument("--out", default=None,
                    help="directory for the chrome trace (none by default)")
     args = p.parse_args(argv)
     build.build_all()
-    sc = Scenario(device="cuda", **TABLE1)
+    sc = Scenario(device="cuda", codec=args.codec, **TABLE1)
     state = sc.init_state()
     for _ in range(args.rounds):
         state, _ = run_round(state, sc)
@@ -102,7 +105,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "profiled": prof,
+    print(json.dumps({"card": smi, "codec": args.codec, "profiled": prof,
                       "peak_mem_gib": torch.cuda.max_memory_allocated()
                       / 2 ** 30}))
     return 0

@@ -3,7 +3,8 @@
 On the CPU each wrapper runs its plain version; these tests hold that
 path against the reference's Pallas kernel in interpret mode (`wagg`) or
 its jnp oracle (`dt_loss`: the Pallas DT kernel calls `pl.load`, which
-the installed jax no longer has). Tests marked ``cuda`` hold the CUDA
+the installed jax no longer has). The q8 codec's CPU parity tests live
+in tests/test_torch_comms.py. Tests marked ``cuda`` hold the CUDA
 kernels against the plain versions on the card and skip without one;
 chip_smoke.py runs the same checks at the main path's shapes.
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import dt_loss as dt_kernel
+from repro_torch.kernels import qdelta as q8_kernel
 from repro_torch.kernels import wagg as wagg_kernel
 
 WAGG_TOL = 1e-5       # f32 sums of <= 16 terms in another order
@@ -97,11 +99,16 @@ def test_wrappers_refuse_mixed_and_non_cuda_inputs():
     with pytest.raises(ValueError):
         dt_kernel.dt_loss_fwd_cuda(x, x, 0.1, 1.0)
     with pytest.raises(ValueError):
+        q8_kernel.q8_encode_cuda(torch.zeros(2, 256), torch.zeros(2, 256))
+    with pytest.raises(ValueError):
+        q8_kernel.q8_decode_cuda(torch.zeros(2, 256, dtype=torch.int8),
+                                 torch.zeros(2, 1))
+    with pytest.raises(ValueError):
         ops._on_cuda(x, torch.empty(0, device="meta"))
 
 
 def test_build_finds_every_kernel_source():
-    assert build.sources() == ["dt_loss", "wagg"]
+    assert build.sources() == ["dt_loss", "qdelta", "wagg"]
     t = build._target("wagg")
     assert t.parent == build.BUILD_DIR and t.name.startswith("wagg-")
     assert build._target("wagg") == t          # keyed on content only
@@ -184,3 +191,39 @@ def test_dt_loss_kernel_matches_plain_on_card(cuda, M, D):
     with pytest.raises(ValueError):                     # D % 4 != 0
         ops.dt_loss_fwd(q[:, :-2].contiguous(), k[:, :-2].contiguous(),
                         0.1, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,P", [(5, 4096), (1, 1001), (3, 70000)])
+def test_q8_kernels_match_plain_on_card(cuda, N, P):
+    """Codes, scales, new_ef and the decode bitwise equal to the plain
+    versions (the kernels round each step once, as they do); a ragged P
+    equals the aligned call's columns; a zero block decodes to zeros."""
+    rs = np.random.RandomState(N * 31 + P)
+    mag = 10.0 ** rs.uniform(-6, 2, size=(N, 1))
+    x = torch.from_numpy((rs.randn(N, P) * mag).astype(np.float32)).to(cuda)
+    e = torch.from_numpy((rs.randn(N, P) * mag * 0.01).astype(np.float32)
+                         ).to(cuda)
+    x[:, :256] = 0.0
+    e[:, :256] = 0.0
+    before = (q8_kernel.ENCODE_LAUNCHES, q8_kernel.DECODE_LAUNCHES)
+    codes, scales, new_ef = ops.q8_encode_flat(x, e)
+    out = ops.q8_decode_flat(codes, scales)
+    assert (q8_kernel.ENCODE_LAUNCHES, q8_kernel.DECODE_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    pad = (-P) % q8_kernel.BQ
+    xp = torch.nn.functional.pad(x, (0, pad))
+    ep = torch.nn.functional.pad(e, (0, pad))
+    c_r, s_r, e_r = ref.q8_encode_ref(xp, ep)
+    assert torch.equal(codes, c_r[:, :P]) and torch.equal(scales, s_r)
+    assert torch.equal(new_ef, e_r[:, :P])
+    assert torch.equal(out, ref.q8_decode_ref(c_r, s_r)[:, :P])
+    assert torch.equal(scales[:, 0], torch.zeros_like(scales[:, 0]))
+    assert not out[:, :256].any()
+    if pad:      # the aligned call on the padded matrix gives the same
+        c_a, s_a, e_a = ops.q8_encode_flat(xp, ep)
+        assert torch.equal(codes, c_a[:, :P]) and torch.equal(scales, s_a)
+        assert torch.equal(new_ef, e_a[:, :P])
+    with pytest.raises(ValueError):
+        q8_kernel.q8_encode_cuda(x[:, 1:257].contiguous().double(),
+                                 e[:, 1:257].contiguous().double())

@@ -350,6 +350,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.dt_loss, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.build, repro_torch.configs\n"
         "import repro_torch.data.synthetic, repro_torch.optim.optimizers\n"
+        "import repro_torch.comms.codecs, repro_torch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.kernels.qdelta\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -370,14 +372,36 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("kw", [dict(topology="multi"),
                                 dict(topology="handover"),
                                 dict(client="fedco"),
-                                dict(aggregator="fedco"),
-                                dict(codec="delta_int8")])
+                                dict(aggregator="fedco")])
 def test_unported_choices_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Scenario(device="cpu", **kw)
 
 
+@pytest.mark.parametrize("codec", ["identity", "delta", "delta_int8"])
+def test_every_codec_is_accepted(codec):
+    from repro.comms.codecs import comms_init_state as j_comms_init_state
+    from repro.core.state import FLConfig as JFLConfig
+
+    sc = Scenario(device="cpu", codec=codec, vehicles_per_round=3,
+                  data=[np.zeros((2, 4, 4, 3), np.float32)] * 4,
+                  n_vehicles=4)
+    comms = sc.init_state().comms
+    tree = convert.tree_to_numpy(sc.init_tree())
+    want = j_comms_init_state(JFLConfig(codec=codec, vehicles_per_round=3),
+                              tree)
+    if want is None:
+        assert comms is None
+    else:
+        assert set(comms) == set(want) == {"ef"}
+        assert tuple(comms["ef"].shape) == want["ef"].shape == \
+            (3, -(-P_RESNET18 // 256) * 256)
+        assert comms["ef"].dtype == torch.float32 and not comms["ef"].any()
+
+
 def test_unknown_choices_raise_value_error():
+    with pytest.raises(ValueError):
+        Scenario(device="cpu", codec="gzip")
     with pytest.raises(ValueError):
         Scenario(device="cpu", aggregator="median")
     with pytest.raises(ValueError):

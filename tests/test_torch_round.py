@@ -126,7 +126,8 @@ def test_round_matches_reference_two_rounds(aggregator):
         tree = convert.tree_from_numpy(jax.tree.map(np.asarray,
                                                     jstate.global_tree))
         plan = replayed_plan(jstate, jsc, tsc)
-        tree, rec = tsc.topology.execute(tree, tsc, plan, jstate.round)
+        tree, _, rec = tsc.topology.execute(tree, None, tsc, plan,
+                                            jstate.round)
         start = jstate.global_tree
         with jagg.wagg_backend("interpret"):
             jstate, jrec = j_run_round(jstate, jsc, parallel=False)
