@@ -43,6 +43,37 @@ the JAX package `repro`. Phases, each of which must pass:
    and one more round with ``codec="delta"`` and with
    ``codec="identity"`` from the same state, bitwise equal on the card.
 
+7. Zoo path (``[zoo]``): the RWKV6 serving path of the transformer zoo.
+   * rwkv6 kernel against its plain chunked version
+     (`ops.rwkv6_plain`) on the card, float32, atol 2e-4 on o and the
+     state: at (BH, S, D) = (512, 2048, 64) with a per-row u (the
+     full-width prefill's shape: 16 prompts x 32 heads), at a ragged
+     S = 2043 and S = 37 with a nonzero state0 (the ragged states also
+     against the sequential `ref.rwkv6_ref` on a few rows), and the
+     projections' (B, S, H, D) layout read in place bitwise equal to the
+     (BH, S, D) call. Timed with CUDA events beside its byte bound.
+   * Cross-check: ``rwkv6-1.6b-smoke`` in float32 (parity mode), a
+     prefill of B = 2, S = 37 then 4 decode steps through
+     `launch.steps`, on the card and with ``device="cpu"``, logits and
+     states at atol 2e-4; decode after the prefill equals the last
+     position of a full forward of S + 1 tokens.
+   * Full width: ``rwkv6-1.6b`` (24 layers, d_model 2048, 32 heads of 64,
+     d_ff 7168, vocab 65536) with random bfloat16 weights from seed 0,
+     through `repro_torch.launch.decode`: a prefill of 16 prompts x 2048
+     tokens, then 64 greedy decode steps; the counters, zeroed just
+     before each, must read rwkv6 24 (one launch per layer) for the
+     prefill and 0 for the decode. The same prefill once more through
+     the plain chunked version on the card holds the kernel in place:
+     the first layer's state at atol 2e-4, and the last-position logits
+     and final states within twice the divergence that a 2-ULP float32
+     perturbation of the plain version's recurrence outputs causes in
+     the same run (bfloat16 roundings grow through 24 random layers; see
+     ZOO_BF16_FLOOR_X). Then the kernel and plain prefills once more with
+     float32 weights and cache, at a relative L2 norm of 1e-3. Prints the
+     prefill time, ms per decode step, decode tok/s, peak device memory,
+     and the device time by op of one profiled prefill (with the
+     kernel's share) and of four profiled decode steps.
+
 The q8 kernels are held against their plain versions in phase 2, at
 (5, Ppad) and (1, Ppad), Ppad = 11,506,688: codes, scales, residuals and
 the decode bitwise equal; a ragged P (through `ops`) bitwise equal to the
@@ -50,7 +81,9 @@ aligned call's columns; an all-zero block decodes to zeros. The library
 yardstick of the decode is ``torch.mul(codes.view(N, -1, 256),
 scales[..., None])``; the encode has none.
 
-The last three lines of standard output are the ``kernels`` JSON line,
+The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode and
+rwkv6, each with its launches on the path that runs it. The last three
+lines of standard output are the ``kernels`` JSON line,
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``. On any
 failure, or without a CUDA card, or outside a checkout, it exits non-zero
 and prints no result.
@@ -84,6 +117,28 @@ DT_GRAD_TOL = 1e-5
 CROSS_LOSS_TOL = 1e-4
 CROSS_MAX_ABS = 1e-2
 CROSS_REL_UPDATE = 2e-2
+# rwkv6 kernel vs its plain chunked version (and the sequential oracle),
+# float32: sums of 16-80 terms and the chunk's prefix sums in another
+# order (a few ULP in the exponents); the reference's own tolerance for
+# this recurrence (tests/test_kernels.py)
+RWKV6_TOL = 2e-4
+ZOO_CROSS_TOL = 2e-4        # smoke config, float32, card vs CPU
+# Full width, kernel prefill against the plain one. In bfloat16 the two
+# differ by a few float32 ULP in each layer's recurrence output, which
+# flips the bfloat16 rounding of some elements; with random weights the
+# flips grow layer by layer (a float32-ULP perturbation of the plain
+# version alone moves the final logits by about 10% in relative L2). So
+# in bfloat16 the first layer's state (identical inputs on both sides) is
+# held at RWKV6_TOL, and the last logits and final states at most
+# ZOO_BF16_FLOOR_X times the divergence of the plain prefill from itself
+# with its recurrence outputs perturbed by ZOO_ULP_EPS (2 float32 ULP),
+# measured in the same run. In float32 the same comparison is held at
+# ZOO_F32_REL: a few ULP grown over 24 layers.
+ZOO_BF16_FLOOR_X = 2.0
+ZOO_ULP_EPS = 2.0 ** -22
+ZOO_F32_REL = 1e-3
+ZOO_B, ZOO_S, ZOO_DECODE = 16, 2048, 64
+RWKV_H, RWKV_D = 32, 64
 
 
 def _smi() -> str:
@@ -331,16 +386,16 @@ def cross_check(dev):
 
 
 def _zero_counts() -> None:
-    from repro_torch.kernels import dt_loss, qdelta, wagg
-    wagg.LAUNCHES = dt_loss.LAUNCHES = 0
+    from repro_torch.kernels import dt_loss, qdelta, rwkv6, wagg
+    wagg.LAUNCHES = dt_loss.LAUNCHES = rwkv6.LAUNCHES = 0
     qdelta.ENCODE_LAUNCHES = qdelta.DECODE_LAUNCHES = 0
 
 
 def _counts() -> dict:
-    from repro_torch.kernels import dt_loss, qdelta, wagg
+    from repro_torch.kernels import dt_loss, qdelta, rwkv6, wagg
     return {"wagg": wagg.LAUNCHES, "dt_loss": dt_loss.LAUNCHES,
             "q8_encode": qdelta.ENCODE_LAUNCHES,
-            "q8_decode": qdelta.DECODE_LAUNCHES}
+            "q8_decode": qdelta.DECODE_LAUNCHES, "rwkv6": rwkv6.LAUNCHES}
 
 
 def main_path(dev):
@@ -386,7 +441,8 @@ def main_path(dev):
     if torch.equal(after, before):
         raise AssertionError("global tree did not change")
     want = {"wagg": rounds, "dt_loss": rounds * sc.cfg.vehicles_per_round
-            * sc.cfg.local_iters, "q8_encode": 0, "q8_decode": 0}
+            * sc.cfg.local_iters, "q8_encode": 0, "q8_decode": 0,
+            "rwkv6": 0}
     print(f"[main] launches {launches} (expected {want}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if launches != want:
@@ -427,7 +483,7 @@ def comms_path(dev, main_sc, main_state):
     launches = _counts()
     per = sc.cfg.vehicles_per_round * sc.cfg.local_iters
     want = {"wagg": rounds, "dt_loss": rounds * per, "q8_encode": 2 * rounds,
-            "q8_decode": 2 * rounds}
+            "q8_decode": 2 * rounds, "rwkv6": 0}
     print(f"[comms] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"comms launches {launches} != {want}")
@@ -555,6 +611,303 @@ def lossless_round(dev, data, state):
                              "round, or did not train")
 
 
+def _rwkv6_work(bh: int, s: int, d: int, state0: bool):
+    """(bytes, flops) the rwkv6 recurrence needs for these inputs: r, k,
+    v, logw and u read once, o and the state written once (state0 read
+    once if given); per chunk of c valid steps the carry-in c*D*D FMAs,
+    c(c-1)/2 decayed pair products over D (subtract, exp, multiply,
+    FMA), the bonus, the pair and bonus terms times v, the prefix sums
+    and decay factors, and the state update (D*D scale, c*D*D FMAs)."""
+    bytes_ = 4 * (bh * s * d * 5 + bh * d + bh * d * d * (2 if state0 else 1))
+    flops = 0
+    for t0 in range(0, s, 16):
+        c = min(16, s - t0)
+        pairs = c * (c - 1) // 2
+        flops += (2 * c * d * d + 4 * pairs * d + 3 * c * d
+                  + 2 * (pairs + c) * d + 5 * c * d + d * d + 2 * c * d * d)
+    return bytes_, bh * flops
+
+
+def rwkv6_kernel_check(dev):
+    """The rwkv6 kernel against its plain chunked version on the card."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    bh, d = ZOO_B * RWKV_H, RWKV_D
+
+    def inputs(s):
+        r, k, v = (torch.randn((bh, s, d), generator=g, device=dev) * 0.5
+                   for _ in range(3))
+        lw = torch.clamp(-torch.exp(torch.randn((bh, s, d), generator=g,
+                                                device=dev) * 0.3 - 1.0),
+                         -4.0, -1e-4)
+        return r, k, v, lw
+
+    u = torch.randn((bh, d), generator=g, device=dev) * 0.3
+    s0 = torch.randn((bh, d, d), generator=g, device=dev) * 0.3
+    errs = []
+    for s, st0 in ((ZOO_S, None), (ZOO_S - 5, s0), (37, s0)):
+        r, k, v, lw = inputs(s)
+        o, st = ops.rwkv6(r, k, v, lw, u, st0)
+        o_p, st_p = ops.rwkv6_plain(r, k, v, lw, u, st0)
+        err = max(_max_err(o, o_p), _max_err(st, st_p))
+        rows = 4 if s > 64 else bh      # the sequential oracle: a few rows
+        so, sst = ref.rwkv6_ref(r[:rows], k[:rows], v[:rows], lw[:rows],
+                                u[:rows], None if st0 is None else st0[:rows])
+        seq_err = max(_max_err(o[:rows], so), _max_err(st[:rows], sst))
+        print(f"[zoo] rwkv6 ({bh}, {s}, {d}) state0="
+              f"{'yes' if st0 is not None else 'no'}: max abs err vs plain "
+              f"{err:.3e}, vs sequential oracle ({rows} rows) "
+              f"{seq_err:.3e}", flush=True)
+        if not (err <= RWKV6_TOL and seq_err <= RWKV6_TOL):
+            raise AssertionError(f"rwkv6 S={s}: err {err}, oracle err "
+                                 f"{seq_err} > {RWKV6_TOL}")
+        errs.append(max(err, seq_err))
+        if s == ZOO_S:
+            main_in = (r, k, v, lw)
+    r, k, v, lw = main_in
+    # the projections' (B, S, H, D) layout, read in place by strides
+    four = [t.view(ZOO_B, ZOO_S, RWKV_H, d) for t in main_in]
+    o4, st4 = ops.rwkv6(*four, u[:RWKV_H], s0.view(ZOO_B, RWKV_H, d, d))
+    rows = [t.transpose(1, 2).reshape(bh, ZOO_S, d) for t in four]
+    o3, st3 = ops.rwkv6(*rows, u[:RWKV_H].repeat(ZOO_B, 1), s0)
+    torch.cuda.synchronize()
+    if not (torch.equal(o4.transpose(1, 2).reshape(bh, ZOO_S, d), o3)
+            and torch.equal(st4.view(bh, d, d), st3)):
+        raise AssertionError("rwkv6: (B, S, H, D) call is not bitwise the "
+                             "(BH, S, D) call")
+    del o4, st4, o3, st3, rows, four
+    ms = _time_ms(lambda: ops.rwkv6(r, k, v, lw, u))
+    plain_ms = _time_ms(lambda: ops.rwkv6_plain(r, k, v, lw, u), iters=3,
+                        warmup=1)
+    bound_ms, bound_by = _bound(*_rwkv6_work(bh, ZOO_S, d, False))
+    print(f"[zoo] rwkv6 ({bh}, {ZOO_S}, {d}): (B, S, H, D) layout bitwise "
+          f"the row layout; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {"name": "rwkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:28",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def zoo_cross_check(dev):
+    """rwkv6-1.6b-smoke in float32: prefill + 4 decode steps on the card
+    and on the CPU; decode after a prefill equals a full forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("rwkv6-1.6b-smoke")
+    b, s, n = 2, 37, 4
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        1, cfg.vocab_size, (b, s + n)))
+    shape = InputShape("cross", s + n, b, "prefill")
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d), params)
+        tk = toks.to(d)
+        last, cache = steps.make_prefill_step(cfg, shape, torch.float32)(
+            p, {"tokens": tk[:, :s]})
+        logits = [last]
+        decode = steps.make_decode_step(cfg)
+        for i in range(n):
+            lg, cache = decode(p, {"tokens": tk[:, s + i:s + i + 1],
+                                   "positions": torch.full((b,), s + i,
+                                                           device=d),
+                                   "cache": cache})
+            logits.append(lg)
+        outs.append([t.cpu() for t in logits + [cache["state"]]])
+        if d == dev:     # decode after the prefill == full forward
+            full, _, _ = T.forward(cfg, p, tk[:, :s + 1])
+            dec_err = _max_err(logits[1][:, :cfg.vocab_size],
+                               full[:, -1, :cfg.vocab_size])
+    err = max(_max_err(a[:, :cfg.vocab_size] if a.dim() == 2 else a,
+                       c[:, :cfg.vocab_size] if c.dim() == 2 else c)
+              for a, c in zip(*outs))
+    print(f"[zoo] {cfg.name} float32, prefill {b}x{s} + {n} decode steps: "
+          f"card vs cpu max abs diff {err:.3e} (logits and states); decode "
+          f"vs full forward on the card {dec_err:.3e}", flush=True)
+    if not (err <= ZOO_CROSS_TOL and dec_err <= ZOO_CROSS_TOL):
+        raise AssertionError(f"zoo cross-check: card vs cpu {err}, decode "
+                             f"vs full {dec_err} > {ZOO_CROSS_TOL}")
+
+
+def _profile(work) -> dict:
+    """`work()` (which returns its own synchronised wall seconds) under
+    torch.profiler: device time by kernel and by host op, the rwkv6
+    kernel's share, the device's idle share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = work()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops_ = [e for e in events if e.device_type == DeviceType.CPU
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    rwkv = sum(e.self_device_time_total for e in kernels
+               if "rwkv6_kernel" in e.key) / 1e3
+
+    def top(evs, n):
+        evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
+        return [(e.key[:60], e.count, round(e.self_device_time_total / 1e3,
+                                            3)) for e in evs]
+
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "rwkv6_ms": rwkv, "rwkv6_share": rwkv / busy if busy else None,
+            "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_ops": top(ops_, 10), "top_kernels": top(kernels, 6)}
+
+
+def _plain_prefill(cfg, params, prompts, dtype, eps: float = 0.0):
+    """The full-width prefill with every rwkv6 call through the plain
+    chunked version on the card, its outputs o scaled by (1 +- eps) with a
+    seeded random sign when eps > 0. Returns (last logits, cache)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import decode as dec
+
+    g = torch.Generator(device=prompts.device).manual_seed(123)
+
+    def plain(*args):
+        o, st = ops.rwkv6_plain(*args)
+        if eps:
+            sign = torch.randint(0, 2, o.shape, generator=g,
+                                 device=o.device) * 2.0 - 1.0
+            o = o * (1.0 + eps * sign)
+        return o, st
+
+    saved = ops.rwkv6
+    ops.rwkv6 = plain
+    try:
+        _zero_counts()
+        last, cache, _ = dec.run_prefill(cfg, params, prompts,
+                                         ZOO_S + ZOO_DECODE, dtype)
+        if _counts()["rwkv6"]:
+            raise AssertionError("zoo: the plain prefill launched rwkv6")
+    finally:
+        ops.rwkv6 = saved
+    return last[:, :cfg.vocab_size], cache["state"]
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def zoo_full_width(dev):
+    """rwkv6-1.6b at full width through launch/decode.py's functions:
+    16 x 2048 prefill, 64 greedy decode steps in bfloat16, held against
+    the plain version in bfloat16 and in float32; returns the prefill's
+    launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import leaves_with_paths
+    from repro_torch.launch import decode as dec
+
+    cfg = get_config("rwkv6-1.6b")
+    v = cfg.vocab_size
+    total = ZOO_S + ZOO_DECODE
+    bf16 = torch.bfloat16
+    t = time.time()
+    params = dec.init_model(cfg, 0, bf16, dev)
+    prompts = dec.random_prompts(cfg, ZOO_B, ZOO_S, 0, dev)
+    n_params = sum(x.numel() for _, x in leaves_with_paths(params))
+    last, cache, t_warm = dec.run_prefill(cfg, params, prompts, total, bf16)
+    dec.run_decode(cfg, params, last, cache, ZOO_S, 2)
+    print(f"[zoo] {cfg.name}: {n_params:,} parameters (bfloat16), set-up "
+          f"and warm-up {time.time() - t:.2f} s (first prefill "
+          f"{t_warm:.3f} s)", flush=True)
+    del last, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    last, cache, t_pre = dec.run_prefill(cfg, params, prompts, total, bf16)
+    pre = _counts()
+    _zero_counts()
+    toks, _, t_dec = dec.run_decode(cfg, params, last, cache, ZOO_S,
+                                    ZOO_DECODE)
+    dcd = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[zoo] prefill {ZOO_B}x{ZOO_S}: {t_pre:.4f} s "
+          f"({ZOO_B * ZOO_S / t_pre:.0f} tok/s); {ZOO_DECODE} decode steps "
+          f"x {ZOO_B}: {t_dec:.4f} s, {t_dec * 1e3 / ZOO_DECODE:.3f} ms per "
+          f"step, {ZOO_DECODE * ZOO_B / t_dec:.1f} tok/s; peak memory "
+          f"{peak:.2f} GiB; launches prefill {pre}, decode {dcd}",
+          flush=True)
+    want_pre = {k: 0 for k in pre}
+    want_pre["rwkv6"] = cfg.n_layers
+    if pre != want_pre or any(dcd.values()):
+        raise AssertionError(f"zoo launches: prefill {pre} (want "
+                             f"{want_pre}), decode {dcd} (want none)")
+    if not bool(torch.isfinite(last[:, :v]).all()) \
+            or tuple(toks.shape) != (ZOO_B, ZOO_DECODE + 1) \
+            or not bool(((toks >= 0) & (toks < v)).all()) \
+            or not bool(torch.isfinite(cache["state"]).all()):
+        raise AssertionError("zoo: logits or states not finite, or tokens "
+                             "out of the vocabulary")
+    # the kernel in place: the same prefill through the plain version,
+    # and the plain version against itself perturbed by 2 float32 ULP
+    t = time.time()
+    last_p, st_p = _plain_prefill(cfg, params, prompts, bf16)
+    t_plain = time.time() - t
+    last_f, st_f = _plain_prefill(cfg, params, prompts, bf16, ZOO_ULP_EPS)
+    layer0 = _max_err(cache["state"][0], st_p[0])
+    k_lg, k_st = _rel(last[:, :v], last_p), _rel(cache["state"], st_p)
+    f_lg, f_st = _rel(last_f, last_p), _rel(st_f, st_p)
+    by_layer = [round(_rel(cache["state"][i], st_p[i]), 5)
+                for i in range(0, cfg.n_layers, 4)]
+    agree = float((last[:, :v].argmax(-1) == last_p.argmax(-1)).float()
+                  .mean())
+    print(f"[zoo] bfloat16 kernel vs plain prefill (plain {t_plain:.3f} s): "
+          f"layer-0 state max abs {layer0:.3e}; last logits relative L2 "
+          f"{k_lg:.4e} (2-ULP floor {f_lg:.4e}), final states {k_st:.4e} "
+          f"(floor {f_st:.4e}); states by layer 0,4,..,20 {by_layer}; "
+          f"greedy picks equal {agree:.4f}", flush=True)
+    if not (layer0 <= RWKV6_TOL and k_lg <= ZOO_BF16_FLOOR_X * f_lg
+            and k_st <= ZOO_BF16_FLOOR_X * f_st):
+        raise AssertionError(f"zoo bfloat16: layer-0 state {layer0}, "
+                             f"logits {k_lg} vs floor {f_lg}, states {k_st} "
+                             f"vs floor {f_st}")
+    del last_p, st_p, last_f, st_f
+    prof = _profile(lambda: dec.run_prefill(cfg, params, prompts, total,
+                                            bf16)[2])
+    print(f"[zoo] profiled prefill: {json.dumps(prof)}", flush=True)
+    prof = _profile(lambda: dec.run_decode(cfg, params, last, cache, ZOO_S,
+                                           4)[2])
+    print(f"[zoo] profiled 4 decode steps: {json.dumps(prof)}", flush=True)
+    del last, cache
+    del params
+    # float32 weights and cache: the same comparison, tight
+    params = dec.init_model(cfg, 0, torch.float32, dev)
+    last, cache, t32 = dec.run_prefill(cfg, params, prompts, total,
+                                       torch.float32)
+    last_p, st_p = _plain_prefill(cfg, params, prompts, torch.float32)
+    lg32, st32 = _rel(last[:, :v], last_p), _rel(cache["state"], st_p)
+    print(f"[zoo] float32 kernel vs plain prefill (kernel prefill "
+          f"{t32:.3f} s): last logits relative L2 {lg32:.4e}, final states "
+          f"{st32:.4e}", flush=True)
+    if not (lg32 <= ZOO_F32_REL and st32 <= ZOO_F32_REL):
+        raise AssertionError(f"zoo float32: logits {lg32}, states {st32} > "
+                             f"{ZOO_F32_REL}")
+    return pre
+
+
 def run() -> int:
     import torch
 
@@ -586,9 +939,13 @@ def run() -> int:
     serve_path(store)
     threaded_serve(sc, state)
     lossless_round(dev, main_sc.data, state)
+    rows.append(rwkv6_kernel_check(dev))
+    zoo_cross_check(dev)
+    zoo_launches = zoo_full_width(dev)
     for r in rows:      # each kernel's count on the path that runs it
-        r["launches"] = (comms_launches if r["name"].startswith("q8")
-                         else launches)[r["name"]]
+        path = (comms_launches if r["name"].startswith("q8")
+                else zoo_launches if r["name"] == "rwkv6" else launches)
+        r["launches"] = path[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

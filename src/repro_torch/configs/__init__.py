@@ -1,2 +1,4 @@
-"""Model configs: own copy of the `repro.configs` registry (ResNet only)."""
-from repro_torch.configs.base import ModelConfig, get_config  # noqa: F401
+"""Model configs: own copy of the `repro.configs` registry (ResNet-18-CIFAR
+and RWKV6-1.6B)."""
+from repro_torch.configs.base import (  # noqa: F401
+    InputShape, ModelConfig, get_config)

@@ -10,6 +10,9 @@ layouts (conv weights HWIO), so conversion is a leaf-by-leaf copy:
   into the port's; `tree_to_numpy` goes back.
 * `comms_from_numpy(np_comms, device)` — the reference's
   ``FLState.comms`` (None, or ``{"ef": (m, Ppad)}``) into the port's.
+* `zoo_params_from_numpy(np_tree, device=None)` — a reference zoo
+  ``T.init_params`` tree (stacked blocks, bfloat16 leaves included) into
+  the port's, leaf dtypes kept; `zoo_params_to_numpy` goes back.
 
 The FLAT ROW LAYOUT is the reference's ravel order: `jax.tree.leaves`
 order (dict keys sorted at every level, so ``params`` before ``state``),
@@ -25,6 +28,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.runtime import resolve_device
 
 
 def leaves_with_paths(tree, prefix=()):
@@ -62,6 +67,33 @@ def tree_from_numpy(np_tree, device="cpu") -> dict:
 
 def tree_to_numpy(tree) -> dict:
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    """numpy leaf -> tensor of the same dtype; numpy's bfloat16 (the
+    ml_dtypes type jax hands out) travels as its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.tensor(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def zoo_params_from_numpy(np_tree, device=None) -> dict:
+    """Reference zoo params (numpy or array-like leaves, e.g.
+    ``jax.tree.map(np.asarray, T.init_params(cfg, key))``) -> the port's
+    tree on `device` (None means CUDA), keys, layouts and dtypes kept."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _leaf_from_numpy(a, device), np_tree)
+
+
+def zoo_params_to_numpy(tree) -> dict:
+    """Port zoo params -> numpy leaves; bfloat16 leaves come back as
+    float32 (exact), since numpy has no bfloat16 of its own."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(leaf, tree)
 
 
 def comms_from_numpy(np_comms, device="cpu"):

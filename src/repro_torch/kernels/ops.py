@@ -17,6 +17,10 @@ a failed build or launch raises too.
   ``q8_decode_flat(codes, scales)`` — the blockwise-int8 delta codec
   (one float32 scale per BQ = 256 columns), P zero-padded to a multiple
   of BQ as the reference's wrappers pad it.
+* ``rwkv6(r, k, v, logw, u, state0=None)`` — the chunked RWKV6
+  recurrence (CHUNK = 16) for any S >= 1, returning the true state after
+  S steps (`ref.rwkv6_ref`'s, not the reference wrapper's decayed one);
+  ``rwkv6_plain`` is its plain version on any device.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels import dt_loss as _dt_kernel
 from repro_torch.kernels import qdelta as _q8_kernel
+from repro_torch.kernels import rwkv6 as _rwkv6_kernel
 from repro_torch.kernels import wagg as _wagg_kernel
 from repro_torch.kernels.qdelta import BQ
 
@@ -130,3 +135,37 @@ def q8_decode_flat(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     else:
         out = ref.q8_decode_ref(c, scales, block=BQ)
     return out[:, :p]
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          logw: torch.Tensor, u: torch.Tensor,
+          state0: torch.Tensor | None = None):
+    """RWKV6 recurrence S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T,
+    o_t = r_t (S_{t-1} + diag(u) k_t v_t^T), for any S >= 1.
+
+    r, k, v, logw: (BH, S, D) float32 with u (BH, D) or (D,) and state0
+    (BH, D, D) or None (zeros); or (B, S, H, D) with u (H, D) or (D,) and
+    state0 (B, H, D, D). Returns (o in the input's layout, state (BH, D, D)
+    or (B, H, D, D)), float32. Semantics of `ref.rwkv6_ref`."""
+    if _on_cuda(r, k, v, logw, u, state0):
+        return _rwkv6_kernel.rwkv6_cuda(r, k, v, logw, u, state0)
+    return rwkv6_plain(r, k, v, logw, u, state0)
+
+
+def rwkv6_plain(r, k, v, logw, u, state0=None):
+    """`rwkv6` through the plain chunked version (`ref.rwkv6_chunked_ref`)
+    on whatever device the tensors lie on: the CPU path of `rwkv6`, and
+    what chip_smoke.py holds the kernel against on the card."""
+    b, h, s, d = _rwkv6_kernel.geometry(r)
+    if r.dim() == 3:
+        return ref.rwkv6_chunked_ref(r, k, v, logw, u, state0)
+
+    def rows(t):
+        return t.transpose(1, 2).reshape(b * h, s, d)
+
+    u_rows = u.float().expand(h, d).repeat(b, 1)
+    st0 = None if state0 is None else state0.reshape(b * h, d, d)
+    o, st = ref.rwkv6_chunked_ref(rows(r), rows(k), rows(v), rows(logw),
+                                  u_rows, st0)
+    return (o.reshape(b, h, s, d).transpose(1, 2).contiguous(),
+            st.reshape(b, h, d, d))

@@ -1,10 +1,13 @@
 """Plain PyTorch versions of the port's kernels — counterpart of
 `repro.kernels.ref` (`dt_loss_fwd_ref`, `wagg_ref`, `q8_encode_ref`,
-`q8_decode_ref`).
+`q8_decode_ref`, `rwkv6_ref`).
 
 They define what the CUDA kernels compute. The CPU path of every wrapper
 runs them (only because its tensors lie on the CPU), and chip_smoke.py
-holds each kernel against them on the card.
+holds each kernel against them on the card. For RWKV6 there are two:
+`rwkv6_ref`, the reference's token-by-token oracle, and
+`rwkv6_chunked_ref`, the chunked form the kernel computes (the
+reference layer's `chunk_body`), which is the plain version.
 """
 from __future__ import annotations
 
@@ -75,3 +78,74 @@ def q8_decode_ref(codes: torch.Tensor, scales: torch.Tensor,
     n, p = codes.shape
     out = codes.reshape(n, p // block, block).float() * scales[..., None]
     return out.reshape(n, p)
+
+
+RWKV_CHUNK = 16     # the reference's CHUNK (kernels/rwkv6.py, models/layers.py)
+
+
+def _rwkv_inputs(r, k, v, logw, u, state0):
+    bh, _, d = r.shape
+    u = u.float().expand(bh, d) if u.dim() == 1 else u.float()
+    st = (torch.zeros((bh, d, d), dtype=torch.float32, device=r.device)
+          if state0 is None else state0.float())
+    return (r.float(), k.float(), v.float(), logw.float(), u, st)
+
+
+def rwkv6_ref(r, k, v, logw, u, state0=None):
+    """Sequential oracle. r, k, v, logw: (BH, S, D); u: (D,) or (BH, D);
+    state0: (BH, D, D) or None (zeros).
+
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T ; o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
+    with w_t = exp(logw_t). Returns (o (BH, S, D), state (BH, D, D)), float32.
+    """
+    r, k, v, logw, u, st = _rwkv_inputs(r, k, v, logw, u, state0)
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        outs.append(torch.einsum("bd,bde->be", r[:, t], st + u[..., None] * kv))
+        st = st * torch.exp(logw[:, t])[..., None] + kv
+    return torch.stack(outs, 1), st
+
+
+def rwkv6_chunked_ref(r, k, v, logw, u, state0=None, chunk: int = RWKV_CHUNK):
+    """The recurrence of `rwkv6_ref` in chunks of `chunk` steps — the
+    reference's `rwkv_tmix_chunked.chunk_body` for one (batch*head) row
+    layout, with the state carried from chunk to chunk.
+
+    Within a chunk, with cum = cumsum(logw) and cum_prev = cum - logw:
+      o_i = (r_i exp(cum_prev_i)) S0 + sum_{j<i} scores_ij v_j + (r_i u k_i) v_i,
+      scores_ij = sum_d r_id k_jd exp(cum_prev_id - cum_jd),
+      S_end = diag(exp(cum_C)) S0 + sum_j diag(exp(cum_C - cum_j)) k_j v_j^T,
+    every exponent taken after the subtraction (so <= 0 where used).
+
+    Any S >= 1: a ragged last chunk is padded with r = k = v = 0 and
+    logw = 0 (no decay), which leaves o's first S rows and the state
+    exactly those of S steps — unlike the reference wrapper
+    `repro.kernels.ops.rwkv6`, which pads logw with -1e-4 and so decays
+    the returned state once per padded step.
+    """
+    r, k, v, logw, u, st = _rwkv_inputs(r, k, v, logw, u, state0)
+    bh, s, d = r.shape
+    pad = (-s) % chunk
+    if pad:
+        r, k, v, logw = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                         for t in (r, k, v, logw))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)[..., None]
+    outs = []
+    for c0 in range(0, s + pad, chunk):
+        rc, kc, vc, lwc = (t[:, c0:c0 + chunk] for t in (r, k, v, logw))
+        cum = torch.cumsum(lwc, dim=1)
+        cum_prev = cum - lwc
+        o = torch.bmm(rc * torch.exp(cum_prev), st)
+        dec = torch.exp(cum_prev[:, :, None] - cum[:, None])   # (BH, C, C, D)
+        scores = (rc[:, :, None] * kc[:, None]
+                  * torch.where(tri, dec, 0.0)).sum(-1)
+        o = o + torch.bmm(scores, vc)
+        o = o + (rc * u[:, None] * kc).sum(-1, keepdim=True) * vc
+        total = cum[:, -1]
+        kdec = kc * torch.exp(total[:, None] - cum)
+        st = st * torch.exp(total)[..., None] + torch.bmm(kdec.transpose(1, 2),
+                                                          vc)
+        outs.append(o)
+    return torch.cat(outs, 1)[:, :s], st

@@ -1,0 +1,127 @@
+"""Prefill + greedy recurrent decode of a zoo model — counterpart of
+`repro.launch.decode` (`main`), for the port's ``ssm`` family (RWKV6).
+
+The reference runs ``--reduced`` end to end on the CPU and, without it,
+only lowers and compiles the decode step for a TPU mesh. The port runs
+both: ``--reduced`` is the reference's run (the ``-smoke`` config, B = 2,
+S = 32, float32 parameters and cache); without it the full-width config
+runs on the card with bfloat16 parameters and cache (the reference's
+serve-step default) and a float32 recurrence, at ``--batch`` prompts of
+``--prompt-len`` random tokens. Weights are random, from ``--seed``.
+
+    PYTHONPATH=src python -m repro_torch.launch.decode --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.decode --arch rwkv6-1.6b \\
+        --batch 16 --prompt-len 2048 --tokens 64       # on the card
+
+Prints the prefill time, the decode time per step and decode tok/s.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.base import InputShape, get_config
+from repro_torch.launch import steps as st
+from repro_torch.models import transformer as T
+from repro_torch.runtime import resolve_device, set_parity_mode
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def init_model(cfg, seed: int, dtype, device) -> dict:
+    """Random parameters drawn on `device` from a generator seeded with
+    `seed`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return T.init_params(cfg, gen, dtype)
+
+
+def random_prompts(cfg, batch: int, length: int, seed: int, device):
+    """(batch, length) token ids in [1, vocab_size), drawn on `device`."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return torch.randint(1, cfg.vocab_size, (batch, length), generator=gen,
+                         device=device)
+
+
+def greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) next token ids over the real vocabulary."""
+    return torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
+
+
+def run_prefill(cfg, params, prompts, total_len: int, param_dtype):
+    """Prefill `prompts`; returns (last-position logits (B, V), cache,
+    seconds on the host clock, synchronised)."""
+    b = prompts.shape[0]
+    prefill = st.make_prefill_step(
+        cfg, InputShape("prefill", total_len, b, "prefill"), param_dtype)
+    _sync(prompts.device)
+    t0 = time.perf_counter()
+    last, cache = prefill(params, {"tokens": prompts})
+    _sync(prompts.device)
+    return last, cache, time.perf_counter() - t0
+
+
+def run_decode(cfg, params, last, cache, start: int, n_tokens: int):
+    """`n_tokens` greedy decode steps from the prefill's `last` logits at
+    absolute position `start`. Returns (tokens (B, n_tokens + 1): the
+    prefill's pick then each step's, cache, seconds, synchronised)."""
+    decode = st.make_decode_step(cfg)
+    b = last.shape[0]
+    tok = greedy(cfg, last)
+    out = [tok]
+    _sync(tok.device)
+    t0 = time.perf_counter()
+    for i in range(n_tokens):
+        pos = torch.full((b,), start + i, dtype=torch.int64, device=tok.device)
+        logits, cache = decode(params, {"tokens": tok, "positions": pos,
+                                        "cache": cache})
+        tok = greedy(cfg, logits)
+        out.append(tok)
+    _sync(tok.device)
+    return torch.cat(out, dim=1), cache, time.perf_counter() - t0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="rwkv6-1.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--tokens", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="prompts (default: 2 reduced, 16 full width)")
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="prompt tokens (default: 32 reduced, 2048 full)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    a = ap.parse_args(argv)
+
+    device = resolve_device(a.device)
+    set_parity_mode()
+    cfg = get_config(a.arch)
+    if a.reduced:
+        cfg = cfg.reduced()
+        dtype, b, s = torch.float32, a.batch or 2, a.prompt_len or 32
+    else:
+        dtype, b, s = torch.bfloat16, a.batch or 16, a.prompt_len or 2048
+    params = init_model(cfg, a.seed, dtype, device)
+    prompts = random_prompts(cfg, b, s, a.seed, device)
+    # warm-up: builds the kernel and the library handles before timing
+    last, cache, _ = run_prefill(cfg, params, prompts, s + a.tokens, dtype)
+    run_decode(cfg, params, last, cache, s, min(a.tokens, 2))
+    last, cache, t_pre = run_prefill(cfg, params, prompts, s + a.tokens, dtype)
+    toks, _, t_dec = run_decode(cfg, params, last, cache, s, a.tokens)
+    if not bool(torch.isfinite(last[:, :cfg.vocab_size]).all()):
+        raise SystemExit("prefill logits are not finite")
+    print(f"{cfg.name} on {device}: prefill {b}x{s} in {t_pre * 1e3:.1f} ms "
+          f"({b * s / t_pre:.0f} tok/s); {a.tokens} decode steps x {b} seqs "
+          f"in {t_dec * 1e3:.1f} ms ({t_dec * 1e3 / max(a.tokens, 1):.2f} "
+          f"ms/step, {a.tokens * b / t_dec:.1f} tok/s); first tokens "
+          f"{toks[0, :8].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

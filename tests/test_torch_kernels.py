@@ -4,9 +4,10 @@ On the CPU each wrapper runs its plain version; these tests hold that
 path against the reference's Pallas kernel in interpret mode (`wagg`) or
 its jnp oracle (`dt_loss`: the Pallas DT kernel calls `pl.load`, which
 the installed jax no longer has). The q8 codec's CPU parity tests live
-in tests/test_torch_comms.py. Tests marked ``cuda`` hold the CUDA
-kernels against the plain versions on the card and skip without one;
-chip_smoke.py runs the same checks at the main path's shapes.
+in tests/test_torch_comms.py and the rwkv6 ones in tests/test_torch_zoo.py.
+Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
+the card and skip without one; chip_smoke.py runs the same checks at the
+main path's shapes.
 
 The reference is imported inside the `jx` fixture, not at the top, so
 that on a GPU machine without jax the ``cuda`` tests still run:
@@ -24,11 +25,16 @@ import torch
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import dt_loss as dt_kernel
 from repro_torch.kernels import qdelta as q8_kernel
+from repro_torch.kernels import rwkv6 as rwkv6_kernel
 from repro_torch.kernels import wagg as wagg_kernel
 
 WAGG_TOL = 1e-5       # f32 sums of <= 16 terms in another order
 DT_FWD_TOL = 2e-5     # logsumexp at tau 0.1 over up to 512 columns
 DT_GRAD_TOL = 1e-5
+# float32 sums of 16-80 terms and the chunk's prefix sums in another order
+# than torch's (a few ULP in the exponents); the reference's own kernel
+# tolerance (tests/test_kernels.py)
+RWKV6_TOL = 2e-4
 
 
 @pytest.fixture
@@ -105,10 +111,13 @@ def test_wrappers_refuse_mixed_and_non_cuda_inputs():
                                  torch.zeros(2, 1))
     with pytest.raises(ValueError):
         ops._on_cuda(x, torch.empty(0, device="meta"))
+    r = torch.zeros(2, 16, 32)
+    with pytest.raises(ValueError):
+        rwkv6_kernel.rwkv6_cuda(r, r, r, r, torch.zeros(32))
 
 
 def test_build_finds_every_kernel_source():
-    assert build.sources() == ["dt_loss", "qdelta", "wagg"]
+    assert build.sources() == ["dt_loss", "qdelta", "rwkv6", "wagg"]
     t = build._target("wagg")
     assert t.parent == build.BUILD_DIR and t.name.startswith("wagg-")
     assert build._target("wagg") == t          # keyed on content only
@@ -227,3 +236,58 @@ def test_q8_kernels_match_plain_on_card(cuda, N, P):
     with pytest.raises(ValueError):
         q8_kernel.q8_encode_cuda(x[:, 1:257].contiguous().double(),
                                  e[:, 1:257].contiguous().double())
+
+
+def _rwkv6_inputs(rs, shape, dev):
+    """r, k, v, logw as the reference's kernel tests draw them."""
+    r, k, v = (torch.from_numpy((rs.randn(*shape) * 0.5).astype(np.float32))
+               .to(dev) for _ in range(3))
+    lw = np.clip(-np.exp(rs.randn(*shape) * 0.3 - 1.0), -4.0, -1e-4)
+    return r, k, v, torch.from_numpy(lw.astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,D,with_state", [(8, 128, 64, False),
+                                               (5, 37, 32, True),
+                                               (6, 253, 64, True),
+                                               (3, 1, 64, True)])
+def test_rwkv6_kernel_matches_plain_on_card(cuda, BH, S, D, with_state):
+    """o and the state against the plain chunked version, per-row u; a
+    ragged S's state against the sequential oracle."""
+    rs = np.random.RandomState(BH * 1000 + S + D)
+    r, k, v, lw = _rwkv6_inputs(rs, (BH, S, D), cuda)
+    u = torch.from_numpy((rs.randn(BH, D) * 0.3).astype(np.float32)).to(cuda)
+    s0 = (torch.from_numpy((rs.randn(BH, D, D) * 0.3).astype(np.float32))
+          .to(cuda) if with_state else None)
+    before = rwkv6_kernel.LAUNCHES
+    o, st = ops.rwkv6(r, k, v, lw, u, s0)
+    assert rwkv6_kernel.LAUNCHES == before + 1
+    o_p, st_p = ref.rwkv6_chunked_ref(r, k, v, lw, u, s0)
+    torch.testing.assert_close(o, o_p, atol=RWKV6_TOL, rtol=0)
+    torch.testing.assert_close(st, st_p, atol=RWKV6_TOL, rtol=0)
+    o_s, st_s = ref.rwkv6_ref(r, k, v, lw, u, s0)
+    torch.testing.assert_close(o, o_s, atol=RWKV6_TOL, rtol=0)
+    torch.testing.assert_close(st, st_s, atol=RWKV6_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_reads_bshd_in_place(cuda):
+    """The (B, S, H, D) layout, read by strides, gives bitwise the (BH, S,
+    D) call on the transposed copies (same arithmetic, other addresses)."""
+    B, S, H, D = 2, 45, 3, 64
+    rs = np.random.RandomState(4)
+    r, k, v, lw = _rwkv6_inputs(rs, (B, S, H * D), cuda)
+    u = torch.from_numpy((rs.randn(H, D) * 0.3).astype(np.float32)).to(cuda)
+    s0 = torch.from_numpy((rs.randn(B, H, D, D) * 0.3).astype(np.float32)
+                          ).to(cuda)
+    four = [t.view(B, S, H, D) for t in (r, k, v, lw)]
+    o4, st4 = ops.rwkv6(*four, u, s0)
+    rows = [t.transpose(1, 2).reshape(B * H, S, D) for t in four]
+    o3, st3 = ops.rwkv6(*rows, u.repeat(B, 1), s0.reshape(B * H, D, D))
+    assert o4.shape == (B, S, H, D) and st4.shape == (B, H, D, D)
+    assert torch.equal(o4.transpose(1, 2).reshape(B * H, S, D), o3)
+    assert torch.equal(st4.reshape(B * H, D, D), st3)
+    with pytest.raises(ValueError):                     # D not 32 or 64
+        ops.rwkv6(*(t[..., :48] for t in rows), u[0, :48])
+    with pytest.raises(ValueError):
+        ops.rwkv6(*(t.double() for t in rows), u[0].double())

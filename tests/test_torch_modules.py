@@ -352,6 +352,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.data.synthetic, repro_torch.optim.optimizers\n"
         "import repro_torch.comms.codecs, repro_torch.serve\n"
         "import repro_torch.launch.serve, repro_torch.kernels.qdelta\n"
+        "import repro_torch.models.transformer, repro_torch.models.layers\n"
+        "import repro_torch.kernels.rwkv6, repro_torch.launch.decode\n"
+        "import repro_torch.launch.steps, repro_torch.configs.rwkv6_1_6b\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -376,6 +379,22 @@ def test_default_device_is_cuda():
 def test_unported_choices_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Scenario(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("what", ["qwen2-0.5b", "hymba-1.5b-smoke",
+                                  "family:dense", "family:hybrid"])
+def test_unported_archs_and_families_raise_not_implemented(what):
+    import dataclasses
+
+    from repro_torch.models import transformer as TT
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        if what.startswith("family:"):
+            cfg = dataclasses.replace(get_config("rwkv6-1.6b-smoke"),
+                                      family=what.split(":")[1])
+            TT.init_params(cfg, torch.Generator())
+        else:
+            get_config(what)
 
 
 @pytest.mark.parametrize("codec", ["identity", "delta", "delta_int8"])
