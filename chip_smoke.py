@@ -51,7 +51,11 @@ the JAX package `repro`. Phases, each of which must pass:
      S = 2043 and S = 37 with a nonzero state0 (the ragged states also
      against the sequential `ref.rwkv6_ref` on a few rows), and the
      projections' (B, S, H, D) layout read in place bitwise equal to the
-     (BH, S, D) call. Timed with CUDA events beside its byte bound.
+     (BH, S, D) call. Timed with CUDA events beside its byte bound, with
+     the kernel's registers and local (spill) bytes a thread and the
+     blocks an SM holds (`kernels.rwkv6.kernel_attributes`: the kernel
+     steps the recurrence with the state in registers, one block of 64
+     threads per row, so 4 blocks an SM cover the 512 rows in one wave).
    * Cross-check: ``rwkv6-1.6b-smoke`` in float32 (parity mode), a
      prefill of B = 2, S = 37 then 4 decode steps through
      `launch.steps`, on the card and with ``device="cpu"``, logits and
@@ -633,6 +637,7 @@ def rwkv6_kernel_check(dev):
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6 as rwkv6_kernel
 
     g = torch.Generator(device=dev).manual_seed(2)
     bh, d = ZOO_B * RWKV_H, RWKV_D
@@ -683,14 +688,23 @@ def rwkv6_kernel_check(dev):
     plain_ms = _time_ms(lambda: ops.rwkv6_plain(r, k, v, lw, u), iters=3,
                         warmup=1)
     bound_ms, bound_by = _bound(*_rwkv6_work(bh, ZOO_S, d, False))
+    attrs = rwkv6_kernel.kernel_attributes(d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[zoo] rwkv6 ({bh}, {ZOO_S}, {d}): (B, S, H, D) layout bitwise "
           f"the row layout; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by}); {attrs['regs']} registers "
+          f"and {attrs['local_bytes']} local bytes a thread, "
+          f"{attrs['blocks_per_sm']} blocks of {attrs['threads']} threads an "
+          f"SM ({bh} rows over {sms} SMs in "
+          f"{-(-bh // max(1, attrs['blocks_per_sm'] * sms))} wave(s)), "
+          f"{attrs['steps_per_slab']} steps a slab", flush=True)
     return {"name": "rwkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
             "replaces": "src/repro/kernels/rwkv6.py:28",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "regs": attrs["regs"], "local_bytes": attrs["local_bytes"],
+            "blocks_per_sm": attrs["blocks_per_sm"]}
 
 
 def zoo_cross_check(dev):

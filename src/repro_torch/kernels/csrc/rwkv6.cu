@@ -1,7 +1,8 @@
-// RWKV6 ("Finch") chunked recurrence, per (batch*head) row:
-//   S_t = diag(w_t) S_{t-1} + k_t v_t^T,  o_t = r_t (S_{t-1} + diag(u) k_t v_t^T),
-// w_t = exp(logw_t), with the (D, D) float32 state carried across chunks of
-// C = 16 steps.
+// RWKV6 ("Finch") recurrence, per (batch*head) row, step by step:
+//   o_t,e = sum_d r_t,d S_de + beta_t v_t,e,  beta_t = sum_d r_t,d u_d k_t,d,
+//   S_de <- S_de w_t,d + k_t,d v_t,e,         w_t,d = exp(logw_t,d) <= 1,
+// with S the (D, D) float32 state before step t: the semantics of the
+// sequential oracle ref.rwkv6_ref.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rwkv6.py:_rwkv6_kernel
 // (launched by rwkv6_pallas), whose grid is (BH, S / 16) with the chunk axis
@@ -9,141 +10,226 @@
 //
 // Bound on the card: device memory. Each (batch*head) row reads r, k, v,
 // logw once and writes o once (4 + 1 float32 streams of S x D) plus its
-// state; the arithmetic is about 350 kFLOP per chunk of 16 x 64, about
-// 17 FLOP per byte moved, just below the float32 ridge of 67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/byte. At B = 16, S = 2048, H = 32, D = 64 that is
-// about 1.35 GB, 0.40 ms at 3.35 TB/s.
+// state. At B = 16, S = 2048, H = 32, D = 64 that is about 1.35 GB, 0.40 ms
+// at 3.35 TB/s; the step form does 3 floating-point operations per (t, d, e)
+// (two FMAs and a multiply), about 21 GFLOP there, 0.31 ms at 67 TFLOP/s.
 //
-// Design (a simple one; tensor cores, TMA and several rows per block are
-// later work). Blocks run in no order on Hopper, so the TPU's sequential
-// grid axis becomes a loop inside the block: one block of 256 threads per
-// (batch*head) row holds the state in shared memory and walks the chunks.
-// Per chunk, with __syncthreads between the phases:
-//   A. load the chunk's r, k, v, logw (C x D each) into shared memory;
-//      rows past S load r = k = v = 0 and logw = 0 (no decay), so a ragged
-//      last chunk leaves the state exactly that of S steps;
-//   B. one thread per column d: cum = prefix sum of logw over the chunk in
-//      ascending t, cum_prev = cum - logw, a = r * exp(cum_prev),
-//      kdec = k * exp(cum_C - cum), exp(cum_C);
-//   C. one thread per (i, j): scores_ij = sum_d r_id k_jd exp(cum_prev_id -
-//      cum_jd) for j < i and the bonus sum_d r_id u_d k_id on the diagonal;
-//   D. o_ie = sum_d a_id S_de + sum_{j<=i} scores_ij v_je, stored for t < S;
-//   E. S_de = S_de exp(cum_C,d) + sum_j kdec_jd v_je.
-// Every exponent is taken after the subtraction, so each factor used is
-// <= 1, as the reference's layer does (models/layers.py rwkv_tmix_chunked).
-// The tiles read across lanes along d (r, k, cum, cum_prev) are padded to
-// D + 1 columns, so the 16 rows phase C reads at once fall in 16 banks.
+// The first design (the TPU kernel's chunked form: one block of 256 threads
+// per row, the state in shared memory, five phases a chunk of 16 steps)
+// took 3.50 ms there on an H100 80GB HBM3 at 700 W. Shared memory bound it:
+// its two big phases read both operands of every FMA from shared memory (a
+// broadcast and a row of 32 floats, two wavefronts per warp FMA), about 11k
+// wavefronts per block per chunk, 45k clocks per chunk step on an SM of four
+// blocks, about 3.3 ms over 128 chunks.
+//
+// This design keeps the state in registers and steps the recurrence. One
+// block of D threads per row (64 at D = 64, so 512 rows fit one wave at 4
+// blocks an SM); the threads form groups of G = 4, and a group holds G
+// state columns: thread `part` of the group holds rows d of all G columns
+// for the float4 groups q * G + part of d (D / G x G = 64 floats, every
+// index a compile-time constant, so nothing spills). The steps go in slabs
+// of T = 8: the block stages a slab's r, k, v, w = exp(logw) (expf once per
+// (t, d)) and the per-warp partial sums of beta into shared memory while the
+// next slab's r, k, v, logw load into registers; one __syncthreads a slab,
+// the slab buffers double. Per step a thread reads r, k, w as float4 groups
+// (one broadcast LDS.128 each, shared by the G columns it updates) and does,
+// per (d, column),
+//   y += r_d s_d;  s_d = fmaf(s_d, w_d, k_d v_e);
+// then a reduce-scatter across the group (G - 1 shuffles) leaves each thread
+// the full sum of its own column tid, stored coalesced as o = y + beta v.
+// The step loop is unrolled by 2. So per (t, d, e) the card issues 3
+// floating-point instructions and 3/4G of a shared load; what bounds the
+// kernel now is the issue rate of those FMAs (most read three distinct
+// registers), not shared memory and not device memory.
+//
+// Knobs (-D at build time; python -m repro_torch.kernels.rwkv6_tune times
+// them): RWKV6_GROUP (G: 1, 2, 4 or 8), RWKV6_T (steps a slab),
+// RWKV6_UNROLL (steps a turn of the step loop). Chosen: G = 4, T = 8,
+// UNROLL = 2, 64 threads a row.
 //
 // Layout: r, k, v, logw share one strided layout with unit stride along D:
 // element (row, t, d) of row = b * H + h lies at b*sb + h*sh + t*st + d.
 // So a (BH, S, D) tensor is H = 1, and the projections' (B, S, H, D) layout
 // is read in place. o is written with its own strides (ob, oh, ot); u at
 // b*ub + h*uh + d; state0 (may be null: zeros) and state_out are contiguous
-// (BH, D, D).
+// (BH, D, D), element (row, d, e) at (row * D + d) * D + e. Steps at or past
+// S are never run, so a ragged S needs no padding and the state returned is
+// that of exactly S steps.
 #include <cuda_runtime.h>
+
+#ifndef RWKV6_GROUP
+#define RWKV6_GROUP 4
+#endif
+#ifndef RWKV6_T
+#define RWKV6_T 8
+#endif
+#ifndef RWKV6_UNROLL
+#define RWKV6_UNROLL 2
+#endif
 
 namespace {
 
-constexpr int C = 16;
-constexpr int THREADS = C * C;   // phase C: one thread per (i, j)
+constexpr int G = RWKV6_GROUP;     // threads of a group; it holds G columns
+constexpr int T = RWKV6_T;         // steps per slab
+constexpr int UNROLL = RWKV6_UNROLL;   // steps per turn of the step loop
+static_assert(G == 1 || G == 2 || G == 4 || G == 8, "GROUP: 1, 2, 4 or 8");
+static_assert(T % UNROLL == 0, "T must be a multiple of UNROLL");
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+struct __align__(16) Slab {
+  float r[T][D], k[T][D], w[T][D], v[T][D];
+  float beta[T][D / 32];   // beta_t, one partial sum per warp along d
+};
+
+__device__ __forceinline__ float at(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+template <int D>
+__global__ void __launch_bounds__(D)
 rwkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ lw,
              const float* __restrict__ u, const float* __restrict__ state0,
              float* __restrict__ o, float* __restrict__ state_out, int h,
              int s, long long sb, long long sh, long long st, long long ob,
              long long oh, long long ot, long long ub, long long uh) {
-  constexpr int DP = D + 1;
-  __shared__ float sr[C][DP], sk[C][DP], scum[C][DP], scp[C][DP];
-  __shared__ float sv[C][D], sa[C][D], skd[C][D];
-  __shared__ float sS[D][D];
-  __shared__ float ssc[C][C + 1];
-  __shared__ float setot[D], su[D];
+  constexpr int DH = D / G;            // state rows a thread holds
+  constexpr int Q = DH / 4;            // its float4 groups along d
+  constexpr int A = G >= 4 ? 1 : 4 / G;   // partial sums of y a column
+  constexpr int NW = D / 32;           // warps across one slab row
+  static_assert(Q >= 1, "D / GROUP must be a multiple of 4");
+  __shared__ Slab<D> slab[2];
 
+  // Thread tid stages column d = tid of every slab row and, after the
+  // reduce-scatter of y across its group, owns output column e = tid.
   const int tid = threadIdx.x;
+  const int part = tid % G;            // this thread's share of d
+  const int e0 = tid - part;           // the group's first column
   const long long row = blockIdx.x;
   const long long b = row / h, hh = row % h;
-  const long long in0 = b * sb + hh * sh;
-  const long long out0 = b * ob + hh * oh;
+  const long long in0 = b * sb + hh * sh + tid;
+  const long long out0 = b * ob + hh * oh + tid;
+  const float ud = u[b * ub + hh * uh + tid];
 
-  for (int i = tid; i < D; i += THREADS) su[i] = u[b * ub + hh * uh + i];
-  for (int i = tid; i < D * D; i += THREADS)
-    sS[i / D][i % D] = state0 != nullptr ? state0[row * D * D + i] : 0.f;
-
-  for (int t0 = 0; t0 < s; t0 += C) {
-    __syncthreads();   // the previous chunk's phase E is done with sv, skd
-    // A. load the chunk
-    for (int i = tid; i < C * D; i += THREADS) {
-      const int t = i / D, d = i % D;
-      float rv = 0.f, kv = 0.f, vv = 0.f, lv = 0.f;
-      if (t0 + t < s) {
-        const long long off = in0 + (long long)(t0 + t) * st + d;
-        rv = r[off];
-        kv = k[off];
-        vv = v[off];
-        lv = lw[off];
-      }
-      sr[t][d] = rv;
-      sk[t][d] = kv;
-      sv[t][d] = vv;
-      scum[t][d] = lv;   // logw, turned into cum in place by phase B
-    }
-    __syncthreads();
-    // B. per-column prefix sums and the decayed r and k
-    if (tid < D) {
-      const int d = tid;
-      float acc = 0.f;
-      for (int t = 0; t < C; ++t) {
-        const float l = scum[t][d];
-        acc += l;
-        const float cp = acc - l;
-        scum[t][d] = acc;
-        scp[t][d] = cp;
-        sa[t][d] = sr[t][d] * expf(cp);
-      }
-      for (int t = 0; t < C; ++t) skd[t][d] = sk[t][d] * expf(acc - scum[t][d]);
-      setot[d] = expf(acc);
-    }
-    __syncthreads();
-    // C. intra-chunk scores (j < i) and the bonus (j == i)
-    {
-      const int i = tid / C, j = tid % C;
-      float acc = 0.f;
-      if (j < i) {
-#pragma unroll 8
-        for (int d = 0; d < D; ++d)
-          acc = fmaf(sr[i][d] * sk[j][d], expf(scp[i][d] - scum[j][d]), acc);
-      } else if (j == i) {
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) acc = fmaf(sr[i][d] * su[d], sk[i][d], acc);
-      }
-      ssc[i][j] = acc;
-    }
-    __syncthreads();
-    // D. the chunk's outputs
-    for (int idx = tid; idx < C * D; idx += THREADS) {
-      const int i = idx / D, e = idx % D;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) acc = fmaf(sa[i][d], sS[d][e], acc);
-      for (int j = 0; j <= i; ++j) acc = fmaf(ssc[i][j], sv[j][e], acc);
-      if (t0 + i < s) o[out0 + (long long)(t0 + i) * ot + e] = acc;
-    }
-    __syncthreads();
-    // E. carry the state to the end of the chunk
-    for (int idx = tid; idx < D * D; idx += THREADS) {
-      const int d = idx / D, e = idx % D;
-      float acc = sS[d][e] * setot[d];
+  // sc[j][4q + i] = S[4 (q G + part) + i][e0 + j]
+  float sc[G][DH];
 #pragma unroll
-      for (int j = 0; j < C; ++j) acc = fmaf(skd[j][d], sv[j][e], acc);
-      sS[d][e] = acc;
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * (q * G + part) + i;
+        sc[j][4 * q + i] =
+            state0 != nullptr ? state0[(row * D + d) * D + e0 + j] : 0.f;
+      }
+
+  // the next slab's inputs: rows t0 .. t0 + T - 1 of column tid
+  float pr[T], pk[T], pv[T], pl[T];
+  auto fetch = [&](int t0) {
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      pr[j] = pk[j] = pv[j] = pl[j] = 0.f;
+      if (t0 + j < s) {
+        const long long off = in0 + (long long)(t0 + j) * st;
+        pr[j] = r[off];
+        pk[j] = k[off];
+        pv[j] = v[off];
+        pl[j] = lw[off];
+      }
     }
-  }
+  };
+  auto stage = [&](Slab<D>& x) {
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      x.r[j][tid] = pr[j];
+      x.k[j][tid] = pk[j];
+      x.v[j][tid] = pv[j];
+      x.w[j][tid] = expf(pl[j]);
+      float bt = pr[j] * ud * pk[j];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) bt += __shfl_xor_sync(~0u, bt, m);
+      if ((tid & 31) == 0) x.beta[j][tid / 32] = bt;
+    }
+  };
+  // one step: o_t for column tid, the state's G columns carried to t + 1
+  auto step = [&](const Slab<D>& x, int t, long long t_abs) {
+    const float4* r4 = reinterpret_cast<const float4*>(x.r[t]) + part;
+    const float4* k4 = reinterpret_cast<const float4*>(x.k[t]) + part;
+    const float4* w4 = reinterpret_cast<const float4*>(x.w[t]) + part;
+    float ve[G], y[G][A];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      ve[j] = x.v[t][e0 + j];
+#pragma unroll
+      for (int a = 0; a < A; ++a) y[j][a] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float4 rr = r4[q * G], kk = k4[q * G], ww = w4[q * G];
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float& sv = sc[j][4 * q + i];
+          y[j][i % A] = fmaf(at(rr, i), sv, y[j][i % A]);
+          sv = fmaf(sv, at(ww, i), at(kk, i) * ve[j]);
+        }
+    }
+    float yc[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      yc[j] = y[j][0];
+      if (A == 2) yc[j] += y[j][1];
+      if (A == 4) yc[j] = (y[j][0] + y[j][1]) + (y[j][2] + y[j][3]);
+    }
+    // reduce-scatter across the group: after the stage of offset m the
+    // thread keeps the half of its 2m sums that its bit m selects, so
+    // yc[0] ends as column e0 + part = tid summed over all of d
+#pragma unroll
+    for (int m = G / 2; m > 0; m >>= 1) {
+      const bool upper = (part & m) != 0;
+#pragma unroll
+      for (int i = 0; i < m; ++i) {
+        const float send = upper ? yc[i] : yc[i + m];
+        const float keep = upper ? yc[i + m] : yc[i];
+        yc[i] = keep + __shfl_xor_sync(~0u, send, m);
+      }
+    }
+    float beta = x.beta[t][0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) beta += x.beta[t][w];
+    o[out0 + t_abs * ot] = fmaf(beta, x.v[t][tid], yc[0]);
+  };
+
+  fetch(0);
+  stage(slab[0]);
+  if (T < s) fetch(T);
   __syncthreads();
-  for (int i = tid; i < D * D; i += THREADS)
-    state_out[row * D * D + i] = sS[i / D][i % D];
+  for (int t0 = 0, n = 0; t0 < s; t0 += T, ++n) {
+    const Slab<D>& cur = slab[n & 1];
+    if (t0 + T < s) {   // uniform across the block
+      stage(slab[(n + 1) & 1]);
+      if (t0 + 2 * T < s) fetch(t0 + 2 * T);
+    }
+    const int nt = min(T, s - t0);
+    int t = 0;
+    for (; t + UNROLL <= nt; t += UNROLL)
+#pragma unroll
+      for (int i = 0; i < UNROLL; ++i) step(cur, t + i, t0 + t + i);
+    for (; t < nt; ++t) step(cur, t, t0 + t);
+    __syncthreads();   // cur is free for the slab after next
+  }
+
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * (q * G + part) + i;
+        state_out[(row * D + d) * D + e0 + j] = sc[j][4 * q + i];
+      }
 }
 
 template <int D>
@@ -153,13 +239,30 @@ cudaError_t launch(const void* r, const void* k, const void* v,
                    long long sh, long long st, long long ob, long long oh,
                    long long ot, long long ub, long long uh,
                    cudaStream_t stream) {
-  rwkv6_kernel<D><<<bh, THREADS, 0, stream>>>(
+  rwkv6_kernel<D><<<bh, D, 0, stream>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(lw),
       static_cast<const float*>(u), static_cast<const float*>(state0),
       static_cast<float*>(o), static_cast<float*>(state_out), h, s, sb, sh,
       st, ob, oh, ot, ub, uh);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t attributes(int* out) {
+  const void* fn = reinterpret_cast<const void*>(&rwkv6_kernel<D>);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, D, 0);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = blocks;
+  out[4] = D;
+  out[5] = T;
+  return err;
 }
 
 }  // namespace
@@ -181,6 +284,20 @@ extern "C" int rwkv6_launch(const void* r, const void* k, const void* v,
   else if (d == 32)
     err = launch<32>(r, k, v, lw, u, state0, o, state_out, bh, h, s, sb, sh,
                      st, ob, oh, ot, ub, uh, cs);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The instance for head size d (32 or 64) on the current device: out[0..5]
+// = registers a thread, local (spill) bytes a thread, static shared bytes
+// a block, blocks an SM can hold, threads a block (one row), steps a slab.
+extern "C" int rwkv6_attributes(int d, int* out) {
+  cudaError_t err;
+  if (d == 64)
+    err = attributes<64>(out);
+  else if (d == 32)
+    err = attributes<32>(out);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -17,8 +17,9 @@ a failed build or launch raises too.
   ``q8_decode_flat(codes, scales)`` — the blockwise-int8 delta codec
   (one float32 scale per BQ = 256 columns), P zero-padded to a multiple
   of BQ as the reference's wrappers pad it.
-* ``rwkv6(r, k, v, logw, u, state0=None)`` — the chunked RWKV6
-  recurrence (CHUNK = 16) for any S >= 1, returning the true state after
+* ``rwkv6(r, k, v, logw, u, state0=None)`` — the RWKV6 recurrence for
+  any S >= 1 (the CUDA kernel steps it with the state in registers; the
+  plain version is chunked, CHUNK = 16), returning the true state after
   S steps (`ref.rwkv6_ref`'s, not the reference wrapper's decayed one);
   ``rwkv6_plain`` is its plain version on any device.
 """

@@ -1,4 +1,4 @@
-"""RWKV6 chunked recurrence kernel — launcher for ``csrc/rwkv6.cu``.
+"""RWKV6 recurrence kernel — launcher for ``csrc/rwkv6.cu``.
 
 Counterpart of `repro.kernels.rwkv6.rwkv6_pallas` (the Pallas TPU kernel
 `_rwkv6_kernel`). `rwkv6_cuda` launches the hand-written CUDA kernel on
@@ -12,8 +12,9 @@ Two input layouts, read in place by strides (unit stride along D):
   (H, D) or (D,) and state0 (B, H, D, D).
 
 o comes back contiguous in the input's layout, the state contiguous as
-(BH, D, D) or (B, H, D, D). Any S >= 1: the kernel masks the ragged last
-chunk, so the state is that of exactly S steps.
+(BH, D, D) or (B, H, D, D). Any S >= 1: the kernel runs exactly S steps,
+so the state is that of S steps. `kernel_attributes` reports the
+kernel's registers, spills and blocks per SM.
 
 `LAUNCHES` counts kernel launches (and nothing else).
 """
@@ -32,14 +33,39 @@ HEAD_DIMS = (32, 64)     # the template instances of csrc/rwkv6.cu
 _c = ctypes
 
 
-@functools.cache
-def _lib():
-    """The configured C entry point (built and loaded at first launch)."""
-    fn = build.load("rwkv6").rwkv6_launch
+def entry(lib):
+    """`rwkv6_launch` of a loaded build of csrc/rwkv6.cu, configured."""
+    fn = lib.rwkv6_launch
     fn.argtypes = ([_c.c_void_p] * 8 + [_c.c_int] * 4 + [_c.c_longlong] * 8
                    + [_c.c_void_p])
     fn.restype = _c.c_int
     return fn
+
+
+@functools.cache
+def _lib():
+    """The configured C entry point (built and loaded at first launch)."""
+    return entry(build.load("rwkv6"))
+
+
+ATTRIBUTES = ("regs", "local_bytes", "shared_bytes", "blocks_per_sm",
+              "threads", "steps_per_slab")
+
+
+def kernel_attributes(d: int = 64, lib=None) -> dict:
+    """What the compiler and the occupancy calculator say of the kernel
+    for head size `d` on the current CUDA device (`lib`: another build of
+    csrc/rwkv6.cu; the default one if None): registers and local (spill)
+    bytes a thread, static shared bytes a block, blocks an SM holds at
+    once, threads a block (one (batch*head) row), steps a slab."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"rwkv6 kernel takes D in {HEAD_DIMS}, got {d}")
+    fn = (lib or build.load("rwkv6")).rwkv6_attributes
+    fn.argtypes = [_c.c_int, _c.POINTER(_c.c_int)]
+    fn.restype = _c.c_int
+    out = (_c.c_int * len(ATTRIBUTES))()
+    build.check(fn(d, out), "rwkv6_attributes")
+    return dict(zip(ATTRIBUTES, out))
 
 
 def geometry(r: torch.Tensor):

@@ -35,6 +35,9 @@ DT_GRAD_TOL = 1e-5
 # than torch's (a few ULP in the exponents); the reference's own kernel
 # tolerance (tests/test_kernels.py)
 RWKV6_TOL = 2e-4
+# steps per slab of csrc/rwkv6.cu (its RWKV6_T default); the card tests
+# put S on the slab edges
+RWKV6_SLAB = 8
 
 
 @pytest.fixture
@@ -121,6 +124,28 @@ def test_build_finds_every_kernel_source():
     t = build._target("wagg")
     assert t.parent == build.BUILD_DIR and t.name.startswith("wagg-")
     assert build._target("wagg") == t          # keyed on content only
+
+
+def test_build_keys_variants_apart():
+    """A variant built with -D defines (rwkv6_tune's) gets its own library
+    beside the default build, keyed on the defines as well."""
+    base = build._target("rwkv6")
+    var = build._target("rwkv6", ("RWKV6_SPLIT=2", "RWKV6_T=16"))
+    assert var != base and var.name.startswith("rwkv6-")
+    assert var == build._target("rwkv6", ("RWKV6_SPLIT=2", "RWKV6_T=16"))
+    assert build._flags(("RWKV6_T=8",))[-1] == "-DRWKV6_T=8"
+
+
+def test_rwkv6_source_knobs_match_the_tests():
+    """The kernel's default slab length is the one the card tests put S
+    around, with groups of 4 threads sharing 4 state columns and the step
+    loop unrolled by 2 (the knobs rwkv6_tune times)."""
+    src = (build.CSRC / "rwkv6.cu").read_text()
+    assert f"#define RWKV6_T {RWKV6_SLAB}\n" in src
+    assert "#define RWKV6_GROUP 4\n" in src
+    assert "#define RWKV6_UNROLL 2\n" in src
+    with pytest.raises(ValueError):          # checked before any build
+        rwkv6_kernel.kernel_attributes(48)
 
 
 # --------------------------------------------------------------------------
@@ -247,10 +272,13 @@ def _rwkv6_inputs(rs, shape, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("BH,S,D,with_state", [(8, 128, 64, False),
-                                               (5, 37, 32, True),
-                                               (6, 253, 64, True),
-                                               (3, 1, 64, True)])
+@pytest.mark.parametrize("BH,S,D,with_state", [
+    (8, 128, 64, False), (5, 37, 32, True), (6, 253, 64, True),
+    (3, 1, 64, True),
+    # S on the slab edges: T - 1, T, T + 1, 2T + 1
+    (4, RWKV6_SLAB - 1, 64, True), (4, RWKV6_SLAB, 64, False),
+    (4, RWKV6_SLAB + 1, 32, True), (4, 2 * RWKV6_SLAB + 1, 64, True),
+    (8, 2048, 64, False)])
 def test_rwkv6_kernel_matches_plain_on_card(cuda, BH, S, D, with_state):
     """o and the state against the plain chunked version, per-row u; a
     ragged S's state against the sequential oracle."""
@@ -291,3 +319,14 @@ def test_rwkv6_kernel_reads_bshd_in_place(cuda):
         ops.rwkv6(*(t[..., :48] for t in rows), u[0, :48])
     with pytest.raises(ValueError):
         ops.rwkv6(*(t.double() for t in rows), u[0].double())
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_fits_one_wave(cuda):
+    """The D = 64 instance spills nothing and fits at least four blocks an
+    SM, so the full-width prefill's 512 rows run in one wave on 132 SMs;
+    the D = 32 instance spills nothing either."""
+    attrs = rwkv6_kernel.kernel_attributes(64)
+    assert attrs["local_bytes"] == 0 and attrs["blocks_per_sm"] >= 4, attrs
+    assert attrs["steps_per_slab"] == RWKV6_SLAB and attrs["threads"] == 64
+    assert rwkv6_kernel.kernel_attributes(32)["local_bytes"] == 0
