@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -52,26 +52,21 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
+def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(_flags(defines)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, defines: tuple[str, ...] = ()):
+def _start(name: str):
     """Start nvcc for `name` unless its library is built; returns
     (process or None, tmp path, target path)."""
-    target = _target(name, defines)
+    target = _target(name)
     if target.exists():
         return None, None, target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
@@ -96,18 +91,15 @@ def build_all() -> list[Path]:
         return [t for _, _, t in started.values()]
 
 
-def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built at first use);
-    `defines` (``"NAME=value"``) build a variant of the source beside the
-    default one, as a tuning script does."""
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built at first use)."""
     with _LOCK:
-        key = (name, tuple(defines))
-        lib = _LIBS.get(key)
+        lib = _LIBS.get(name)
         if lib is None:
-            proc, tmp, target = _start(name, key[1])
+            proc, tmp, target = _start(name)
             _finish(name, proc, tmp, target)
             lib = ctypes.CDLL(str(target))
-            _LIBS[key] = lib
+            _LIBS[name] = lib
         return lib
 
 

@@ -40,12 +40,9 @@
 // The step loop is unrolled by 2. So per (t, d, e) the card issues 3
 // floating-point instructions and 3/4G of a shared load; what bounds the
 // kernel now is the issue rate of those FMAs (most read three distinct
-// registers), not shared memory and not device memory.
-//
-// Knobs (-D at build time; python -m repro_torch.kernels.rwkv6_tune times
-// them): RWKV6_GROUP (G: 1, 2, 4 or 8), RWKV6_T (steps a slab),
-// RWKV6_UNROLL (steps a turn of the step loop). Chosen: G = 4, T = 8,
-// UNROLL = 2, 64 threads a row.
+// registers), not shared memory and not device memory. G = 4, T = 8 and an
+// unroll of 2 timed fastest of the group sizes, slab lengths and unrolls
+// tried on the card (PERF.md); 64 threads a row.
 //
 // Layout: r, k, v, logw share one strided layout with unit stride along D:
 // element (row, t, d) of row = b * H + h lies at b*sb + h*sh + t*st + d.
@@ -57,22 +54,14 @@
 // that of exactly S steps.
 #include <cuda_runtime.h>
 
-#ifndef RWKV6_GROUP
-#define RWKV6_GROUP 4
-#endif
-#ifndef RWKV6_T
-#define RWKV6_T 8
-#endif
-#ifndef RWKV6_UNROLL
-#define RWKV6_UNROLL 2
-#endif
-
 namespace {
 
-constexpr int G = RWKV6_GROUP;     // threads of a group; it holds G columns
-constexpr int T = RWKV6_T;         // steps per slab
-constexpr int UNROLL = RWKV6_UNROLL;   // steps per turn of the step loop
-static_assert(G == 1 || G == 2 || G == 4 || G == 8, "GROUP: 1, 2, 4 or 8");
+constexpr int G = 4;        // threads of a group; it holds G columns
+constexpr int T = 8;        // steps per slab
+constexpr int UNROLL = 2;   // steps per turn of the step loop
+// blocks an SM the compiler must leave room for: 512 rows over 132 SMs
+// run in one wave only at 4 or more
+constexpr int MIN_BLOCKS = 4;
 static_assert(T % UNROLL == 0, "T must be a multiple of UNROLL");
 
 template <int D>
@@ -86,7 +75,7 @@ __device__ __forceinline__ float at(const float4& a, int i) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(D, MIN_BLOCKS)
 rwkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ lw,
              const float* __restrict__ u, const float* __restrict__ state0,
@@ -95,9 +84,8 @@ rwkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
              long long oh, long long ot, long long ub, long long uh) {
   constexpr int DH = D / G;            // state rows a thread holds
   constexpr int Q = DH / 4;            // its float4 groups along d
-  constexpr int A = G >= 4 ? 1 : 4 / G;   // partial sums of y a column
   constexpr int NW = D / 32;           // warps across one slab row
-  static_assert(Q >= 1, "D / GROUP must be a multiple of 4");
+  static_assert(Q >= 1, "D / G must be a multiple of 4");
   __shared__ Slab<D> slab[2];
 
   // Thread tid stages column d = tid of every slab row and, after the
@@ -157,12 +145,11 @@ rwkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const float4* r4 = reinterpret_cast<const float4*>(x.r[t]) + part;
     const float4* k4 = reinterpret_cast<const float4*>(x.k[t]) + part;
     const float4* w4 = reinterpret_cast<const float4*>(x.w[t]) + part;
-    float ve[G], y[G][A];
+    float ve[G], yc[G];
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       ve[j] = x.v[t][e0 + j];
-#pragma unroll
-      for (int a = 0; a < A; ++a) y[j][a] = 0.f;
+      yc[j] = 0.f;
     }
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
@@ -172,16 +159,9 @@ rwkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float& sv = sc[j][4 * q + i];
-          y[j][i % A] = fmaf(at(rr, i), sv, y[j][i % A]);
+          yc[j] = fmaf(at(rr, i), sv, yc[j]);
           sv = fmaf(sv, at(ww, i), at(kk, i) * ve[j]);
         }
-    }
-    float yc[G];
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      yc[j] = y[j][0];
-      if (A == 2) yc[j] += y[j][1];
-      if (A == 4) yc[j] = (y[j][0] + y[j][1]) + (y[j][2] + y[j][3]);
     }
     // reduce-scatter across the group: after the stage of offset m the
     // thread keeps the half of its 2m sums that its bit m selects, so

@@ -33,34 +33,28 @@ HEAD_DIMS = (32, 64)     # the template instances of csrc/rwkv6.cu
 _c = ctypes
 
 
-def entry(lib):
-    """`rwkv6_launch` of a loaded build of csrc/rwkv6.cu, configured."""
-    fn = lib.rwkv6_launch
+@functools.cache
+def _lib():
+    """The configured C entry point (built and loaded at first launch)."""
+    fn = build.load("rwkv6").rwkv6_launch
     fn.argtypes = ([_c.c_void_p] * 8 + [_c.c_int] * 4 + [_c.c_longlong] * 8
                    + [_c.c_void_p])
     fn.restype = _c.c_int
     return fn
 
 
-@functools.cache
-def _lib():
-    """The configured C entry point (built and loaded at first launch)."""
-    return entry(build.load("rwkv6"))
-
-
 ATTRIBUTES = ("regs", "local_bytes", "shared_bytes", "blocks_per_sm",
               "threads", "steps_per_slab")
 
 
-def kernel_attributes(d: int = 64, lib=None) -> dict:
+def kernel_attributes(d: int = 64) -> dict:
     """What the compiler and the occupancy calculator say of the kernel
-    for head size `d` on the current CUDA device (`lib`: another build of
-    csrc/rwkv6.cu; the default one if None): registers and local (spill)
-    bytes a thread, static shared bytes a block, blocks an SM holds at
-    once, threads a block (one (batch*head) row), steps a slab."""
+    for head size `d` on the current CUDA device: registers and local
+    (spill) bytes a thread, static shared bytes a block, blocks an SM holds
+    at once, threads a block (one (batch*head) row), steps a slab."""
     if d not in HEAD_DIMS:
         raise ValueError(f"rwkv6 kernel takes D in {HEAD_DIMS}, got {d}")
-    fn = (lib or build.load("rwkv6")).rwkv6_attributes
+    fn = build.load("rwkv6").rwkv6_attributes
     fn.argtypes = [_c.c_int, _c.POINTER(_c.c_int)]
     fn.restype = _c.c_int
     out = (_c.c_int * len(ATTRIBUTES))()

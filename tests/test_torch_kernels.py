@@ -35,8 +35,8 @@ DT_GRAD_TOL = 1e-5
 # than torch's (a few ULP in the exponents); the reference's own kernel
 # tolerance (tests/test_kernels.py)
 RWKV6_TOL = 2e-4
-# steps per slab of csrc/rwkv6.cu (its RWKV6_T default); the card tests
-# put S on the slab edges
+# steps per slab of csrc/rwkv6.cu (its constant T); the card tests put S
+# on the slab edges
 RWKV6_SLAB = 8
 
 
@@ -126,26 +126,19 @@ def test_build_finds_every_kernel_source():
     assert build._target("wagg") == t          # keyed on content only
 
 
-def test_build_keys_variants_apart():
-    """A variant built with -D defines (rwkv6_tune's) gets its own library
-    beside the default build, keyed on the defines as well."""
-    base = build._target("rwkv6")
-    var = build._target("rwkv6", ("RWKV6_SPLIT=2", "RWKV6_T=16"))
-    assert var != base and var.name.startswith("rwkv6-")
-    assert var == build._target("rwkv6", ("RWKV6_SPLIT=2", "RWKV6_T=16"))
-    assert build._flags(("RWKV6_T=8",))[-1] == "-DRWKV6_T=8"
-
-
 def test_rwkv6_source_knobs_match_the_tests():
-    """The kernel's default slab length is the one the card tests put S
-    around, with groups of 4 threads sharing 4 state columns and the step
-    loop unrolled by 2 (the knobs rwkv6_tune times)."""
+    """The kernel's slab length is the one the card tests put S around."""
     src = (build.CSRC / "rwkv6.cu").read_text()
-    assert f"#define RWKV6_T {RWKV6_SLAB}\n" in src
-    assert "#define RWKV6_GROUP 4\n" in src
-    assert "#define RWKV6_UNROLL 2\n" in src
-    with pytest.raises(ValueError):          # checked before any build
-        rwkv6_kernel.kernel_attributes(48)
+    assert f"constexpr int T = {RWKV6_SLAB};" in src
+
+
+def test_rwkv6_attributes_refuse_other_head_dims():
+    """Only the kernel's template instances (D = 32, 64) are asked for
+    their attributes; another D is refused before any build."""
+    assert rwkv6_kernel.HEAD_DIMS == (32, 64)
+    for d in (16, 48, 128):
+        with pytest.raises(ValueError, match="rwkv6 kernel takes D"):
+            rwkv6_kernel.kernel_attributes(d)
 
 
 # --------------------------------------------------------------------------
