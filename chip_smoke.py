@@ -16,12 +16,22 @@ the JAX package `repro`. Phases, each of which must pass:
      masked, padded to m = 8 with n = 5 (bitwise equal to the unpadded
      call), and cut to P - 3 columns (bitwise equal to the aligned call's
      first P - 3); atol 1e-5 against `ref.wagg_ref`;
-   * dt_loss at (512, 128) and (500, 128): loss, lse_a, lse_b, pos at
-     atol 2e-5 against `ref.dt_loss_fwd_ref`; gradients of the mean loss
-     through the autograd.Function at atol 1e-5 against autograd of the
-     plain `core.dt_loss.dt_loss_matrix`.
-   Times each with CUDA events (kernel, plain version, and for wagg the
-   library yardstick ``w @ x``, which the port never calls).
+   * dt_loss at (512, 128), (500, 128) and (513, 128) (ragged row and key
+     edges), each at the tau pairs (0.1, 1.0) and (0.07, 1.0): loss,
+     lse_a, lse_b, pos at atol 2e-5 against `ref.dt_loss_fwd_ref`, two
+     calls bitwise equal; gradients of the mean loss through the
+     autograd.Function at atol 1e-5 against autograd of the plain
+     `core.dt_loss.dt_loss_matrix`. The kernel is the Hopper design
+     (3xTF32 mma.sync, keys split over a cluster of 8 CTAs, TMA tensor
+     copies); its line gives its registers and local (spill) bytes a
+     thread, shared bytes a CTA and CTAs an SM
+     (`kernels.dt_loss.kernel_attributes`).
+   Times each with CUDA events around calls of its Python wrapper
+   (``ms``: the wrapper's host work included), the plain version, and for
+   wagg the library yardstick ``w @ x``, which the port never calls. Each
+   kernel's own device time (``device_ms``) is the self device time of
+   its launches under torch.profiler over their count (`_device_ms`); a
+   trace without it fails the run.
 3. Cross-check: one small round on the card and the same round with
    ``device="cpu"``, compared with allclose (tolerances below).
 4. Main path: 3 rounds of the paper's Table-1 setting (95 vehicles,
@@ -51,8 +61,8 @@ the JAX package `repro`. Phases, each of which must pass:
      S = 2043 and S = 37 with a nonzero state0 (the ragged states also
      against the sequential `ref.rwkv6_ref` on a few rows), and the
      projections' (B, S, H, D) layout read in place bitwise equal to the
-     (BH, S, D) call. Timed with CUDA events beside its byte bound, with
-     the kernel's registers and local (spill) bytes a thread and the
+     (BH, S, D) call. Timed with CUDA events and its device time beside
+     its byte bound, with the kernel's registers and local (spill) bytes a thread and the
      blocks an SM holds (`kernels.rwkv6.kernel_attributes`: the kernel
      steps the recurrence with the state in registers, one block of 64
      threads per row, so 4 blocks an SM cover the 512 rows in one wave).
@@ -83,10 +93,12 @@ The q8 kernels are held against their plain versions in phase 2, at
 the decode bitwise equal; a ragged P (through `ops`) bitwise equal to the
 aligned call's columns; an all-zero block decodes to zeros. The library
 yardstick of the decode is ``torch.mul(codes.view(N, -1, 256),
-scales[..., None])``; the encode has none.
+scales[..., None])``; the encode has none. Their ``device_ms`` is taken at
+both shapes (``device_ms_1``: at (1, Ppad)).
 
 The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode and
-rwkv6, each with its launches on the path that runs it. The last three
+rwkv6, each with its launches on the path that runs it, ``ms`` and
+``device_ms``. The last three
 lines of standard output are the ``kernels`` JSON line,
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``. On any
 failure, or without a CUDA card, or outside a checkout, it exits non-zero
@@ -113,6 +125,7 @@ Q8_PPAD = -(-WAGG_P // BQ) * BQ
 WAGG_TOL = 1e-5
 DT_FWD_TOL = 2e-5
 DT_GRAD_TOL = 1e-5
+DT_TAUS = ((0.1, 1.0), (0.07, 1.0))   # the paper's pair, and a sharper tau_a
 # Card vs CPU after one round. cuDNN and the CPU sum convolutions in
 # different orders, and a ReLU input within that rounding of 0 can switch
 # sides; one SGD step at lr 0.9 carries it into the tree. Held as in
@@ -168,6 +181,47 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _profiled(work):
+    """(work()'s result, key_averages()) of `work` under torch.profiler,
+    CPU and CUDA activity, synchronised before and after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = work()
+        torch.cuda.synchronize()
+    return out, prof.key_averages()
+
+
+def _device_ms(fn, kernel: str, iters: int = 50) -> float:
+    """The kernel's own device time a launch, in ms, apart from its
+    wrapper's host work: `fn()` (one launch of the kernel) `iters` times
+    under torch.profiler, then the self device time of the device events
+    whose name holds `kernel`, summed and divided by their count (CUPTI's
+    kernel start and end stamps, not the host clock; the trace may drop a
+    few records, so the count is the trace's). Raises unless the trace
+    holds between 1 and `iters` such launches with device time."""
+    from torch.autograd import DeviceType
+
+    fn()                                   # warm-up, outside the trace
+
+    def work():
+        for _ in range(iters):
+            fn()
+    _, events = _profiled(work)
+    hits = [e for e in events if e.device_type == DeviceType.CUDA
+            and kernel in e.key]
+    n = sum(e.count for e in hits)
+    total_us = sum(e.self_device_time_total for e in hits)
+    if not 0 < n <= iters or not total_us > 0:
+        raise AssertionError(f"profiler: {n} launches of {kernel!r} with "
+                             f"{total_us} us of device time, expected 1 to "
+                             f"{iters} launches")
+    return total_us / n / 1e3
+
+
 def _max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -182,6 +236,7 @@ def kernel_phase(dev):
     import torch
 
     from repro_torch.core.dt_loss import dt_loss_matrix
+    from repro_torch.kernels import dt_loss as dt_kernel
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -221,6 +276,7 @@ def kernel_phase(dev):
                              "equal to the aligned call")
     del xr
     ms = _time_ms(lambda: ops.wagg_flat(x, w, ones))
+    dev_ms = _device_ms(lambda: ops.wagg_flat(x, w, ones), "wagg_kernel")
     plain_ms = _time_ms(lambda: ref.wagg_ref(x, w, ones))
     lib_ms = _time_ms(lambda: torch.matmul(w, x))
     bound_ms, bound_by = _bound(4 * (m * WAGG_P + WAGG_P + 2 * m),
@@ -228,55 +284,74 @@ def kernel_phase(dev):
     rows.append({"name": "wagg", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/wagg.cu",
                  "replaces": "src/repro/kernels/wagg.py:26",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": lib_ms})
+                 "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": lib_ms})
     print(f"[kernels] wagg m={m} P={WAGG_P}: max_abs_err={err:.3e} "
-          f"padded==unpadded, ragged==aligned bitwise; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, w@x {lib_ms:.4f} ms", flush=True)
+          f"padded==unpadded, ragged==aligned bitwise; kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, w@x "
+          f"{lib_ms:.4f} ms", flush=True)
     del x
 
     # -- dt_loss -----------------------------------------------------------
-    errs, timing = [], None
-    for M in (512, 500):
+    errs = []
+    for M in (512, 500, 513):
         q = torch.nn.functional.normalize(
             torch.randn((M, 128), generator=g, device=dev), dim=-1)
         k = torch.nn.functional.normalize(
             torch.randn((M, 128), generator=g, device=dev), dim=-1)
-        got = ops.dt_loss_fwd(q, k, 0.1, 1.0)
-        want = ref.dt_loss_fwd_ref(q, k, 0.1, 1.0)
-        fwd_err = max(_max_err(a, b) for a, b in zip(got, want))
-        if not fwd_err <= DT_FWD_TOL:
-            raise AssertionError(f"dt_loss fwd M={M}: {fwd_err} > "
-                                 f"{DT_FWD_TOL}")
-        q1, k1 = q.clone().requires_grad_(), k.clone().requires_grad_()
-        q2, k2 = q.clone().requires_grad_(), k.clone().requires_grad_()
-        gq1, gk1 = torch.autograd.grad(ops.dt_loss(q1, k1, 0.1, 1.0),
-                                       (q1, k1))
-        gq2, gk2 = torch.autograd.grad(dt_loss_matrix(q2, k2, 0.1, 1.0),
-                                       (q2, k2))
-        grad_err = max(_max_err(gq1, gq2), _max_err(gk1, gk2))
-        if not grad_err <= DT_GRAD_TOL:
-            raise AssertionError(f"dt_loss grad M={M}: {grad_err} > "
-                                 f"{DT_GRAD_TOL}")
-        errs.append(max(fwd_err, grad_err))
-        print(f"[kernels] dt_loss M={M} D=128: fwd err {fwd_err:.3e}, "
-              f"grad err {grad_err:.3e}", flush=True)
+        for ta, tb in DT_TAUS:
+            got = ops.dt_loss_fwd(q, k, ta, tb)
+            want = ref.dt_loss_fwd_ref(q, k, ta, tb)
+            fwd_err = max(_max_err(a, b) for a, b in zip(got, want))
+            if not fwd_err <= DT_FWD_TOL:
+                raise AssertionError(f"dt_loss fwd M={M} taus=({ta}, {tb}): "
+                                     f"{fwd_err} > {DT_FWD_TOL}")
+            again = ops.dt_loss_fwd(q, k, ta, tb)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"dt_loss M={M}: two calls are not "
+                                     f"bitwise equal")
+            q1, k1 = q.clone().requires_grad_(), k.clone().requires_grad_()
+            q2, k2 = q.clone().requires_grad_(), k.clone().requires_grad_()
+            gq1, gk1 = torch.autograd.grad(ops.dt_loss(q1, k1, ta, tb),
+                                           (q1, k1))
+            gq2, gk2 = torch.autograd.grad(dt_loss_matrix(q2, k2, ta, tb),
+                                           (q2, k2))
+            grad_err = max(_max_err(gq1, gq2), _max_err(gk1, gk2))
+            if not grad_err <= DT_GRAD_TOL:
+                raise AssertionError(f"dt_loss grad M={M} taus=({ta}, {tb}): "
+                                     f"{grad_err} > {DT_GRAD_TOL}")
+            errs.append(max(fwd_err, grad_err))
+            print(f"[kernels] dt_loss M={M} D=128 taus=({ta}, {tb}): fwd err "
+                  f"{fwd_err:.3e}, grad err {grad_err:.3e}, two calls "
+                  f"bitwise equal", flush=True)
         if M == 512:
-            timing = (_time_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
-                               iters=200),
-                      _time_ms(lambda: ref.dt_loss_fwd_ref(q, k, 0.1, 1.0),
-                               iters=200))
-    M, D = 512, 128
+            main_in = (q, k)
+    q, k = main_in
+    M, D = q.shape
+    ms = _time_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0), iters=200)
+    dev_ms = _device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0), "dt_fwd",
+                        iters=200)
+    plain_ms = _time_ms(lambda: ref.dt_loss_fwd_ref(q, k, 0.1, 1.0),
+                        iters=200)
     bound_ms, bound_by = _bound(4 * (2 * M * D + 4 * M), 2 * M * M * D)
+    attrs = dt_kernel.kernel_attributes(D)
     rows.append({"name": "dt_loss", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/dt_loss.cu",
                  "replaces": "src/repro/kernels/dt_loss.py:33",
-                 "max_abs_err": max(errs), "ms": timing[0],
-                 "plain_ms": timing[1], "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": None})
-    print(f"[kernels] dt_loss (512,128): kernel {timing[0]:.4f} ms, plain "
-          f"{timing[1]:.4f} ms", flush=True)
+                 "max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None,
+                 "regs": attrs["regs"], "local_bytes": attrs["local_bytes"],
+                 "blocks_per_sm": attrs["blocks_per_sm"]})
+    print(f"[kernels] dt_loss ({M},{D}): kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}); {attrs['regs']} registers and "
+          f"{attrs['local_bytes']} local bytes a thread, "
+          f"{attrs['shared_bytes']} shared bytes and {attrs['threads']} "
+          f"threads a CTA, {attrs['blocks_per_sm']} CTAs an SM, clusters of "
+          f"{attrs['cluster']} CTAs", flush=True)
     return rows
 
 
@@ -327,12 +402,16 @@ def q8_kernels(dev):
             _time_ms(lambda: ops.q8_decode_flat(codes, scales)),
             _time_ms(lambda: ref.q8_decode_ref(codes, scales)),
             _time_ms(lambda: torch.mul(codes.view(n, -1, BQ),
-                                       scales[..., None])))
+                                       scales[..., None])),
+            _device_ms(lambda: ops.q8_encode_flat(x, e), "q8_encode_kernel"),
+            _device_ms(lambda: ops.q8_decode_flat(codes, scales),
+                       "q8_decode_kernel"))
         print(f"[kernels] q8 ({n}, {Q8_PPAD}): codes, scales, new_ef and "
               f"decode bitwise equal to the plain versions, ragged "
               f"P={WAGG_P} == aligned, zero block exact; encode "
-              f"{times[n][0]:.4f} ms (plain {times[n][1]:.4f}), decode "
-              f"{times[n][2]:.4f} ms (plain {times[n][3]:.4f}, torch.mul "
+              f"{times[n][0]:.4f} ms (device {times[n][5]:.4f}, plain "
+              f"{times[n][1]:.4f}), decode {times[n][2]:.4f} ms (device "
+              f"{times[n][6]:.4f}, plain {times[n][3]:.4f}, torch.mul "
               f"{times[n][4]:.4f})", flush=True)
         del x, e, codes, scales, new_ef, out
     n, elems = 5, 5 * Q8_PPAD
@@ -342,13 +421,17 @@ def q8_kernels(dev):
     dec_bound = _bound(elems * (1 + 4) + blocks * 4, elems)
     common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/"
               "qdelta.cu", "max_abs_err": 0.0}
-    enc_ms, enc_plain, dec_ms, dec_plain, dec_lib = times[n]
+    enc_ms, enc_plain, dec_ms, dec_plain, dec_lib, enc_dev, dec_dev = \
+        times[n]
+    # device_ms_1: the device time at (1, Ppad), a publish or a fetch
     return [dict(common, name="q8_encode",
                  replaces="src/repro/kernels/qdelta.py:32", ms=enc_ms,
+                 device_ms=enc_dev, device_ms_1=times[1][5],
                  plain_ms=enc_plain, bound_ms=enc_bound[0],
                  bound_by=enc_bound[1], library_ms=None),
             dict(common, name="q8_decode",
                  replaces="src/repro/kernels/qdelta.py:46", ms=dec_ms,
+                 device_ms=dec_dev, device_ms_1=times[1][6],
                  plain_ms=dec_plain, bound_ms=dec_bound[0],
                  bound_by=dec_bound[1], library_ms=dec_lib)]
 
@@ -685,13 +768,16 @@ def rwkv6_kernel_check(dev):
                              "(BH, S, D) call")
     del o4, st4, o3, st3, rows, four
     ms = _time_ms(lambda: ops.rwkv6(r, k, v, lw, u))
+    dev_ms = _device_ms(lambda: ops.rwkv6(r, k, v, lw, u), "rwkv6_kernel",
+                        iters=20)
     plain_ms = _time_ms(lambda: ops.rwkv6_plain(r, k, v, lw, u), iters=3,
                         warmup=1)
     bound_ms, bound_by = _bound(*_rwkv6_work(bh, ZOO_S, d, False))
     attrs = rwkv6_kernel.kernel_attributes(d)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[zoo] rwkv6 ({bh}, {ZOO_S}, {d}): (B, S, H, D) layout bitwise "
-          f"the row layout; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"the row layout; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}); {attrs['regs']} registers "
           f"and {attrs['local_bytes']} local bytes a thread, "
           f"{attrs['blocks_per_sm']} blocks of {attrs['threads']} threads an "
@@ -701,9 +787,9 @@ def rwkv6_kernel_check(dev):
     return {"name": "rwkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
             "replaces": "src/repro/kernels/rwkv6.py:28",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "regs": attrs["regs"], "local_bytes": attrs["local_bytes"],
+            "max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "regs": attrs["regs"], "local_bytes": attrs["local_bytes"],
             "blocks_per_sm": attrs["blocks_per_sm"]}
 
 
@@ -759,15 +845,9 @@ def _profile(work) -> dict:
     """`work()` (which returns its own synchronised wall seconds) under
     torch.profiler: device time by kernel and by host op, the rwkv6
     kernel's share, the device's idle share of the wall time."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = work()
-    events = prof.key_averages()
+    wall, events = _profiled(work)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     ops_ = [e for e in events if e.device_type == DeviceType.CPU
             and e.self_device_time_total > 0]

@@ -3,7 +3,8 @@
 Counterpart of `repro.kernels.dt_loss.dt_loss_fwd_pallas` (the Pallas TPU
 kernel `_dt_fwd_kernel`). `dt_loss_fwd_cuda` launches the hand-written
 CUDA kernel on CUDA tensors and nothing else; the device dispatch, the
-plain version and the gradient live in `kernels.ops`.
+plain version and the gradient live in `kernels.ops`. `kernel_attributes`
+reports the kernel's registers, spills and CTAs per SM.
 
 `LAUNCHES` counts kernel launches (and nothing else).
 """
@@ -18,6 +19,8 @@ from repro_torch.kernels import build
 
 LAUNCHES = 0
 MAX_D = 256      # shared-memory tiles of csrc/dt_loss.cu
+ATTRIBUTES = ("regs", "local_bytes", "shared_bytes", "blocks_per_sm",
+              "threads", "cluster")
 
 _c = ctypes
 
@@ -30,6 +33,26 @@ def _lib():
                                        _c.c_float, _c.c_float, _c.c_void_p]
     fn.restype = _c.c_int
     return fn
+
+
+def _check_d(d: int) -> None:
+    if not 1 <= d <= MAX_D or d % 4:
+        raise ValueError(f"dt_loss kernel takes D % 4 == 0 with D <= {MAX_D}, "
+                         f"got D = {d}")
+
+
+def kernel_attributes(d: int = 128) -> dict:
+    """What the compiler and the occupancy calculator say of the kernel at
+    width `d` on the current CUDA device: registers and local (spill)
+    bytes a thread, shared bytes a CTA, CTAs an SM holds at once (0 where
+    the calculator declines), threads a CTA, CTAs a cluster."""
+    _check_d(d)
+    fn = build.load("dt_loss").dt_loss_attributes
+    fn.argtypes = [_c.c_int, _c.POINTER(_c.c_int)]
+    fn.restype = _c.c_int
+    out = (_c.c_int * len(ATTRIBUTES))()
+    build.check(fn(d, out), "dt_loss_attributes")
+    return dict(zip(ATTRIBUTES, out))
 
 
 def dt_loss_fwd_cuda(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
@@ -50,18 +73,22 @@ def dt_loss_fwd_cuda(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
         raise ValueError(f"dt_loss: q {tuple(q.shape)} on {q.device} and "
                          f"k {tuple(k.shape)} on {k.device} must match")
     m, d = q.shape
-    if m < 1 or not 1 <= d <= MAX_D or d % 4:
-        raise ValueError(f"dt_loss kernel takes M >= 1 and D % 4 == 0 with "
-                         f"D <= {MAX_D}, got {tuple(q.shape)}")
+    if m < 1:
+        raise ValueError(f"dt_loss kernel takes M >= 1, got {tuple(q.shape)}")
+    _check_d(d)
     if q.data_ptr() % 16 or k.data_ptr() % 16:
         raise ValueError("dt_loss kernel needs 16-byte aligned q and k")
-    outs = [torch.empty(m, dtype=torch.float32, device=q.device)
-            for _ in range(4)]
+    # one allocation, handed out as four (M,) rows
+    out = torch.empty((4, m), dtype=torch.float32, device=q.device)
+    ptr, row = out.data_ptr(), 4 * m
     fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), *(o.data_ptr() for o in outs),
-                 m, d, m, float(tau_alpha), float(tau_beta), stream)
+    args = (q.data_ptr(), k.data_ptr(), ptr, ptr + row, ptr + 2 * row,
+            ptr + 3 * row, m, d, m, float(tau_alpha), float(tau_beta))
+    if q.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     build.check(err, "dt_loss_fwd")
     LAUNCHES += 1
-    return tuple(outs)
+    return out.unbind(0)

@@ -24,7 +24,11 @@ def dt_loss_fwd_ref(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
     loss_i = -sg[(1-softmax_b(pos))/(1-softmax_a(pos))] * log softmax_a(pos)
     over the in-batch similarity row sim_i = q_i @ k^T (positive = diag).
     """
-    sim = q.float() @ k.float().T
+    return dt_loss_from_sim(q.float() @ k.float().T, tau_alpha, tau_beta)
+
+
+def dt_loss_from_sim(sim: torch.Tensor, tau_alpha: float, tau_beta: float):
+    """`dt_loss_fwd_ref` from its (M, M) similarity, in sim's dtype."""
     pos = torch.diagonal(sim)
     lse_a = torch.logsumexp(sim / tau_alpha, dim=-1)
     lse_b = torch.logsumexp(sim / tau_beta, dim=-1)

@@ -31,6 +31,7 @@ from repro_torch.kernels import wagg as wagg_kernel
 WAGG_TOL = 1e-5       # f32 sums of <= 16 terms in another order
 DT_FWD_TOL = 2e-5     # logsumexp at tau 0.1 over up to 512 columns
 DT_GRAD_TOL = 1e-5
+DT_TAUS = ((0.1, 1.0), (0.07, 1.0), (0.2, 0.2))
 # float32 sums of 16-80 terms and the chunk's prefix sums in another order
 # than torch's (a few ULP in the exponents); the reference's own kernel
 # tolerance (tests/test_kernels.py)
@@ -174,6 +175,58 @@ def test_dt_loss_grad_matches_reference(jx, taus):
     np.testing.assert_allclose(gk.numpy(), np.asarray(gk_j), atol=DT_GRAD_TOL)
 
 
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero, on the bits (adding half an ULP of TF32 to
+    the magnitude and cutting the 13 low bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _sim_tf32(q: torch.Tensor, k: torch.Tensor, passes: int) -> torch.Tensor:
+    """q k^T as csrc/dt_loss.cu forms it: 3 passes are hi*hi + (lo*hi +
+    hi*lo) with hi = rna(x), lo = rna(x - hi); 1 pass is hi*hi alone.
+    Products of TF32 values are exact in float32; the sums are float32."""
+    qh, kh = _rna_tf32(q), _rna_tf32(k)
+    big = qh @ kh.T
+    if passes == 1:
+        return big
+    ql, kl = _rna_tf32(q - qh), _rna_tf32(k - kh)
+    return big + (ql @ kh.T + qh @ kl.T)
+
+
+def _dt_err_vs_f64(M, D, passes, taus):
+    rs = np.random.RandomState(M * 7 + D)
+    q, k = _unit(rs, (M, D)), _unit(rs, (M, D))
+    qt, kt = torch.from_numpy(q), torch.from_numpy(k)
+    want = ref.dt_loss_from_sim(qt.double() @ kt.double().T, *taus)
+    got = ref.dt_loss_from_sim(_sim_tf32(qt, kt, passes), *taus)
+    return max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
+
+
+def test_rna_tf32_rounds_to_nearest_away():
+    one = 1.0 + 2.0 ** -10                       # a TF32 value
+    x = torch.tensor([1.0 + 2.0 ** -11,          # tie: away from zero
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, one],
+                     dtype=torch.float32)
+    assert _rna_tf32(x).tolist() == [one, -one, 1.0, one]
+
+
+@pytest.mark.parametrize("M,D", [(512, 128), (64, 256)])
+@pytest.mark.parametrize("taus", DT_TAUS)
+def test_dt_loss_3xtf32_sim_within_fwd_tol(M, D, taus):
+    """The kernel's 3xTF32 similarity, fed through the plain version's
+    arithmetic, stays within DT_FWD_TOL of the float64 result."""
+    assert _dt_err_vs_f64(M, D, 3, taus) <= DT_FWD_TOL
+
+
+@pytest.mark.parametrize("M,D", [(512, 128), (64, 256)])
+def test_dt_loss_1xtf32_sim_misses_fwd_tol(M, D):
+    """One TF32 product (about 11 bits) does not: why the kernel pays for
+    three."""
+    assert _dt_err_vs_f64(M, D, 1, (0.1, 1.0)) > DT_FWD_TOL
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -203,21 +256,40 @@ def test_wagg_kernel_matches_plain_on_card(cuda, N, P):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,D", [(512, 128), (500, 128), (33, 32), (64, 256)])
+@pytest.mark.parametrize("M,D", [(512, 128), (500, 128), (33, 32), (64, 256)]
+                         + [(m, d) for m in (1, 17, 500, 512, 513, 1024)
+                            for d in (4, 12, 32, 128, 256)
+                            if (m, d) not in ((512, 128), (500, 128))])
 def test_dt_loss_kernel_matches_plain_on_card(cuda, M, D):
-    rs = np.random.RandomState(M)
+    """Ragged row and key edges (M = 1, 17, 500, 513), more than one key
+    tile a CTA (M = 1024), D padded to the mma's k8 (4, 12); at three tau
+    pairs; two calls bitwise equal."""
+    rs = np.random.RandomState(M * 1000 + D)
     q = torch.from_numpy(_unit(rs, (M, D))).to(cuda)
     k = torch.from_numpy(_unit(rs, (M, D))).to(cuda)
-    before = dt_kernel.LAUNCHES
-    got = ops.dt_loss_fwd(q, k, 0.1, 1.0)
-    assert dt_kernel.LAUNCHES == before + 1
-    for a, b in zip(got, ref.dt_loss_fwd_ref(q, k, 0.1, 1.0)):
-        torch.testing.assert_close(a, b, atol=DT_FWD_TOL, rtol=0)
+    for ta, tb in DT_TAUS:
+        before = dt_kernel.LAUNCHES
+        got = ops.dt_loss_fwd(q, k, ta, tb)
+        assert dt_kernel.LAUNCHES == before + 1
+        for a, b in zip(got, ref.dt_loss_fwd_ref(q, k, ta, tb)):
+            torch.testing.assert_close(a, b, atol=DT_FWD_TOL, rtol=0)
+        again = ops.dt_loss_fwd(q, k, ta, tb)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
     with pytest.raises(ValueError):
         ops.dt_loss_fwd(q.double(), k.double(), 0.1, 1.0)
     with pytest.raises(ValueError):                     # D % 4 != 0
         ops.dt_loss_fwd(q[:, :-2].contiguous(), k[:, :-2].contiguous(),
                         0.1, 1.0)
+
+
+@pytest.mark.cuda
+def test_dt_loss_kernel_spills_nothing(cuda):
+    """The kernel keeps its accumulators in registers (0 local bytes) at
+    every width and launches clusters of 8 CTAs of 128 threads."""
+    for d in (4, 128, 256):
+        attrs = dt_kernel.kernel_attributes(d)
+        assert attrs["local_bytes"] == 0, attrs
+        assert attrs["cluster"] == 8 and attrs["threads"] == 128, attrs
 
 
 @pytest.mark.cuda
