@@ -283,6 +283,17 @@ def test_dt_loss_kernel_matches_plain_on_card(cuda, M, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tau", [0.1, 0.07, 0.2, 1.0])
+def test_plain_scalar_division_is_reciprocal_multiply_on_card(cuda, tau):
+    """The plain version's sim / tau on the card is sim times the float32
+    reciprocal of tau, bitwise: the kernel's 1/tau multiply repeats it."""
+    x = torch.randn((512, 512), generator=torch.Generator(device=cuda)
+                    .manual_seed(3), device=cuda)
+    inv = float(np.float32(1.0) / np.float32(tau))
+    assert torch.equal(x / tau, x * inv)
+
+
+@pytest.mark.cuda
 def test_dt_loss_kernel_spills_nothing(cuda):
     """The kernel keeps its accumulators in registers (0 local bytes) at
     every width and launches clusters of 8 CTAs of 128 threads."""
