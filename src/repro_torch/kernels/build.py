@@ -103,6 +103,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def attributes(name: str, fields, d: int) -> dict:
+    """What ``<name>_attributes(d, out)`` of ``csrc/<name>.cu`` reports of
+    its kernel at width `d` on the current device, named by `fields`."""
+    fn = getattr(load(name), f"{name}_attributes")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(fields))()
+    check(fn(d, out), f"{name}_attributes")
+    return dict(zip(fields, out))
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:

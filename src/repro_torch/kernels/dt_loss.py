@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = 0
-MAX_D = 256      # shared-memory tiles of csrc/dt_loss.cu
+MAX_D = 256      # the widest D csrc/dt_loss.cu takes (its kMaxD)
 ATTRIBUTES = ("regs", "local_bytes", "shared_bytes", "blocks_per_sm",
               "threads", "cluster")
 
@@ -47,12 +47,7 @@ def kernel_attributes(d: int = 128) -> dict:
     bytes a thread, shared bytes a CTA, CTAs an SM holds at once (0 where
     the calculator declines), threads a CTA, CTAs a cluster."""
     _check_d(d)
-    fn = build.load("dt_loss").dt_loss_attributes
-    fn.argtypes = [_c.c_int, _c.POINTER(_c.c_int)]
-    fn.restype = _c.c_int
-    out = (_c.c_int * len(ATTRIBUTES))()
-    build.check(fn(d, out), "dt_loss_attributes")
-    return dict(zip(ATTRIBUTES, out))
+    return build.attributes("dt_loss", ATTRIBUTES, d)
 
 
 def dt_loss_fwd_cuda(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,

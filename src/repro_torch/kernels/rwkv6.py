@@ -54,12 +54,7 @@ def kernel_attributes(d: int = 64) -> dict:
     at once, threads a block (one (batch*head) row), steps a slab."""
     if d not in HEAD_DIMS:
         raise ValueError(f"rwkv6 kernel takes D in {HEAD_DIMS}, got {d}")
-    fn = build.load("rwkv6").rwkv6_attributes
-    fn.argtypes = [_c.c_int, _c.POINTER(_c.c_int)]
-    fn.restype = _c.c_int
-    out = (_c.c_int * len(ATTRIBUTES))()
-    build.check(fn(d, out), "rwkv6_attributes")
-    return dict(zip(ATTRIBUTES, out))
+    return build.attributes("rwkv6", ATTRIBUTES, d)
 
 
 def geometry(r: torch.Tensor):

@@ -142,6 +142,14 @@ def test_rwkv6_attributes_refuse_other_head_dims():
             rwkv6_kernel.kernel_attributes(d)
 
 
+@pytest.mark.parametrize("d", [0, 6, 260])
+def test_dt_loss_attributes_refuse_widths_the_kernel_does_not_take(d):
+    """A width the kernel refuses (D % 4 != 0 or D > 256) is refused
+    before any build."""
+    with pytest.raises(ValueError, match="dt_loss kernel takes D"):
+        dt_kernel.kernel_attributes(d)
+
+
 # --------------------------------------------------------------------------
 # dt_loss
 # --------------------------------------------------------------------------
