@@ -62,10 +62,11 @@ the JAX package `repro`. Phases, each of which must pass:
      against the sequential `ref.rwkv6_ref` on a few rows), and the
      projections' (B, S, H, D) layout read in place bitwise equal to the
      (BH, S, D) call. Timed with CUDA events and its device time beside
-     its byte bound, with the kernel's registers and local (spill) bytes a thread and the
-     blocks an SM holds (`kernels.rwkv6.kernel_attributes`: the kernel
-     steps the recurrence with the state in registers, one block of 64
-     threads per row, so 4 blocks an SM cover the 512 rows in one wave).
+     its byte bound, with the kernel's registers and local (spill) bytes
+     a thread and the blocks an SM holds
+     (`kernels.rwkv6.kernel_attributes`: the kernel steps the recurrence
+     with the state in registers, one block of 64 threads per row, so 4
+     blocks an SM cover the 512 rows in one wave).
    * Cross-check: ``rwkv6-1.6b-smoke`` in float32 (parity mode), a
      prefill of B = 2, S = 37 then 4 decode steps through
      `launch.steps`, on the card and with ``device="cpu"``, logits and
@@ -98,9 +99,9 @@ both shapes (``device_ms_1``: at (1, Ppad)).
 
 The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode and
 rwkv6, each with its launches on the path that runs it, ``ms`` and
-``device_ms``. The last three
-lines of standard output are the ``kernels`` JSON line,
-the nvidia-smi line, and ``{"ok": true, "device": {...}}``. On any
+``device_ms``. The last three lines of standard output are the
+``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
+"device": {...}}``. On any
 failure, or without a CUDA card, or outside a checkout, it exits non-zero
 and prints no result.
 """
