@@ -467,8 +467,8 @@ cudaError_t allow_smem() {
                               static_cast<int>(smem_bytes(kMaxD / kBox)));
 }
 
-// The driver's cuTensorMapEncodeTiled, found through the runtime (so the
-// library needs no link against libcuda).
+// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime's
+// entry-point query, so this library needs no link against libcuda.
 using EncodeFn = decltype(&cuTensorMapEncodeTiled);
 
 EncodeFn encoder() {
