@@ -43,7 +43,30 @@ the JAX package `repro`. Phases, each of which must pass:
    a ``ModelStore(codec="delta_int8")`` bootstrapped with round 0; the
    counters, zeroed just before, must read q8_encode 6 and q8_decode 6
    (3 cohort roundtrips, 3 publishes), wagg 3 and dt_loss 15.
-6. Serve path: a fleet of 95 vehicles fetches from an
+6. The topologies, FedCo and the probe, at the Table-1 setting on the
+   [main] path's data, each with the counters zeroed just before:
+   * ``[topo]``: small rounds of MultiRSU(n_rsus=2), the handover (two
+     rounds with a handover and the region sync) and FedCo, each from
+     one state on the card and with ``device="cpu"``; loss, global tree,
+     every RSU model, FedCo's key tree and queue at the cross-check
+     tolerances, records equal;
+   * ``[multi]``: 2 rounds of MultiRSU(n_rsus=2): rsu_sizes [3, 2],
+     dt_loss 10, wagg 2 x (2 groups + 1 region) = 6;
+   * ``[handover]``: 5 rounds of HandoverMultiRSU at the reference's
+     defaults (2 RSUs of 1 km, 20 s rounds, stale discount 0.5, sync
+     every 5) with ``codec="delta_int8"``, then one `region_view`:
+     dt_loss 25, q8_encode = q8_decode = the download groups, wagg = the
+     upload groups + 1 (the sync at round 4) + 1 (`region_view`); fails
+     without a handover and the sync;
+   * ``[fedco]``: 2 rounds of the FedCo baseline (``aggregator="fedco"``:
+     FedCo clients, FedAvg) under SingleRSU: wagg 2, dt_loss 0; each
+     merged queue's first 5 x 512 rows against the k-vectors recomputed
+     from the round's plan (FEDCO_KVEC_TOL), the rest bitwise the old
+     queue, the key tree bitwise the global tree;
+   * ``[probe]``: `encode` of the [main] final tree on the dataset's
+     85/15 split (2,000 train, 1,000 test images), kNN and linear top-1,
+     card against CPU features on 256 images (PROBE_FEAT_TOL).
+7. Serve path: a fleet of 95 vehicles fetches from an
    ``RSUServer(start=False)`` over that store, driven by `drain_once`,
    with held rounds that give every reply kind (current, delta, full,
    shed); every applied reply must be bitwise the served tree, no request
@@ -53,7 +76,7 @@ the JAX package `repro`. Phases, each of which must pass:
    and one more round with ``codec="delta"`` and with
    ``codec="identity"`` from the same state, bitwise equal on the card.
 
-7. Zoo path (``[zoo]``): the RWKV6 serving path of the transformer zoo.
+8. Zoo path (``[zoo]``): the RWKV6 serving path of the transformer zoo.
    * rwkv6 kernel against its plain chunked version
      (`ops.rwkv6_plain`) on the card, float32, atol 2e-4 on o and the
      state: at (BH, S, D) = (512, 2048, 64) with a per-row u (the
@@ -98,8 +121,9 @@ scales[..., None])``; the encode has none. Their ``device_ms`` is taken at
 both shapes (``device_ms_1``: at (1, Ppad)).
 
 The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode and
-rwkv6, each with its launches on the path that runs it, ``ms`` and
-``device_ms``. The last three lines of standard output are the
+rwkv6, each with its launches on the path that runs it (``paths``: its
+launches on every path: main, comms, multi, handover, fedco, zoo),
+``ms`` and ``device_ms``. The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
 "device": {...}}``. On any
 failure, or without a CUDA card, or outside a checkout, it exits non-zero
@@ -157,6 +181,12 @@ ZOO_ULP_EPS = 2.0 ** -22
 ZOO_F32_REL = 1e-3
 ZOO_B, ZOO_S, ZOO_DECODE = 16, 2048, 64
 RWKV_H, RWKV_D = 32, 64
+# [probe]: card against CPU features of the same tree on 256 images
+# (unit-norm features; cuDNN and the CPU sum convolutions in other orders)
+PROBE_FEAT_TOL = 1e-4
+# [fedco]: the merged queue's first rows against the k-vectors recomputed
+# from the round's plan (the key encoder's forward once more on the card)
+FEDCO_KVEC_TOL = 1e-5
 
 
 def _smi() -> str:
@@ -473,6 +503,93 @@ def cross_check(dev):
                              f"abs {max_abs}, relative {rel}")
 
 
+def _state_to(state, dev):
+    """`state` with every tensor (trees, RSU models, FedCo state, comms)
+    on `dev`; the host fields are shared."""
+    from repro_torch.convert import tree_map
+
+    def mv(x):
+        return None if x is None else tree_map(lambda t: t.to(dev), x)
+
+    topo = dict(state.topo)
+    if "rsu_models" in topo:
+        topo["rsu_models"] = tuple(mv(t) for t in topo["rsu_models"])
+    return state.replace(global_tree=mv(state.global_tree), topo=topo,
+                         client_state=mv(state.client_state),
+                         comms=mv(state.comms))
+
+
+def _state_rows(state) -> list:
+    """The CPU flat rows of the global tree, each RSU model and FedCo's
+    key tree and queue."""
+    from repro_torch.convert import ravel
+    trees = (state.global_tree,) + tuple(state.topo.get("rsu_models", ()))
+    rows = [ravel(t).cpu() for t in trees]
+    if state.client_state is not None:
+        rows += [ravel(state.client_state["key_tree"]).cpu(),
+                 state.client_state["queue"].reshape(-1).cpu()]
+    return rows
+
+
+def topo_cross_check(dev):
+    """[topo]: small rounds of MultiRSU, the handover (two rounds: a
+    handover and the sync) and FedCo, each from one state on the card and
+    on the CPU, held at the cross-check tolerances (global tree and every
+    RSU model, relative to its own update)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.scenario import Scenario, run_round
+
+    rs = np.random.RandomState(0)
+    data = [rs.rand(24, 16, 16, 3).astype(np.float32) for _ in range(6)]
+    kw = dict(n_vehicles=6, vehicles_per_round=3, batch_size=8, data=data,
+              rounds=4)
+    cases = (("multi", dict(topology="multi",
+                            topology_kwargs={"n_rsus": 2}), 1),
+             ("handover", dict(topology="handover", topology_kwargs=dict(
+                 n_rsus=2, rsu_range=100.0, sync_every=2)), 2),
+             ("fedco", dict(aggregator="fedco", queue_len=256), 1))
+    for name, extra, rounds in cases:
+        scs = {d: Scenario(device=d, **kw, **extra) for d in (dev, "cpu")}
+        state = scs["cpu"].init_state()
+        handovers, synced = 0, False
+        for _ in range(rounds):
+            start = _state_rows(state)
+            out = {d: run_round(_state_to(state, d), sc)
+                   for d, sc in scs.items()}
+            (st_g, r_g), (st_c, r_c) = out[dev], out["cpu"]
+            worst = (0.0, 0.0)
+            for a, b, s0 in zip(_state_rows(st_g), _state_rows(st_c), start):
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"[topo] {name}: card tree not "
+                                         f"finite")
+                upd = float((b - s0).norm())
+                diff = float((a - b).norm())
+                rel = diff / upd if upd else (0.0 if diff == 0 else np.inf)
+                worst = (max(worst[0], float((a - b).abs().max())),
+                         max(worst[1], rel))
+            dloss = abs(r_g["loss"] - r_c["loss"])
+            same = {k: r_g[k] == r_c[k] for k in ("velocities", "rsu_sizes",
+                                                  "n_handovers", "synced")
+                    if k in r_c}
+            print(f"[topo] {name} round {r_c['round']}: loss "
+                  f"{r_g['loss']:.7f} (card) vs {r_c['loss']:.7f} (cpu); "
+                  f"trees max abs {worst[0]:.3e}, relative to the update "
+                  f"{worst[1]:.3e}; records equal {same}", flush=True)
+            if not (all(same.values()) and dloss <= CROSS_LOSS_TOL
+                    and worst[0] <= CROSS_MAX_ABS
+                    and worst[1] <= CROSS_REL_UPDATE):
+                raise AssertionError(f"[topo] {name}: loss diff {dloss}, "
+                                     f"trees {worst}, records {same}")
+            handovers += r_c.get("n_handovers", 0)
+            synced = synced or r_c.get("synced", False)
+            state = st_c
+        if name == "handover" and not (handovers and synced):
+            raise AssertionError(f"[topo] handover: {handovers} handovers, "
+                                 f"synced {synced}")
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels import dt_loss, qdelta, rwkv6, wagg
     wagg.LAUNCHES = dt_loss.LAUNCHES = rwkv6.LAUNCHES = 0
@@ -594,6 +711,231 @@ def comms_path(dev, main_sc, main_state):
           f"{float(ef.abs().max()):.3e}; snapshot payload "
           f"{store.get(rounds).delta_nbytes} bytes", flush=True)
     return launches, sc, state, store
+
+
+def _check_round(tag: str, rec, state) -> None:
+    import math
+
+    import torch
+
+    from repro_torch.convert import ravel
+    if not math.isfinite(rec["loss"]):
+        raise AssertionError(f"[{tag}] round {rec['round']}: loss not finite")
+    for t in (state.global_tree,) + tuple(state.topo.get("rsu_models", ())):
+        if not bool(torch.isfinite(ravel(t)).all()):
+            raise AssertionError(f"[{tag}] round {rec['round']}: a model is "
+                                 f"not finite")
+
+
+def multi_path(dev, data):
+    """[multi]: 2 Table-1 rounds of MultiRSU(n_rsus=2); returns the
+    launches."""
+    import torch
+
+    from repro_torch.core.scenario import Scenario, run_round
+    from repro_torch.trace_round import TABLE1
+
+    sc = Scenario(device=dev, data=data, **dict(
+        TABLE1, topology="multi", topology_kwargs={"n_rsus": 2}))
+    state = sc.init_state()
+    rounds = 2
+    torch.cuda.synchronize()
+    _zero_counts()
+    for _ in range(rounds):
+        t = time.time()
+        state, rec = run_round(state, sc)
+        torch.cuda.synchronize()
+        print(f"[multi] round {rec['round']}: {time.time() - t:.3f} s, loss "
+              f"{rec['loss']:.6f}, rsu_sizes {rec['rsu_sizes']}", flush=True)
+        _check_round("multi", rec, state)
+        if rec["rsu_sizes"] != [3, 2]:
+            raise AssertionError(f"[multi] rsu_sizes {rec['rsu_sizes']}")
+    launches = _counts()
+    per = sc.cfg.vehicles_per_round * sc.cfg.local_iters
+    want = {"wagg": rounds * (2 + 1), "dt_loss": rounds * per,
+            "q8_encode": 0, "q8_decode": 0, "rwkv6": 0}
+    print(f"[multi] launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"[multi] launches {launches} != {want}")
+    return launches
+
+
+def handover_path(dev, data):
+    """[handover]: 5 Table-1 rounds of HandoverMultiRSU at the reference's
+    defaults with codec="delta_int8", then one region_view; returns the
+    launches."""
+    import torch
+
+    from repro_torch.core.scenario import Scenario, run_round
+    from repro_torch.core.state import generator_from, unpack_host_rng
+    from repro_torch.trace_round import TABLE1
+
+    sc = Scenario(device=dev, data=data, **dict(
+        TABLE1, topology="handover", topology_kwargs={},
+        codec="delta_int8"))
+    topo = sc.topology
+    state = sc.init_state()
+    rounds, down_groups, up_groups = 5, 0, 0
+    handovers, syncs = 0, []
+    torch.cuda.synchronize()
+    _zero_counts()
+    for _ in range(rounds):
+        # the round's plan once more (pure; fresh copies of both streams),
+        # for the expected launch counts
+        positions = state.topo["positions"]
+        plan = topo.plan_round(
+            topo.draw_round(unpack_host_rng(state.host_rng),
+                            generator_from(state.gen_state), positions, sc),
+            state.round, positions, state.topo["blur_sum"],
+            state.topo["upload_count"], sc)
+        t = time.time()
+        state, rec = run_round(state, sc)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        down_groups += len(plan.down_groups)
+        up_groups += len(plan.uploads)
+        handovers += rec["n_handovers"]
+        if rec["synced"]:
+            syncs.append(rec["round"])
+        print(f"[handover] round {rec['round']} (delta_int8): {dt:.3f} s, "
+              f"loss {rec['loss']:.6f}, download groups "
+              f"{[int(s.size) for _, s in plan.down_groups]}, rsu_sizes "
+              f"{rec['rsu_sizes']}, n_handovers {rec['n_handovers']}, "
+              f"synced {rec['synced']}", flush=True)
+        _check_round("handover", rec, state)
+    t = time.time()
+    view = topo.region_view(state)
+    torch.cuda.synchronize()
+    launches = _counts()
+    per = sc.cfg.vehicles_per_round * sc.cfg.local_iters
+    want = {"wagg": up_groups + len(syncs) + 1, "dt_loss": rounds * per,
+            "q8_encode": down_groups, "q8_decode": down_groups, "rwkv6": 0}
+    print(f"[handover] region_view {1e3 * (time.time() - t):.3f} ms; "
+          f"{handovers} handovers, syncs at rounds {syncs}; launches "
+          f"{launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"[handover] launches {launches} != {want}")
+    if not handovers or syncs != [4]:
+        raise AssertionError(f"[handover] {handovers} handovers, syncs at "
+                             f"{syncs}; expected handovers and the sync at "
+                             f"round 4")
+    from repro_torch.convert import ravel
+    if not bool(torch.isfinite(ravel(view)).all()):
+        raise AssertionError("[handover] region_view not finite")
+    return launches
+
+
+def fedco_path(dev, data):
+    """[fedco]: 2 Table-1 rounds of the FedCo baseline (the legacy
+    aggregator="fedco": FedCo clients, FedAvg) under SingleRSU. Each
+    round's merged queue starts with the uploads, held against the
+    k-vectors recomputed from the round's plan, and continues with the
+    old queue bitwise; the key tree is bitwise the global tree. Returns
+    the launches."""
+    import torch
+
+    from repro_torch.convert import ravel
+    from repro_torch.core import ssl
+    from repro_torch.core import topology as T
+    from repro_torch.core.scenario import Scenario, run_round
+    from repro_torch.core.state import generator_from, unpack_host_rng
+    from repro_torch.models.resnet import resnet_apply
+    from repro_torch.trace_round import TABLE1
+
+    sc = Scenario(device=dev, data=data, **dict(TABLE1, aggregator="fedco",
+                                                client=None))
+    state = sc.init_state()
+    cfg = sc.cfg
+    n_up = cfg.vehicles_per_round * cfg.batch_size
+    rounds, checks = 2, []
+    torch.cuda.synchronize()
+    _zero_counts()
+    for _ in range(rounds):
+        t = time.time()
+        new, rec = run_round(state, sc)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        _check_round("fedco", rec, new)
+        checks.append((state, new))
+        print(f"[fedco] round {rec['round']}: {dt:.3f} s, loss "
+              f"{rec['loss']:.6f}", flush=True)
+        state = new
+    launches = _counts()
+    want = {"wagg": rounds, "dt_loss": 0, "q8_encode": 0, "q8_decode": 0,
+            "rwkv6": 0}
+    print(f"[fedco] launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"[fedco] launches {launches} != {want}")
+    for old, new in checks:
+        queue, prev = new.client_state["queue"], old.client_state["queue"]
+        plan = T._cohort_plan(unpack_host_rng(old.host_rng),
+                              generator_from(old.gen_state), old.round, sc)
+        err = 0.0
+        with torch.no_grad():
+            for i, (c, idx, v) in enumerate(zip(plan.ids, plan.batch_idx,
+                                                plan.velocities)):
+                images = T._client_images(sc, c, idx, v, dev)
+                d2 = ssl.draws_to(plan.draws[i][-1][1], dev)
+                kv, _, _ = resnet_apply(old.client_state["key_tree"],
+                                        ssl.pi2(images, d2), train=False)
+                rows = queue[i * cfg.batch_size:(i + 1) * cfg.batch_size]
+                err = max(err, _max_err(rows, kv))
+        tail = torch.equal(queue[n_up:], prev[:cfg.queue_len - n_up])
+        key = torch.equal(ravel(new.client_state["key_tree"]),
+                          ravel(new.global_tree))
+        print(f"[fedco] round {old.round}: queue rows [0, {n_up}) vs the "
+              f"recomputed uploads max abs {err:.3e}, rest bitwise the old "
+              f"queue {tail}; key_tree bitwise the global tree {key}",
+              flush=True)
+        if not (err <= FEDCO_KVEC_TOL and tail and key):
+            raise AssertionError(f"[fedco] queue err {err}, tail {tail}, "
+                                 f"key_tree {key}")
+    return launches
+
+
+def probe_path(dev, sc, state):
+    """[probe]: the kNN and linear probes of the [main] final tree on the
+    dataset's 85/15 split (2,000 train and 1,000 test images, as
+    examples/train_federated_ssl.py), card features against CPU features
+    on 256 images."""
+    import numpy as np
+    import torch
+
+    from repro_torch.eval.probe import encode, knn_top1, linear_probe_top1
+
+    x, y = sc.dataset
+    split = int(0.85 * len(x))
+    x_tr, y_tr, x_te, y_te = x[:2000], y[:2000], x[split:split + 1000], \
+        y[split:split + 1000]
+    encode(state.global_tree, x_tr[:256], device=dev)      # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.time()
+    f_tr = encode(state.global_tree, x_tr, device=dev)
+    f_te = encode(state.global_tree, x_te, device=dev)
+    t_enc = time.time() - t
+    t = time.time()
+    knn = knn_top1(f_tr, y_tr, f_te, y_te, device=dev)
+    t_knn = time.time() - t
+    t = time.time()
+    lin = linear_probe_top1(f_tr, y_tr, f_te, y_te, device=dev)
+    t_lin = time.time() - t
+    launches = _counts()
+    f_cpu = encode(state.global_tree, x_tr[:256], device="cpu")
+    err = float(np.abs(f_tr[:256] - f_cpu).max())
+    print(f"[probe] encode {len(x_tr)} train and {len(x_te)} test images "
+          f"{t_enc:.3f} s on the card; kNN top-1 {knn:.4f} ({t_knn:.3f} "
+          f"s), linear top-1 {lin:.4f} ({t_lin:.3f} s); card vs cpu "
+          f"features (256 images) max abs {err:.3e}; launches {launches}",
+          flush=True)
+    if not (np.isfinite(f_tr).all() and np.isfinite(f_te).all()
+            and f_tr.shape == (len(x_tr), 512)
+            and f_te.shape == (len(x_te), 512)):
+        raise AssertionError("[probe] features not finite or misshapen")
+    if not (err <= PROBE_FEAT_TOL and 0.0 <= knn <= 1.0
+            and 0.0 <= lin <= 1.0) or any(launches.values()):
+        raise AssertionError(f"[probe] feature err {err}, knn {knn}, linear "
+                             f"{lin}, launches {launches}")
 
 
 def serve_path(store):
@@ -1031,16 +1373,23 @@ def run() -> int:
     cross_check(dev)
     launches, main_sc, main_state = main_path(dev)
     comms_launches, sc, state, store = comms_path(dev, main_sc, main_state)
+    topo_cross_check(dev)
+    paths = {"main": launches, "comms": comms_launches,
+             "multi": multi_path(dev, main_sc.data),
+             "handover": handover_path(dev, main_sc.data),
+             "fedco": fedco_path(dev, main_sc.data)}
+    probe_path(dev, main_sc, main_state)
     serve_path(store)
     threaded_serve(sc, state)
     lossless_round(dev, main_sc.data, state)
     rows.append(rwkv6_kernel_check(dev))
     zoo_cross_check(dev)
-    zoo_launches = zoo_full_width(dev)
+    paths["zoo"] = zoo_launches = zoo_full_width(dev)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
                 else zoo_launches if r["name"] == "rwkv6" else launches)
         r["launches"] = path[r["name"]]
+        r["paths"] = {p: c[r["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

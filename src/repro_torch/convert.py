@@ -10,6 +10,11 @@ layouts (conv weights HWIO), so conversion is a leaf-by-leaf copy:
   into the port's; `tree_to_numpy` goes back.
 * `comms_from_numpy(np_comms, device)` — the reference's
   ``FLState.comms`` (None, or ``{"ef": (m, Ppad)}``) into the port's.
+* `topo_from_numpy(np_topo, device)` and
+  `client_state_from_numpy(np_cs, device)` — the reference's
+  ``FLState.topo`` (the handover's positions, RSU models and sync
+  statistics) and ``FLState.client_state`` (FedCo's key tree and queue)
+  into the port's.
 * `zoo_params_from_numpy(np_tree, device=None)` — a reference zoo
   ``T.init_params`` tree (stacked blocks, bfloat16 leaves included) into
   the port's, leaf dtypes kept; `zoo_params_to_numpy` goes back.
@@ -104,6 +109,33 @@ def comms_from_numpy(np_comms, device="cpu"):
         return None
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in np_comms.items()}
+
+
+def topo_from_numpy(np_topo, device="cpu") -> dict:
+    """Reference ``FLState.topo`` -> the port's: positions stay host
+    float32 and the sync statistics host float64 (numpy), each RSU model
+    becomes a tree on `device`; {} stays {}."""
+    topo = dict(np_topo or {})
+    if "positions" in topo:
+        topo["positions"] = np.array(topo["positions"], np.float32)
+    for k in ("blur_sum", "upload_count"):
+        if k in topo:
+            topo[k] = np.array(topo[k], np.float64)
+    if "rsu_models" in topo:
+        topo["rsu_models"] = tuple(tree_from_numpy(t, device)
+                                   for t in topo["rsu_models"])
+    return topo
+
+
+def client_state_from_numpy(np_cs, device="cpu"):
+    """Reference ``FLState.client_state`` -> the port's: None stays None,
+    FedCo's {"key_tree", "queue"} become a tree and a float32 (K, D)
+    tensor on `device`."""
+    if np_cs is None:
+        return None
+    return {"key_tree": tree_from_numpy(np_cs["key_tree"], device),
+            "queue": torch.tensor(np.asarray(np_cs["queue"], np.float32),
+                                  device=device)}
 
 
 class FlatSpec(NamedTuple):

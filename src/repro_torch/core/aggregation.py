@@ -1,8 +1,9 @@
 """Model aggregation schemes — the paper's core contribution (Eq. 11).
 
 Counterpart of `repro.core.aggregation` (`SCHEME_WEIGHTS`,
-`AGGREGATORS`, `cohort_weighted_sum`, `_weighted_stacked_sum`, the
-weight functions). Every entry has the dispatch signature
+`AGGREGATORS`, `cohort_weighted_sum`, `_weighted_stacked_sum`,
+`_weighted_tree_sum`, `aggregate_fedavg`, the weight functions). Every
+entry has the dispatch signature
 
     aggregate(cohort: CohortBatch, cfg) -> tree
 
@@ -20,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.convert import unravel
+from repro_torch.convert import (flat_spec, leaves_with_paths, ravel_into,
+                                 unravel)
 from repro_torch.kernels import ops
 
 
@@ -30,6 +32,31 @@ def _weighted_stacked_sum(flat: torch.Tensor, spec, weights,
     the model tree (leaves are views of the one (P,) result)."""
     w = torch.as_tensor(weights, dtype=torch.float32, device=flat.device)
     return unravel(ops.wagg_flat(flat, w, mask), spec)
+
+
+def _weighted_tree_sum(trees, weights) -> dict:
+    """sum_n w_n * tree_n over a list of model trees: the trees raveled
+    into the rows of one (n, P) buffer, then one weighted sum. `weights`
+    may be float64 (host weights); they are rounded to float32 here, as
+    the reference rounds them at its aggregation boundary."""
+    spec = flat_spec(trees[0])
+    device = leaves_with_paths(trees[0])[0][1].device
+    flat = torch.empty((len(trees), spec.size), dtype=torch.float32,
+                       device=device)
+    for row, tree in zip(flat, trees):
+        ravel_into(tree, row, spec)
+    return _weighted_stacked_sum(flat, spec, weights)
+
+
+def aggregate_fedavg(trees, data_sizes=None) -> dict:
+    """Baseline1 over a list of trees: uniform, or weighted by local
+    dataset size."""
+    if data_sizes is None:
+        w = torch.full((len(trees),), 1.0 / len(trees), dtype=torch.float32)
+    else:
+        s = torch.as_tensor(data_sizes, dtype=torch.float32)
+        w = s / s.sum()
+    return _weighted_tree_sum(trees, w)
 
 
 def cohort_weighted_sum(cohort, w_valid) -> dict:

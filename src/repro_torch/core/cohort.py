@@ -1,6 +1,7 @@
 """`CohortBatch` — a round's trained cohort as one flat buffer.
 
-Counterpart of `repro.core.cohort.CohortBatch`. The reference stacks
+Counterpart of `repro.core.cohort.CohortBatch` (`empty`, `write`,
+`concat`, `take`, `with_stats`, `padded_weights`). The reference stacks
 each leaf of the client trees along a leading cohort axis and ravels the
 stack into an (m, P) matrix at the aggregation boundary
 (`ops.wagg_stacked`). The port keeps the cohort in that matrix from the
@@ -53,6 +54,36 @@ class CohortBatch:
         return cls(flat=flat, spec=spec,
                    losses=torch.zeros(m, dtype=torch.float32, device=device),
                    mask=(torch.arange(m, device=device) < n).float(), n=n)
+
+    @classmethod
+    def concat(cls, cohorts) -> "CohortBatch":
+        """The VALID rows of several cohorts, in order, as one cohort
+        (padding dropped); velocities and blur are kept when every input
+        has them."""
+        stats = {}
+        for f in ("velocities", "blur"):
+            vals = [getattr(c, f) for c in cohorts]
+            if all(v is not None for v in vals):
+                stats[f] = torch.cat([v[:c.n] for v, c in zip(vals, cohorts)])
+        flat = torch.cat([c.flat[:c.n] for c in cohorts])
+        losses = torch.cat([c.valid_losses for c in cohorts])
+        return cls(flat=flat, spec=cohorts[0].spec, losses=losses,
+                   mask=torch.ones_like(losses), n=int(flat.shape[0]),
+                   **stats)
+
+    def take(self, idx) -> "CohortBatch":
+        """A sub-cohort gathered from the valid rows, in `idx` order."""
+        idx = torch.as_tensor(idx, dtype=torch.long, device=self.flat.device)
+
+        def pick(x):
+            return None if x is None else x[:self.n][idx]
+
+        losses = pick(self.losses)
+        return CohortBatch(flat=pick(self.flat), spec=self.spec,
+                           losses=losses, mask=torch.ones_like(losses),
+                           n=int(losses.shape[0]),
+                           velocities=pick(self.velocities),
+                           blur=pick(self.blur))
 
     def write(self, i: int, tree, loss) -> None:
         """Ravel client i's trained tree into row i (in place)."""

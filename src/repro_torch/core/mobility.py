@@ -1,7 +1,8 @@
 """Vehicle mobility + motion-blur model — FLSimCo Eq. (1)-(2).
 
 Counterpart of `repro.core.mobility` (`MobilityModel.pdf/sample/
-blur_level`, `motion_blur_kernel`, `apply_motion_blur`, `BLUR_KMH_100`).
+blur_level/init_positions/advance_positions`, `motion_blur_kernel`,
+`apply_motion_blur`, `BLUR_KMH_100`).
 
 Velocities are IID truncated Gaussians on [v_min, v_max] (Eq. 1), drawn
 by inverse CDF on a 4097-point grid; the blur level is linear in
@@ -15,6 +16,12 @@ within blocks of 16, block totals scanned recursively). Only `exp` in
 the pdf may differ by 1 ULP (neither library rounds it correctly), so a
 velocity differs from the reference's only when u lands within that ULP
 of a CDF step (tests/test_torch_modules.py pins 100k draws bitwise).
+
+Ring-road positions (the handover topology) are float32 and bitwise the
+reference's for the same uniforms: `advance_positions` rounds v*dt, then
+the sum, as the reference's eager jnp ops do (no fused multiply-add;
+tests/test_torch_topology.py pins it), and wraps with the truncated
+remainder plus the sign fix-up of `jnp.mod`.
 """
 from __future__ import annotations
 
@@ -103,6 +110,28 @@ class MobilityModel:
     def blur_level(self, v) -> torch.Tensor:
         """Eq. (2): L = (H*s/Q) * v."""
         return self.camera_const * torch.as_tensor(v, dtype=torch.float32)
+
+    # -- positions on a ring road of length road_length (handover) ----------
+
+    def init_positions(self, generator: torch.Generator | None, n: int,
+                       road_length: float,
+                       u: torch.Tensor | None = None) -> torch.Tensor:
+        """n uniform positions on [0, road_length), float32 on the CPU;
+        the uniforms come from `generator` or are passed as `u`."""
+        if u is None:
+            u = torch.rand(n, generator=generator, dtype=torch.float32)
+        return torch.as_tensor(u, dtype=torch.float32) * road_length
+
+    def advance_positions(self, positions, velocities, dt: float,
+                          road_length: float) -> torch.Tensor:
+        """(positions + v*dt) mod road_length in float32, each product and
+        the sum rounded on its own."""
+        p = torch.as_tensor(positions, dtype=torch.float32)
+        v = torch.as_tensor(velocities, dtype=torch.float32)
+        x = p + v * dt
+        r = torch.fmod(x, road_length)
+        wrap = (r != 0) & ((r < 0) != (road_length < 0))
+        return torch.where(wrap, r + road_length, r)
 
 
 def motion_blur_kernel(v, camera_const: float = CAMERA_CONST,

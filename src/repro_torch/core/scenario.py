@@ -10,10 +10,12 @@
 
 Same signatures as the reference; `Scenario` also takes ``device``: the
 scenario runs on CUDA unless ``device="cpu"`` is passed, and raises if
-CUDA is asked for and missing. Building a scenario turns on the float32 parity mode
-(runtime.py). The port accepts ``topology="single"``, ``client="dtssl"``
-and every codec of ``comms.codecs.CODECS``; any other topology or client
-raises NotImplementedError naming the ROADMAP.md entry that ports it.
+CUDA is asked for and missing. Building a scenario turns on the float32
+parity mode (runtime.py). Every topology (``single``, ``multi``,
+``handover``), client (``dtssl``, ``fedco``, and the legacy
+``aggregator="fedco"`` spelling), aggregator and codec of the reference
+is accepted; the mesh options of the topologies raise
+NotImplementedError naming the ROADMAP.md entry that ports them.
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ import torch
 
 from repro_torch.comms.codecs import comms_init_state
 from repro_torch.convert import tree_map
+from repro_torch.core.clients import CLIENT_UPDATES
 from repro_torch.core.mobility import MobilityModel
-from repro_torch.core.state import FLConfig, FLState, not_ported, pack_host_rng
-from repro_torch.core.topology import TOPOLOGIES, SingleRSU
+from repro_torch.core.state import (FLConfig, FLState, pack_host_rng,
+                                    resolve_fedco_alias)
+from repro_torch.core.topology import TOPOLOGIES
 from repro_torch.optim.optimizers import cosine_schedule
 from repro_torch.runtime import resolve_device, set_parity_mode
 
@@ -57,23 +61,26 @@ class Scenario:
                  **cfg_kwargs):
         self.device = resolve_device(device)
         set_parity_mode()
-        overrides = {k: v for k, v in (("aggregator", aggregator),
-                                       ("client", client)) if v is not None}
-        cfg_kwargs.update(overrides)
         if cfg is None:
             cfg = FLConfig(**cfg_kwargs)
         elif cfg_kwargs:
             cfg = dataclasses.replace(cfg, **cfg_kwargs)
+        # the alias is resolved before the override: cfg.client is already
+        # a concrete name, which FLConfig could not tell from a request
+        aggregator, client = resolve_fedco_alias(aggregator, client)
+        overrides = {k: v for k, v in (("aggregator", aggregator),
+                                       ("client", client)) if v is not None}
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
         self.cfg = cfg
         if isinstance(topology, str):
-            if topology not in ("single", "multi", "handover"):
-                raise ValueError(f"unknown topology {topology!r}; valid: "
-                                 f"['handover', 'multi', 'single']")
             if topology not in TOPOLOGIES:
-                raise not_ported("topology", topology)
+                raise ValueError(f"unknown topology {topology!r}; valid: "
+                                 f"{sorted(TOPOLOGIES)}")
             topology = TOPOLOGIES[topology](**(topology_kwargs or {}))
-        elif not isinstance(topology, SingleRSU):
-            raise not_ported("topology", type(topology).__name__)
+        elif topology_kwargs:
+            raise ValueError("topology_kwargs only applies when `topology` "
+                             "is a registry name")
         self.topology = topology
         self.mobility = mobility if mobility is not None else MobilityModel()
         self.blur_images = blur_images
@@ -90,6 +97,7 @@ class Scenario:
         self._dataset = None
         self._global_tree = global_tree
         self._lr_fn = None
+        self.topology.validate(self.cfg)
 
     # -- lazy builders -------------------------------------------------------
 
@@ -137,15 +145,18 @@ class Scenario:
         return self._lr_fn
 
     def init_state(self) -> FLState:
-        """The round-0 `FLState` (model, both RNG streams, the codec's
-        comms state), deterministic in cfg.seed."""
-        seed = self.cfg.seed
+        """The round-0 `FLState` (model, both RNG streams, the client's,
+        the topology's and the codec's state), deterministic in
+        cfg.seed."""
+        cfg = self.cfg
         tree = self.init_tree()
-        return FLState(global_tree=tree,
-                       gen_state=torch.Generator().manual_seed(seed)
-                       .get_state(),
-                       host_rng=pack_host_rng(np.random.RandomState(seed)),
-                       round=0, comms=comms_init_state(self.cfg, tree))
+        gen = torch.Generator().manual_seed(cfg.seed)
+        client_state = CLIENT_UPDATES[cfg.client].init_state(cfg, tree)
+        topo = self.topology.init_state(cfg, self.mobility, tree, gen)
+        return FLState(global_tree=tree, gen_state=gen.get_state(),
+                       host_rng=pack_host_rng(np.random.RandomState(cfg.seed)),
+                       round=0, topo=topo, client_state=client_state,
+                       comms=comms_init_state(cfg, tree))
 
 
 def run_round(state: FLState, scenario: Scenario, parallel: bool = True):

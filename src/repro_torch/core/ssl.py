@@ -1,5 +1,7 @@
-"""FLSimCo Sec. 4 Step 2 image augmentations — counterpart of
-`repro.core.ssl` (`pi1`, `pi2`, `_grayscale`, `_color_jitter`).
+"""FLSimCo Sec. 4 Step 2 image augmentations and the MoCo/FedCo
+machinery — counterpart of `repro.core.ssl` (`pi1`, `pi2`, `_grayscale`,
+`_color_jitter`, `MoCoState`, `init_moco_state`, `momentum_update`,
+`queue_push`, `fedco_merge_queues`).
 
     pi1: horizontal flip (p=.5) -> grayscale (p=.2)
     pi2: color jitter (brightness/contrast/saturation/hue, range .4,
@@ -15,8 +17,11 @@ reference.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
+
+from repro_torch.convert import leaves_with_paths, tree_map
 
 GRAY_W = (0.299, 0.587, 0.114)
 
@@ -93,3 +98,54 @@ def pi2(x: torch.Tensor, d: dict) -> torch.Tensor:
     x = _where(d["apply"], _color_jitter(x, d), x)
     x = _where(d["gray"], _grayscale(x), x)
     return torch.clamp(x, 0.0, 1.0)
+
+
+# --------------------------------------------------------------------------
+# MoCo / FedCo machinery
+# --------------------------------------------------------------------------
+
+class MoCoState(NamedTuple):
+    key_params: dict        # momentum (EMA) encoder params
+    queue: torch.Tensor     # (K, D) L2-normalized negatives
+    ptr: int                # ring pointer
+
+
+def normal_queue(gen: torch.Generator, queue_len: int, dim: int,
+                 device="cpu") -> torch.Tensor:
+    """(queue_len, dim) standard normals from `gen`, each row
+    L2-normalized."""
+    q = torch.randn((queue_len, dim), generator=gen, dtype=torch.float32)
+    return (q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)).to(device)
+
+
+def init_moco_state(params: dict, queue_len: int, dim: int,
+                    gen: torch.Generator) -> MoCoState:
+    """A copy of `params` as the key encoder, a random normalized queue
+    on the params' device, the pointer at 0."""
+    device = leaves_with_paths(params)[0][1].device
+    return MoCoState(key_params=tree_map(torch.clone, params),
+                     queue=normal_queue(gen, queue_len, dim, device), ptr=0)
+
+
+def momentum_update(key_params, query_params, m: float = 0.99):
+    """EMA key-encoder update (MoCo): m * key + (1 - m) * query."""
+    if isinstance(key_params, dict):
+        return {k: momentum_update(key_params[k], query_params[k], m)
+                for k in key_params}
+    return m * key_params + (1 - m) * query_params.to(key_params.dtype)
+
+
+def queue_push(state: MoCoState, keys: torch.Tensor) -> MoCoState:
+    """Ring-buffer enqueue of a batch of k-vectors (B, D)."""
+    K, B = state.queue.shape[0], keys.shape[0]
+    idx = (state.ptr + torch.arange(B, device=state.queue.device)) % K
+    queue = state.queue.clone()
+    queue[idx] = keys.to(queue.dtype)
+    return state._replace(queue=queue, ptr=(state.ptr + B) % K)
+
+
+def fedco_merge_queues(global_queue: torch.Tensor, client_keys_list):
+    """FedCo: the RSU puts the uploaded k-value batches in front of the
+    global queue (newest first) and truncates to its length."""
+    K = global_queue.shape[0]
+    return torch.cat(list(client_keys_list) + [global_queue])[:K]

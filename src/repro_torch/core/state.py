@@ -3,9 +3,11 @@
 
 `FLState` holds everything that changes from round to round: the RSU
 model, the packed host `numpy.random.RandomState` (cohort ids and batch
-indices, MT19937 — bitwise the reference's stream) and the state of the
+indices, MT19937 — bitwise the reference's stream), the state of the
 CPU `torch.Generator` that takes the place of the reference's jax key
-(velocities, augmentation draws). So
+(velocities, positions, augmentation draws), the topology's state
+(handover positions and per-RSU models) and the client algorithm's
+(FedCo's key encoder and queue). So
 
     state, rec = run_round(state, scenario)      # core/scenario.py
 
@@ -14,7 +16,7 @@ is pure: the same state in gives the same state out.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
@@ -23,8 +25,8 @@ import torch
 from repro_torch.core.mobility import BLUR_KMH_100
 
 ROADMAP_FOR = {
-    "client": "ROADMAP.md Queue A, item 7 (FedCo)",
-    "topology": "ROADMAP.md Queue A, item 8 (MultiRSU, handover)",
+    "mesh_aggregate": "ROADMAP.md Queue A, item 9 (sharded cohorts)",
+    "mesh_shard": "ROADMAP.md Queue A, item 9 (sharded cohorts)",
 }
 
 
@@ -32,6 +34,20 @@ def not_ported(what: str, value) -> NotImplementedError:
     return NotImplementedError(
         f"{what}={value!r} is not ported to repro_torch yet; see "
         f"{ROADMAP_FOR[what]}")
+
+
+def resolve_fedco_alias(aggregator, client):
+    """The legacy ``aggregator="fedco"`` spelling means client="fedco"
+    aggregated with "fedavg"; returns (aggregator, client), unchanged
+    unless aggregator == "fedco". A conflicting explicit client raises."""
+    if aggregator != "fedco":
+        return aggregator, client
+    if client not in (None, "fedco"):
+        raise ValueError(
+            "aggregator='fedco' is a legacy alias for "
+            "client='fedco', aggregator='fedavg' and conflicts "
+            f"with explicit client={client!r}; pick one spelling")
+    return "fedavg", "fedco"
 
 
 @dataclass(frozen=True)
@@ -47,22 +63,29 @@ class FLConfig:
     tau_alpha: float = 0.1
     tau_beta: float = 1.0
     aggregator: str = "flsimco"   # any AGGREGATORS name
-    client: Optional[str] = None  # None selects "dtssl", the only port
+    client: Optional[str] = None  # any CLIENT_UPDATES name; None: "dtssl"
     blur_threshold: float = BLUR_KMH_100   # in blur units (Eq. 2)
+    moco_momentum: float = 0.99   # FedCo key-encoder EMA (Table 1)
+    queue_len: int = 4096         # FedCo global queue (Sec. 5.2)
+    feature_dim: int = 128
     normalize_weights: bool = True
     codec: str = "identity"       # any CODECS name (comms/codecs.py)
     seed: int = 0
 
     def __post_init__(self):
+        # the registries import FLConfig, so they are resolved here
         from repro_torch.comms.codecs import CODECS
         from repro_torch.core.aggregation import AGGREGATORS
-        if self.aggregator == "fedco" or self.client not in (None, "dtssl"):
-            raise not_ported("client", self.client or "fedco")
-        if self.client is None:
-            object.__setattr__(self, "client", "dtssl")
+        from repro_torch.core.clients import CLIENT_UPDATES
+        aggregator, client = resolve_fedco_alias(self.aggregator, self.client)
+        object.__setattr__(self, "aggregator", aggregator)
+        object.__setattr__(self, "client", client or "dtssl")
         if self.aggregator not in AGGREGATORS:
             raise ValueError(f"unknown aggregator {self.aggregator!r}; "
                              f"valid: {sorted(AGGREGATORS)}")
+        if self.client not in CLIENT_UPDATES:
+            raise ValueError(f"unknown client update {self.client!r}; "
+                             f"valid: {sorted(CLIENT_UPDATES)}")
         if self.codec not in CODECS:
             raise ValueError(f"unknown codec {self.codec!r}; valid: "
                              f"{sorted(CODECS)}")
@@ -104,6 +127,12 @@ class FLState:
     gen_state     CPU torch.Generator state (velocities, augmentations)
     host_rng      packed numpy RandomState (cohort + batch-index draws)
     round         next round index (drives the cosine LR schedule)
+    topo          per-topology state ({} for SingleRSU and MultiRSU; for
+                  HandoverMultiRSU: positions (n_vehicles,) float32 and
+                  blur_sum, upload_count (n_rsus,) float64, numpy on the
+                  host, and rsu_models, a tuple of n_rsus model trees)
+    client_state  per-client-algorithm state (None for DT-SSL; FedCo:
+                  {"key_tree": model tree, "queue": (K, D) float32})
     comms         per-codec comms state: None, or for delta_int8
                   {"ef": (vehicles_per_round, Ppad) float32} on the
                   scenario's device (comms/codecs.py)
@@ -113,6 +142,8 @@ class FLState:
     gen_state: torch.Tensor
     host_rng: dict
     round: int = 0
+    topo: dict = field(default_factory=dict)
+    client_state: Optional[dict] = None
     comms: Optional[dict] = None
 
     def replace(self, **kw) -> "FLState":

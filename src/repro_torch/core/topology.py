@@ -1,32 +1,52 @@
-"""RSU topology — pure round orchestration over an explicit `FLState`.
+"""RSU topologies — pure round orchestration over an explicit `FLState`.
 
-Counterpart of `repro.core.topology` (`SingleRSU`, `_cohort_plan`,
-`_batch_indices`, `_client_images`). Slice 1 ports `SingleRSU`, the
-paper-exact Steps 2-4: one RSU, one cohort, one aggregation through the
-``AGGREGATORS`` registry.
+Counterpart of `repro.core.topology` (`Topology`, `SingleRSU`,
+`MultiRSU`, `HandoverMultiRSU`, `_cohort_plan`, `_batch_indices`,
+`_client_images`, `_region_sync_weights`, `_require_flsimco`). A
+topology holds static configuration only; what changes from round to
+round lives in `FLState` (`topo` for the handover's positions and
+per-RSU models), so ``state, rec = topology.run_round(state, scenario)``
+is pure.
 
-A round is split as the reference splits it:
+  SingleRSU         paper-exact Steps 2-4: one RSU, one cohort, one
+                    aggregation through the ``AGGREGATORS`` registry.
+  MultiRSU          N RSUs under one regional server: the cohort is dealt
+                    round-robin, each RSU trains and aggregates its group
+                    (Eq. 11), the region merges the RSU models
+                    (`aggregate_hierarchical`). MultiRSU(n_rsus=1) is
+                    bitwise SingleRSU.
+  HandoverMultiRSU  MultiRSU plus motion on a ring road: per-RSU models
+                    persist in `FLState.topo`, a vehicle downloads from
+                    the RSU covering it at round start and uploads to the
+                    one covering it at round end; a stale upload (another
+                    RSU) has its Eq.-11 weight scaled by `stale_discount`.
+                    Every `sync_every` rounds the region merges the RSU
+                    models.
 
-* `_cohort_plan` makes every random draw of the round, up front: cohort
-  ids and batch indices from the host MT19937 (`numpy.random.RandomState`,
-  in the reference's order, so bitwise the reference's), then the
-  velocities and each client's per-iteration pi1/pi2 draws from the CPU
-  `torch.Generator` (in place of the reference's jax key chain), and the
-  cosine lr;
-* `SingleRSU.execute` runs a plan: batches, motion blur, local training,
-  the codec stage (`comms.codecs.roundtrip_cohort`, which threads the
-  codec's comms state), Eq.-11 aggregation, the round record.
+A round is split as the reference splits it: a plan that makes every
+random draw up front, then an execution. Host MT19937 draws
+(`numpy.random.RandomState`: cohort ids, batch indices) come in the
+reference's order, so they are bitwise the reference's; the CPU
+`torch.Generator` takes the place of the jax key chain (velocities,
+each client's per-iteration pi1/pi2 draws). The handover plan is itself
+two steps, `draw_round` (the draws) and `plan_round` (a pure function of
+them: grouping, motion, upload weights, the sync), so a test can hand
+`plan_round` and `execute` draws replayed from the reference.
+
+On one card every topology runs on the host path: each RSU group is
+trained client by client, as the reference's ``parallel=False`` does.
+The mesh paths (`MultiRSU(mesh_aggregate=True)`,
+`HandoverMultiRSU(mesh_shard=True)`) are ROADMAP.md Queue A, item 9.
 
 The phases are marked with `torch.profiler.record_function` ranges
 (``round.plan``, ``round.batches``, ``round.clients``, ``round.comms``,
-``round.aggregate``), which `trace_round` reads from a profiled round.
-
-So a test can hand `execute` a plan whose draws were replayed from the
-reference's keys.
+``round.aggregate``; MultiRSU and the handover mark the last four once
+per RSU group), which `trace_round` reads from a profiled round.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,14 +57,22 @@ from repro_torch.convert import tree_map
 from repro_torch.core import aggregation as agg
 from repro_torch.core import ssl
 from repro_torch.core.clients import CLIENT_UPDATES
+from repro_torch.core.cohort import CohortBatch
+from repro_torch.core.hierarchical import aggregate_hierarchical
 from repro_torch.core.mobility import apply_motion_blur
-from repro_torch.core.state import (FLState, generator_from, pack_host_rng,
+from repro_torch.core.state import (FLConfig, FLState, generator_from,
+                                    not_ported, pack_host_rng,
                                     unpack_host_rng)
 
 
+# --------------------------------------------------------------------------
+# shared round machinery
+# --------------------------------------------------------------------------
+
 @dataclass(frozen=True)
 class CohortPlan:
-    """Every random choice of one round, made before any training.
+    """Every random choice of one SingleRSU/MultiRSU round, made before
+    any training.
 
     ids         (n,) vehicle ids (host RNG)
     batch_idx   n arrays of cfg.batch_size indices into each vehicle's data
@@ -67,6 +95,13 @@ def _batch_indices(rng, data_len: int, cfg) -> np.ndarray:
                       replace=data_len < cfg.batch_size)
 
 
+def _pi_draws(gen: torch.Generator, cfg, n: int) -> list:
+    """n clients' (pi1, pi2) draw pairs, one per local iteration."""
+    b = cfg.batch_size
+    return [[(ssl.draw_pi1(gen, b), ssl.draw_pi2(gen, b))
+             for _ in range(cfg.local_iters)] for _ in range(n)]
+
+
 def _cohort_plan(rng: np.random.RandomState, gen: torch.Generator, rnd: int,
                  scenario) -> CohortPlan:
     """Draw one round's plan; advances `rng` and `gen`."""
@@ -75,11 +110,9 @@ def _cohort_plan(rng: np.random.RandomState, gen: torch.Generator, rnd: int,
                      replace=False)
     batch_idx = [_batch_indices(rng, len(scenario.data[c]), cfg) for c in ids]
     velocities = scenario.mobility.sample(gen, len(ids))
-    b = cfg.batch_size
-    draws = [[(ssl.draw_pi1(gen, b), ssl.draw_pi2(gen, b))
-              for _ in range(cfg.local_iters)] for _ in ids]
     return CohortPlan(ids=ids, batch_idx=batch_idx, velocities=velocities,
-                      lr=scenario.lr_fn(rnd), draws=draws)
+                      lr=scenario.lr_fn(rnd),
+                      draws=_pi_draws(gen, cfg, len(ids)))
 
 
 def _client_images(scenario, cid: int, idx, velocity, device) -> torch.Tensor:
@@ -91,7 +124,75 @@ def _client_images(scenario, cid: int, idx, velocity, device) -> torch.Tensor:
     return images
 
 
-class SingleRSU:
+def _client_draws(draws: list, device) -> list:
+    """One client's (pi1, pi2) draw pairs on `device`."""
+    return [(ssl.draws_to(d1, device), ssl.draws_to(d2, device))
+            for d1, d2 in draws]
+
+
+def _host_losses(losses: torch.Tensor) -> np.ndarray:
+    return losses.cpu().numpy().astype(np.float64)
+
+
+def _region_sync_weights(mob, blur_sum, upload_count,
+                         count_scaled: bool) -> np.ndarray:
+    """Level-2 sync weights: Eq. 11 over each RSU's mean blur since the
+    last sync (the prior mean blur where it had no uploads), optionally
+    scaled by its upload count; float32 weights, scaled and normalized in
+    float64, as the reference does."""
+    counts = np.asarray(upload_count, np.float64)
+    mean_blur = np.where(
+        counts > 0, np.asarray(blur_sum, np.float64) / np.maximum(counts, 1.0),
+        float(mob.blur_level(mob.mu)))
+    W = agg.flsimco_weights(
+        torch.from_numpy(mean_blur.astype(np.float32))).numpy()
+    if count_scaled:
+        W = W * counts
+    s = W.sum()
+    return W / s if s > 1e-12 else np.full_like(W, 1.0 / len(W))
+
+
+def _require_flsimco(cfg: FLConfig, name: str) -> None:
+    if cfg.aggregator != "flsimco":
+        raise ValueError(
+            f"{name} implements the hierarchical Eq.-11 (blur-weighted) "
+            f"extension and requires aggregator='flsimco'; got "
+            f"{cfg.aggregator!r}. Run other schemes under SingleRSU.")
+    if not cfg.normalize_weights:
+        raise ValueError(
+            f"{name} always normalizes Eq.-11 weights; "
+            f"normalize_weights=False would break the MultiRSU(1) == "
+            f"SingleRSU equivalence. Use SingleRSU for the unnormalized "
+            f"literal form.")
+
+
+class Topology:
+    """Strategy object: the structure of one federated round.
+
+    validate(cfg)                       fail fast on unsupported configs
+    signature()                         static parameters, JSON-able
+    init_state(cfg, mobility,
+               global_tree, gen)        -> the round-0 `FLState.topo`
+    run_round(state, scenario)          -> (new FLState, round record)
+    """
+
+    name = "base"
+
+    def validate(self, cfg: FLConfig) -> None:
+        pass
+
+    def signature(self) -> dict:
+        return {"name": self.name}
+
+    def init_state(self, cfg: FLConfig, mobility, global_tree,
+                   gen: torch.Generator) -> dict:
+        return {}
+
+    def run_round(self, state: FLState, scenario, parallel: bool = True):
+        raise NotImplementedError
+
+
+class SingleRSU(Topology):
     """Paper-exact FLSimCo: one RSU aggregating one sampled cohort."""
 
     name = "single"
@@ -104,41 +205,411 @@ class SingleRSU:
             rng = unpack_host_rng(state.host_rng)
             gen = generator_from(state.gen_state)
             plan = _cohort_plan(rng, gen, state.round, scenario)
-        tree, comms, rec = self.execute(state.global_tree, state.comms,
-                                        scenario, plan, state.round)
-        return state.replace(global_tree=tree, gen_state=gen.get_state(),
-                             host_rng=pack_host_rng(rng),
-                             round=state.round + 1, comms=comms), rec
+        state, rec = self.execute(state, scenario, plan)
+        return state.replace(gen_state=gen.get_state(),
+                             host_rng=pack_host_rng(rng)), rec
 
-    def execute(self, tree: dict, comms, scenario, plan: CohortPlan,
-                rnd: int):
-        """Run `plan` from the global `tree` and the codec's `comms` state
-        on the scenario's device. Returns (new tree, new comms, record)."""
-        cfg, mob, device = scenario.cfg, scenario.mobility, scenario.device
+    def _batches(self, scenario, plan: CohortPlan):
+        """The plan's batches, draws and velocities on the device."""
+        device = scenario.device
         with record_function("round.batches"):
-            tree = tree_map(lambda t: t.to(device), tree)
             batches = [_client_images(scenario, c, idx, v, device)
                        for c, idx, v in zip(plan.ids, plan.batch_idx,
                                             plan.velocities)]
-            draws = [[(ssl.draws_to(d1, device), ssl.draws_to(d2, device))
-                      for d1, d2 in client] for client in plan.draws]
-            v = plan.velocities.to(device)
+            draws = [_client_draws(d, device) for d in plan.draws]
+            return batches, draws, plan.velocities.to(device)
+
+    def execute(self, state: FLState, scenario, plan: CohortPlan):
+        """Run `plan` from `state` (its tree, client state and comms) on
+        the scenario's device. Returns (state after the round, record);
+        the RNG fields are left as they were."""
+        cfg, mob = scenario.cfg, scenario.mobility
+        client = CLIENT_UPDATES[cfg.client]
+        tree = tree_map(lambda t: t.to(scenario.device), state.global_tree)
+        batches, draws, v = self._batches(scenario, plan)
         with record_function("round.clients"):
-            cohort = CLIENT_UPDATES[cfg.client].run_cohort(
-                cfg, tree, batches, draws, plan.lr)
+            cohort, uploads = client.run_cohort(
+                cfg, tree, state.client_state, batches, draws, plan.lr)
             cohort = cohort.with_stats(velocities=v, blur=mob.blur_level(v))
         # comms tier: the RSU aggregates what survived the V2I link
         # (encode -> decode against the broadcast base model); identity
         # passes the cohort through, the lossless delta codec is bitwise
         with record_function("round.comms"):
-            cohort, comms = roundtrip_cohort(cfg, cohort, tree, comms)
+            cohort, comms = roundtrip_cohort(cfg, cohort, tree, state.comms)
         with record_function("round.aggregate"):
             new_tree = agg.AGGREGATORS[cfg.aggregator](cohort, cfg)
-        losses = cohort.valid_losses.cpu().numpy().astype(np.float64)
-        rec = {"round": rnd, "loss": float(np.mean(losses)),
+        new_cs = client.finalize(cfg, state.client_state, new_tree, uploads)
+        losses = _host_losses(cohort.valid_losses)
+        rec = {"round": state.round, "loss": float(np.mean(losses)),
                "velocities": plan.velocities.tolist(), "lr": plan.lr,
                "topology": self.name}
-        return new_tree, comms, rec
+        return state.replace(global_tree=new_tree, round=state.round + 1,
+                             client_state=new_cs, comms=comms), rec
 
 
-TOPOLOGIES = {"single": SingleRSU}
+class MultiRSU(SingleRSU):
+    """N RSUs + regional server, no motion: hierarchical Eq. 11.
+
+    The cohort (drawn as SingleRSU draws it, batches in round order) is
+    dealt round-robin across RSUs; each RSU trains its group, the codec
+    stage runs per group with the cohort indices as error-feedback slots,
+    and `aggregate_hierarchical` merges the groups. FedCo uploads are
+    kept in group order. `mesh_aggregate=None` or False runs this host
+    path; True (the reference's sharded mesh path) raises. `mesh_reduction`
+    is validated and kept in `signature`.
+    """
+
+    name = "multi"
+
+    def __init__(self, n_rsus: int = 2, count_scaled: bool = True,
+                 mesh_aggregate: Optional[bool] = None,
+                 mesh_reduction: str = "exact"):
+        if n_rsus < 1:
+            raise ValueError("n_rsus must be >= 1")
+        if mesh_reduction not in ("exact", "psum"):
+            raise ValueError(f"mesh_reduction {mesh_reduction!r} not in "
+                             f"('exact', 'psum')")
+        if mesh_aggregate:
+            raise not_ported("mesh_aggregate", mesh_aggregate)
+        self.n_rsus = n_rsus
+        self.count_scaled = count_scaled
+        self.mesh_aggregate = mesh_aggregate
+        self.mesh_reduction = mesh_reduction
+
+    def signature(self) -> dict:
+        return {"name": self.name, "n_rsus": self.n_rsus,
+                "count_scaled": self.count_scaled,
+                "mesh_aggregate": self.mesh_aggregate,
+                "mesh_reduction": self.mesh_reduction}
+
+    def validate(self, cfg: FLConfig) -> None:
+        _require_flsimco(cfg, "MultiRSU")
+
+    def execute(self, state: FLState, scenario, plan: CohortPlan):
+        cfg, mob = scenario.cfg, scenario.mobility
+        client = CLIENT_UPDATES[cfg.client]
+        tree = tree_map(lambda t: t.to(scenario.device), state.global_tree)
+        batches, draws, v = self._batches(scenario, plan)
+        blur = mob.blur_level(v)
+        assign = np.arange(len(plan.ids)) % self.n_rsus
+        sels = [np.where(assign == rsu)[0] for rsu in range(self.n_rsus)]
+        sels = [s for s in sels if s.size]
+        comms, cohorts, uploads = state.comms, [], []
+        for sel in sels:
+            rows = torch.from_numpy(sel).to(v.device)
+            with record_function("round.clients"):
+                cohort, ups = client.run_cohort(
+                    cfg, tree, state.client_state, [batches[i] for i in sel],
+                    [draws[i] for i in sel], plan.lr)
+                cohort = cohort.with_stats(velocities=v[rows],
+                                           blur=blur[rows])
+            # the codec is row-wise: per-group roundtrips with rows=sel
+            # keep each client's error-feedback slot at its cohort index
+            with record_function("round.comms"):
+                cohort, comms = roundtrip_cohort(cfg, cohort, tree, comms,
+                                                 rows=sel)
+            cohorts.append(cohort)
+            uploads.extend(ups or [])
+        with record_function("round.aggregate"):
+            new_tree = aggregate_hierarchical(cohorts,
+                                              count_scaled=self.count_scaled)
+        new_cs = client.finalize(cfg, state.client_state, new_tree,
+                                 uploads or None)
+        losses = _host_losses(torch.cat([c.valid_losses for c in cohorts]))
+        rec = {"round": state.round, "loss": float(np.mean(losses)),
+               "velocities": plan.velocities.tolist(), "lr": plan.lr,
+               "topology": self.name,
+               "rsu_sizes": [int(s.size) for s in sels]}
+        return state.replace(global_tree=new_tree, round=state.round + 1,
+                             client_state=new_cs, comms=comms), rec
+
+
+@dataclass(frozen=True)
+class HandoverDraws:
+    """Every random draw of one handover round.
+
+    ids       (n,) vehicle ids (host RNG)
+    idx       (n, batch_size) batch indices, drawn in download-group order
+    fleet_v   (n_vehicles,) float32 velocities of the whole fleet
+    draws     per participant (cohort order), per local iteration, a
+              (pi1, pi2) draw pair
+    """
+
+    ids: np.ndarray
+    idx: np.ndarray
+    fleet_v: torch.Tensor
+    draws: list
+
+
+@dataclass(frozen=True)
+class HandoverPlan:
+    """One handover round, derived from its `HandoverDraws` and the topo
+    state. Arrays are host numpy unless marked.
+
+    velocities    (n,) float32 CPU tensor, the participants' fleet_v
+    down, up      (n,) int64 download and upload RSU of each participant
+    down_groups   [(rsu, cohort indices)] of the non-empty download groups
+    positions     (n_vehicles,) float32 fleet positions after the round
+    stale         (n,) bool, up != down
+    blur          (n,) float32 Eq.-2 blur of each participant
+    uploads       [(rsu, cohort indices, float64 weights)] of each upload
+                  group with usable weight
+    upload_sizes  participants uploading to each RSU (empty ones too)
+    synced        whether the region merges the RSU models this round
+    sync_W        (n_rsus,) level-2 weights when synced, else None
+    blur_sum, upload_count  the (n_rsus,) float64 accumulators after the
+                  round (reset by a sync)
+    """
+
+    ids: np.ndarray
+    idx: np.ndarray
+    velocities: torch.Tensor
+    lr: float
+    draws: list
+    down: np.ndarray
+    down_groups: list
+    positions: np.ndarray
+    up: np.ndarray
+    stale: np.ndarray
+    blur: np.ndarray
+    uploads: list
+    upload_sizes: list
+    synced: bool
+    sync_W: Optional[np.ndarray]
+    blur_sum: np.ndarray
+    upload_count: np.ndarray
+
+
+class HandoverMultiRSU(Topology):
+    """MultiRSU with persistent per-RSU models and vehicle motion.
+
+    Ring road of length n_rsus * rsu_range; RSU r covers [r*rsu_range,
+    (r+1)*rsu_range). Each round every vehicle advances by
+    v * round_duration (wrapping), so a participant can download from RSU
+    A and upload to RSU B; such stale uploads have their Eq.-11 weight
+    scaled by `stale_discount` before renormalization. An RSU with no
+    usable upload keeps its model. Every `sync_every` rounds the region
+    merges the RSU models with blur-weighted, upload-count-scaled
+    weights accumulated since the last sync.
+
+    `FLState.topo`: positions (n_vehicles,) float32, rsu_models (a tuple
+    of n_rsus trees), blur_sum and upload_count (n_rsus,) float64.
+
+    `bucketed` is accepted and kept in `signature` but changes nothing:
+    the reference pads each download group to a power-of-two size for its
+    vmapped step, and the port trains each group client by client, as the
+    reference's sequential path (which its bucketed path equals) does.
+    `mesh_shard=True` raises (ROADMAP.md Queue A, item 9).
+    """
+
+    name = "handover"
+
+    def __init__(self, n_rsus: int = 2, rsu_range: float = 1000.0,
+                 round_duration: float = 20.0, stale_discount: float = 0.5,
+                 sync_every: int = 5, count_scaled: bool = True,
+                 bucketed: bool = True, mesh_shard: bool = False):
+        if n_rsus < 1:
+            raise ValueError("n_rsus must be >= 1")
+        if not 0.0 <= stale_discount <= 1.0:
+            raise ValueError("stale_discount must be in [0, 1]")
+        if sync_every < 1:
+            raise ValueError("sync_every must be >= 1")
+        if mesh_shard:
+            raise not_ported("mesh_shard", mesh_shard)
+        self.n_rsus = n_rsus
+        self.rsu_range = rsu_range
+        self.road_length = n_rsus * rsu_range
+        self.round_duration = round_duration
+        self.stale_discount = stale_discount
+        self.sync_every = sync_every
+        self.count_scaled = count_scaled
+        self.bucketed = bucketed
+        self.mesh_shard = mesh_shard
+
+    def signature(self) -> dict:
+        return {"name": self.name, "n_rsus": self.n_rsus,
+                "rsu_range": self.rsu_range,
+                "round_duration": self.round_duration,
+                "stale_discount": self.stale_discount,
+                "sync_every": self.sync_every,
+                "count_scaled": self.count_scaled,
+                "bucketed": self.bucketed, "mesh_shard": self.mesh_shard}
+
+    def validate(self, cfg: FLConfig) -> None:
+        _require_flsimco(cfg, "HandoverMultiRSU")
+        if cfg.client != "dtssl":
+            raise ValueError(
+                "HandoverMultiRSU keeps divergent per-RSU models between "
+                "syncs, so client algorithms with global server state "
+                f"(client={cfg.client!r}) are undefined here; use "
+                "client='dtssl' or the SingleRSU/MultiRSU topologies.")
+
+    def init_state(self, cfg: FLConfig, mobility, global_tree,
+                   gen: torch.Generator) -> dict:
+        """Uniform positions from `gen`; every RSU starts from the global
+        tree; zero sync statistics."""
+        positions = mobility.init_positions(gen, cfg.n_vehicles,
+                                            self.road_length).numpy()
+        return {"positions": positions,
+                "rsu_models": tuple([global_tree] * self.n_rsus),
+                "blur_sum": np.zeros(self.n_rsus),
+                "upload_count": np.zeros(self.n_rsus)}
+
+    def rsu_index(self, positions) -> np.ndarray:
+        return (np.floor_divide(np.asarray(positions), self.rsu_range)
+                .astype(np.int64) % self.n_rsus)
+
+    def draw_round(self, rng: np.random.RandomState, gen: torch.Generator,
+                   positions: np.ndarray, scenario) -> HandoverDraws:
+        """The round's draws; advances `rng` and `gen`. Host: the cohort
+        ids, then each participant's batch indices in download-group
+        order. Generator: the whole fleet's velocities, then each
+        participant's pi1/pi2 draws in cohort order."""
+        cfg = scenario.cfg
+        ids = rng.choice(cfg.n_vehicles, size=cfg.vehicles_per_round,
+                         replace=False)
+        idx = np.empty((len(ids), cfg.batch_size), np.int64)
+        down = self.rsu_index(positions[ids])
+        for i in np.argsort(down, kind="stable"):
+            idx[i] = _batch_indices(rng, len(scenario.data[ids[i]]), cfg)
+        fleet_v = scenario.mobility.sample(gen, cfg.n_vehicles)
+        return HandoverDraws(ids=ids, idx=idx, fleet_v=fleet_v,
+                             draws=_pi_draws(gen, cfg, len(ids)))
+
+    def plan_round(self, draws: HandoverDraws, rnd: int, positions,
+                   blur_sum, upload_count, scenario) -> HandoverPlan:
+        """Everything about the round that does not depend on training,
+        from its draws and the topo state (taken by value): grouping,
+        motion, upload weights with staleness discounts, the sync and its
+        weights, the accumulators' successors. Pure."""
+        mob = scenario.mobility
+        ids = draws.ids
+        velocities = draws.fleet_v[torch.from_numpy(ids)]
+        down = self.rsu_index(positions[ids])
+        down_groups = [(rsu, np.where(down == rsu)[0])
+                       for rsu in range(self.n_rsus) if (down == rsu).any()]
+        positions = mob.advance_positions(
+            torch.tensor(positions, dtype=torch.float32), draws.fleet_v,
+            self.round_duration, self.road_length).numpy()
+        up = self.rsu_index(positions[ids])
+        stale = up != down
+        blur = mob.blur_level(velocities).numpy()
+        # this round's uploads to each RSU, added to the accumulators
+        # below (new arrays: the inputs are left as they were)
+        new_blur, new_count = np.zeros(self.n_rsus), np.zeros(self.n_rsus)
+        upload_sizes, uploads = [], []
+        for rsu in range(self.n_rsus):
+            sel = np.where(up == rsu)[0]
+            upload_sizes.append(int(sel.size))
+            if sel.size == 0:
+                continue
+            # float32 Eq.-11 weights times a float64 discount, normalized
+            # in float64, as the reference does; rounded to float32 only
+            # at the weighted sum
+            w = agg.flsimco_weights(torch.from_numpy(blur[sel])).numpy()
+            w = w * np.where(stale[sel], self.stale_discount, 1.0)
+            s = w.sum()
+            if s <= 1e-12:
+                # every upload stale with stale_discount=0: the RSU keeps
+                # its model, as if it had received none
+                continue
+            uploads.append((rsu, sel, w / s))
+            new_blur[rsu] = blur[sel].sum()
+            new_count[rsu] = sel.size
+        blur_sum = np.add(blur_sum, new_blur, dtype=np.float64)
+        upload_count = np.add(upload_count, new_count, dtype=np.float64)
+        synced = (rnd + 1) % self.sync_every == 0
+        sync_W = None
+        if synced:
+            sync_W = _region_sync_weights(mob, blur_sum, upload_count,
+                                          self.count_scaled)
+            blur_sum = np.zeros(self.n_rsus)
+            upload_count = np.zeros(self.n_rsus)
+        return HandoverPlan(
+            ids=ids, idx=draws.idx, velocities=velocities,
+            lr=scenario.lr_fn(rnd), draws=draws.draws, down=down,
+            down_groups=down_groups, positions=positions, up=up,
+            stale=stale, blur=blur, uploads=uploads,
+            upload_sizes=upload_sizes, synced=synced, sync_W=sync_W,
+            blur_sum=blur_sum, upload_count=upload_count)
+
+    def run_round(self, state: FLState, scenario, parallel: bool = True):
+        """One round: (state, scenario) -> (new state, record). `parallel`
+        is accepted for the reference's signature."""
+        with record_function("round.plan"):
+            rng = unpack_host_rng(state.host_rng)
+            gen = generator_from(state.gen_state)
+            positions = state.topo["positions"]
+            draws = self.draw_round(rng, gen, positions, scenario)
+            plan = self.plan_round(draws, state.round, positions,
+                                   state.topo["blur_sum"],
+                                   state.topo["upload_count"], scenario)
+        state, rec = self.execute(state, scenario, plan)
+        return state.replace(gen_state=gen.get_state(),
+                             host_rng=pack_host_rng(rng)), rec
+
+    def execute(self, state: FLState, scenario, plan: HandoverPlan):
+        """Run `plan` from `state` on the scenario's device. Returns
+        (state after the round, record); the RNG fields are left as they
+        were."""
+        cfg, device = scenario.cfg, scenario.device
+        client = CLIENT_UPDATES[cfg.client]
+        rsu_models = [tree_map(lambda t: t.to(device), model)
+                      for model in state.topo["rsu_models"]]
+        comms, group_sel, group_cohorts = state.comms, [], []
+        # Step 2: each download group trains from its RSU's model; the
+        # delta base of a client is its download RSU's model and its
+        # error-feedback slot its cohort index
+        for rsu, sel in plan.down_groups:
+            with record_function("round.batches"):
+                batches = [_client_images(scenario, plan.ids[i],
+                                          plan.idx[i], plan.velocities[i],
+                                          device) for i in sel]
+                draws = [_client_draws(plan.draws[i], device) for i in sel]
+            with record_function("round.clients"):
+                cohort, _ = client.run_cohort(cfg, rsu_models[rsu],
+                                              state.client_state, batches,
+                                              draws, plan.lr)
+            with record_function("round.comms"):
+                cohort, comms = roundtrip_cohort(cfg, cohort,
+                                                 rsu_models[rsu], comms,
+                                                 rows=sel)
+            group_sel.append(sel)
+            group_cohorts.append(cohort)
+        # Step 3-4: one cohort of all n clients, rows in download-group
+        # order; each upload group is gathered from it through row_of in
+        # its cohort-index order (the order of its weighted sum)
+        with record_function("round.aggregate"):
+            n = len(plan.ids)
+            full = CohortBatch.concat(group_cohorts)
+            row_of = np.empty(n, np.int64)
+            row_of[np.concatenate(group_sel)] = np.arange(n)
+            for rsu, sel, w in plan.uploads:
+                rsu_models[rsu] = agg.cohort_weighted_sum(
+                    full.take(row_of[sel]), w)
+            # between syncs the global tree keeps the last merged model
+            new_tree = state.global_tree
+            if plan.synced:
+                new_tree = agg._weighted_tree_sum(rsu_models, plan.sync_W)
+                rsu_models = [new_tree] * self.n_rsus
+        losses = _host_losses(full.losses)[row_of]      # cohort order
+        rec = {"round": state.round, "loss": float(np.mean(losses)),
+               "velocities": plan.velocities.tolist(), "lr": plan.lr,
+               "topology": self.name, "rsu_sizes": plan.upload_sizes,
+               "n_handovers": int(plan.stale.sum()), "synced": plan.synced}
+        topo = {"positions": plan.positions, "rsu_models": tuple(rsu_models),
+                "blur_sum": plan.blur_sum, "upload_count": plan.upload_count}
+        return state.replace(global_tree=new_tree, round=state.round + 1,
+                             topo=topo, comms=comms), rec
+
+    def region_view(self, state: FLState) -> dict:
+        """Uniform merge of the current per-RSU models, an evaluation
+        snapshot between syncs; the state is not touched."""
+        return agg.aggregate_fedavg(list(state.topo["rsu_models"]))
+
+
+TOPOLOGIES = {
+    "single": SingleRSU,
+    "multi": MultiRSU,
+    "handover": HandoverMultiRSU,
+}

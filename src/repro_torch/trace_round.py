@@ -1,15 +1,19 @@
 """Where a round's time goes on the card.
 
-    python -m repro_torch.trace_round [--rounds 2] [--codec identity] [--out DIR]
+    python -m repro_torch.trace_round [--rounds 2] [--codec identity]
+        [--topology single|multi|handover] [--client dtssl|fedco] [--out DIR]
 
 (with ``src`` on PYTHONPATH, on a machine with one CUDA card). Builds the
 paper's Table-1 scenario (as chip_smoke.py's main path does) with the
-given codec, warms up, then runs one more round under `torch.profiler`
-and reports:
+given codec, topology (``multi``: two RSUs; ``handover``: the reference's
+defaults, two RSUs of 1 km) and client, warms up, then runs one more
+round under `torch.profiler` and reports:
 
-* each phase that `SingleRSU` marks with a ``round.*`` range (plan,
-  batches, clients, comms, aggregate): its host time, and the device
-  span of the kernels launched inside it;
+* each phase that the topology marks with a ``round.*`` range (plan,
+  batches, clients, comms, aggregate; MultiRSU and the handover mark the
+  last four once per RSU group): its host time summed over its ranges,
+  how many ranges, and the device span from the first kernel launched
+  inside one of them to the last;
 * device time by kernel and by host op, and the device's busy and idle
   share of the round's wall time.
 
@@ -33,6 +37,7 @@ TABLE1 = dict(topology="single", client="dtssl", aggregator="flsimco",
               partitioner="dirichlet", alpha=0.1, n_per_class=5000,
               min_per_client=520, n_vehicles=95, vehicles_per_round=5,
               batch_size=512, local_iters=1)
+TOPOLOGY_KWARGS = {"single": None, "multi": {"n_rsus": 2}, "handover": {}}
 PHASE = "round."
 
 
@@ -44,7 +49,7 @@ def _profiled_round(sc, state, out_dir) -> dict:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t = time.perf_counter()
-        run_round(state, sc)
+        _, rec = run_round(state, sc)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     if out_dir:
@@ -64,7 +69,9 @@ def _profiled_round(sc, state, out_dir) -> dict:
                              max(hi, e.time_range.end))
             ph["device_span_ms"] = (spans[e.name][1] - spans[e.name][0]) / 1e3
         else:
-            ph["host_ms"] = e.time_range.elapsed_us() / 1e3
+            ph["host_ms"] = (ph.get("host_ms", 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
+            ph["ranges"] = ph.get("ranges", 0) + 1
     events = prof.key_averages()
     # kernels are the device-side events; host-side aten ops carry the
     # device time of the kernels they launched as their "self" time
@@ -80,6 +87,7 @@ def _profiled_round(sc, state, out_dir) -> dict:
                  "device_ms": e.self_device_time_total / 1e3} for e in evs]
 
     return {"wall_s": wall, "phases": phases,
+            "record": {k: v for k, v in rec.items() if k != "velocities"},
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": sum(e.count for e in kernels),
@@ -92,11 +100,16 @@ def main(argv=None) -> int:
                    help="unmeasured warm-up rounds before the profiled one")
     p.add_argument("--codec", default="identity",
                    choices=["identity", "delta", "delta_int8"])
+    p.add_argument("--topology", default="single",
+                   choices=sorted(TOPOLOGY_KWARGS))
+    p.add_argument("--client", default="dtssl", choices=["dtssl", "fedco"])
     p.add_argument("--out", default=None,
                    help="directory for the chrome trace (none by default)")
     args = p.parse_args(argv)
     build.build_all()
-    sc = Scenario(device="cuda", codec=args.codec, **TABLE1)
+    sc = Scenario(device="cuda", **dict(
+        TABLE1, codec=args.codec, topology=args.topology, client=args.client,
+        topology_kwargs=TOPOLOGY_KWARGS[args.topology]))
     state = sc.init_state()
     for _ in range(args.rounds):
         state, _ = run_round(state, sc)
@@ -105,7 +118,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "codec": args.codec, "profiled": prof,
+    print(json.dumps({"card": smi, "codec": args.codec,
+                      "topology": args.topology, "client": args.client,
+                      "profiled": prof,
                       "peak_mem_gib": torch.cuda.max_memory_allocated()
                       / 2 ** 30}))
     return 0

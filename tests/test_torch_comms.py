@@ -35,7 +35,8 @@ from repro_torch.core.scenario import Scenario, run_round
 from repro_torch.core.state import FLConfig
 from repro_torch.kernels import ops
 from test_torch_round import (KW, LOSS_TOL, TREE_MAX_ABS, TREE_REL_UPDATE,
-                              _data, replayed_plan)
+                              _data, port_state, replayed_plan,
+                              torch_threads)  # noqa: F401 (autouse)
 
 BQ = 256
 # new_ef against the Pallas kernel in interpret mode: XLA may contract
@@ -277,13 +278,9 @@ def test_delta_int8_round_matches_reference_two_rounds(monkeypatch):
     jsc, tsc = JScenario(**kw), Scenario(device="cpu", **kw)
     jstate = jsc.init_state()
     for _ in range(2):
-        tree = convert.tree_from_numpy(jax.tree.map(np.asarray,
-                                                    jstate.global_tree))
-        comms = convert.comms_from_numpy(jax.tree.map(np.asarray,
-                                                      jstate.comms))
         plan = replayed_plan(jstate, jsc, tsc)
-        tree, comms, rec = tsc.topology.execute(tree, comms, tsc, plan,
-                                                jstate.round)
+        st, rec = tsc.topology.execute(port_state(jstate), tsc, plan)
+        tree, comms = st.global_tree, st.comms
         start = _ravel(jstate.global_tree)
         with jagg.wagg_backend("interpret"):
             jstate, jrec = j_run_round(jstate, jsc, parallel=False)

@@ -35,6 +35,7 @@ from repro_torch.data import synthetic as tdata
 from repro_torch.models import resnet as tres
 from repro_torch.optim import optimizers as topt
 from test_torch_round import replay_pi_draws
+from test_torch_round import torch_threads  # noqa: F401 (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 P_RESNET18 = 11_497_024 + 9_600
@@ -355,6 +356,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models.transformer, repro_torch.models.layers\n"
         "import repro_torch.kernels.rwkv6, repro_torch.launch.decode\n"
         "import repro_torch.launch.steps, repro_torch.configs.rwkv6_1_6b\n"
+        "import repro_torch.core.hierarchical, repro_torch.core.federation\n"
+        "import repro_torch.eval.probe, repro_torch.trace_round\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -372,13 +375,24 @@ def test_default_device_is_cuda():
             Scenario()
 
 
-@pytest.mark.parametrize("kw", [dict(topology="multi"),
-                                dict(topology="handover"),
-                                dict(client="fedco"),
-                                dict(aggregator="fedco")])
+@pytest.mark.parametrize("kw", [
+    dict(topology="multi", topology_kwargs={"mesh_aggregate": True}),
+    dict(topology="handover", topology_kwargs={"mesh_shard": True}),
+    dict(client="fedco"),
+    dict(aggregator="fedco")])
 def test_unported_choices_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Scenario(device="cpu", **kw)
+    """The mesh options stay unported and raise, naming ROADMAP item 9;
+    both FedCo spellings resolve as the reference's FLConfig does."""
+    from repro.core.state import FLConfig as JFLConfig
+
+    if "topology_kwargs" in kw:
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md Queue A, item 9"):
+            Scenario(device="cpu", **kw)
+        return
+    cfg = Scenario(device="cpu", **kw).cfg
+    want = JFLConfig(**kw)
+    assert (cfg.aggregator, cfg.client) == (want.aggregator, want.client)
 
 
 @pytest.mark.parametrize("what", ["qwen2-0.5b", "hymba-1.5b-smoke",

@@ -13,6 +13,7 @@ from the reference's tree.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -26,7 +27,7 @@ from repro.core.scenario import run_round as j_run_round
 from repro_torch import convert
 from repro_torch.core import topology as ttopo
 from repro_torch.core.scenario import Scenario, run_round
-from repro_torch.core.state import generator_from, unpack_host_rng
+from repro_torch.core.state import FLState, generator_from, unpack_host_rng
 
 # The reference trains inside one XLA program (fused, FMA-contracted
 # convolutions and BN); the port runs PyTorch's CPU kernels op by op, so
@@ -43,6 +44,24 @@ TREE_MAX_ABS = 1e-2      # measured below 2.7e-3
 TREE_REL_UPDATE = 2e-2   # measured below 4.5e-3
 KW = dict(n_vehicles=4, vehicles_per_round=2, batch_size=8, rounds=4,
           local_iters=1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """Under pytest-xdist, each worker's torch intra-op pool gets its
+    share of the cores instead of all of them: N workers each running a
+    pool as wide as the machine oversubscribe it, and the CPU rounds of
+    these tests then take 25x longer (measured: two small MultiRSU
+    rounds, six processes on 8 cores, 256 s against 10 s with one
+    thread each). A single process keeps torch's default. The port's
+    test modules import this fixture, which makes it theirs too."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    prev = torch.get_num_threads()
+    if workers > 1:
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                                  // workers))
+    yield
+    torch.set_num_threads(prev)
 
 
 def _data():
@@ -101,6 +120,20 @@ def replayed_plan(jstate, jsc, tsc):
     return dataclasses.replace(plan, velocities=vel, draws=draws)
 
 
+def port_state(jstate, device="cpu") -> FLState:
+    """The port's FLState holding the reference state's tree, host RNG,
+    round, topology, client and comms state (its generator is a fresh
+    one: a test replays the reference's jax draws into the plan)."""
+    return FLState(
+        global_tree=convert.tree_from_numpy(
+            jax.tree.map(np.asarray, jstate.global_tree), device),
+        gen_state=torch.Generator().get_state(), host_rng=jstate.host_rng,
+        round=jstate.round, topo=convert.topo_from_numpy(jstate.topo, device),
+        client_state=convert.client_state_from_numpy(jstate.client_state,
+                                                     device),
+        comms=convert.comms_from_numpy(jstate.comms, device))
+
+
 def _ravel_ref(t):
     return np.concatenate([np.asarray(l).reshape(-1)
                            for l in jax.tree.leaves(t)])
@@ -123,11 +156,9 @@ def test_round_matches_reference_two_rounds(aggregator):
                    data=data, device="cpu", **KW)
     jstate = jsc.init_state()
     for _ in range(2):
-        tree = convert.tree_from_numpy(jax.tree.map(np.asarray,
-                                                    jstate.global_tree))
         plan = replayed_plan(jstate, jsc, tsc)
-        tree, _, rec = tsc.topology.execute(tree, None, tsc, plan,
-                                            jstate.round)
+        st, rec = tsc.topology.execute(port_state(jstate), tsc, plan)
+        tree = st.global_tree
         start = jstate.global_tree
         with jagg.wagg_backend("interpret"):
             jstate, jrec = j_run_round(jstate, jsc, parallel=False)

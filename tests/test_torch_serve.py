@@ -25,6 +25,7 @@ from repro_torch.comms.codecs import decode_snapshot
 from repro_torch.core.scenario import Scenario, run
 from repro_torch.serve import (ModelStore, PendingFetch, Reply, RSUServer,
                                ServePolicy, apply_reply, build_reply)
+from test_torch_round import torch_threads  # noqa: F401 (autouse)
 
 CODEC_NAMES = ["identity", "delta", "delta_int8"]
 

@@ -37,6 +37,7 @@ from repro_torch.launch import decode as tdecode
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
+from test_torch_round import torch_threads  # noqa: F401 (autouse)
 
 TOL = 2e-4
 ARCH = "rwkv6-1.6b"
