@@ -49,7 +49,13 @@ the JAX package `repro`. Phases, each of which must pass:
      rounds with a handover and the region sync) and FedCo, each from
      one state on the card and with ``device="cpu"``; loss, global tree,
      every RSU model, FedCo's key tree and queue at the cross-check
-     tolerances, records equal;
+     tolerances, records equal. MultiRSU and the handover once more with
+     ``codec="delta_int8"`` (the q8 kernels at the groups' shapes, the
+     error-feedback slots chosen by cohort index): max abs differences
+     of the trees and of ``comms["ef"]`` get one code step of the
+     largest block scale either side encoded with on top of
+     CROSS_MAX_ABS (a code may flip by one step), and the card's q8
+     launches equal its encodes, one per group;
    * ``[multi]``: 2 rounds of MultiRSU(n_rsus=2): rsu_sizes [3, 2],
      dt_loss 10, wagg 2 x (2 groups + 1 region) = 6;
    * ``[handover]``: 5 rounds of HandoverMultiRSU at the reference's
@@ -65,7 +71,9 @@ the JAX package `repro`. Phases, each of which must pass:
      queue, the key tree bitwise the global tree;
    * ``[probe]``: `encode` of the [main] final tree on the dataset's
      85/15 split (2,000 train, 1,000 test images), kNN and linear top-1,
-     card against CPU features on 256 images (PROBE_FEAT_TOL).
+     card against CPU features on 256 images (PROBE_FEAT_TOL), and both
+     probes run again on the CPU on the card's features must give the
+     same top-1.
 7. Serve path: a fleet of 95 vehicles fetches from an
    ``RSUServer(start=False)`` over that store, driven by `drain_once`,
    with held rounds that give every reply kind (current, delta, full,
@@ -113,7 +121,9 @@ the JAX package `repro`. Phases, each of which must pass:
      kernel's share) and of four profiled decode steps.
 
 The q8 kernels are held against their plain versions in phase 2, at
-(5, Ppad) and (1, Ppad), Ppad = 11,506,688: codes, scales, residuals and
+(5, Ppad), (3, Ppad), (2, Ppad) and (1, Ppad), Ppad = 11,506,688 (the
+cohort, the groups of MultiRSU and the handover, a snapshot): codes,
+scales, residuals and
 the decode bitwise equal; a ragged P (through `ops`) bitwise equal to the
 aligned call's columns; an all-zero block decodes to zeros. The library
 yardstick of the decode is ``torch.mul(codes.view(N, -1, 256),
@@ -388,14 +398,16 @@ def kernel_phase(dev):
 
 def q8_kernels(dev):
     """q8_encode / q8_decode against the plain versions at (5, Ppad) (the
-    cohort roundtrip) and (1, Ppad) (a snapshot publish or fetch)."""
+    cohort roundtrip), (3, Ppad) and (2, Ppad) (a download group of the
+    handover or an RSU group of MultiRSU) and (1, Ppad) (a snapshot
+    publish or fetch); timed at (5, Ppad) and (1, Ppad)."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(1)
     times = {}
-    for n in (5, 1):
+    for n in (5, 3, 2, 1):
         x = torch.randn((n, Q8_PPAD), generator=g, device=dev) * 1e-2
         e = torch.randn((n, Q8_PPAD), generator=g, device=dev) * 1e-4
         x[:, WAGG_P:] = 0.0      # the codec's zero padding past P
@@ -427,6 +439,12 @@ def q8_kernels(dev):
             raise AssertionError("q8: the all-zero block does not decode "
                                  "to zeros")
         del c_r, s_r, e_r, out_r, c_g, s_g, e_g, out_g
+        if n not in (5, 1):
+            print(f"[kernels] q8 ({n}, {Q8_PPAD}): codes, scales, new_ef "
+                  f"and decode bitwise equal to the plain versions, ragged "
+                  f"P={WAGG_P} == aligned, zero block exact", flush=True)
+            del x, e, codes, scales, new_ef, out
+            continue
         times[n] = (
             _time_ms(lambda: ops.q8_encode_flat(x, e)),
             _time_ms(lambda: ref.q8_encode_ref(x, e)),
@@ -531,11 +549,40 @@ def _state_rows(state) -> list:
     return rows
 
 
+def _recording_scales(scales: list):
+    """Wrap the delta_int8 codec's encode so that each call appends its
+    largest block scale to `scales`; returns the function that restores
+    the codec."""
+    import dataclasses
+
+    from repro_torch.comms import codecs
+
+    codec = codecs.CODECS["delta_int8"]
+
+    def encode(rows, base, ef=None):
+        payload, new_ef = codec.encode(rows, base, ef)
+        scales.append(float(payload["scales"].max()))
+        return payload, new_ef
+
+    codecs.CODECS["delta_int8"] = dataclasses.replace(codec, encode=encode)
+    return lambda: codecs.CODECS.__setitem__("delta_int8", codec)
+
+
 def topo_cross_check(dev):
     """[topo]: small rounds of MultiRSU, the handover (two rounds: a
     handover and the sync) and FedCo, each from one state on the card and
     on the CPU, held at the cross-check tolerances (global tree and every
-    RSU model, relative to its own update)."""
+    RSU model, relative to its own update); MultiRSU and the handover
+    again with codec="delta_int8", error feedback included."""
+    scales = []
+    restore = _recording_scales(scales)
+    try:
+        _topo_cross_check(dev, scales)
+    finally:
+        restore()
+
+
+def _topo_cross_check(dev, scales):
     import numpy as np
     import torch
 
@@ -545,19 +592,30 @@ def topo_cross_check(dev):
     data = [rs.rand(24, 16, 16, 3).astype(np.float32) for _ in range(6)]
     kw = dict(n_vehicles=6, vehicles_per_round=3, batch_size=8, data=data,
               rounds=4)
-    cases = (("multi", dict(topology="multi",
-                            topology_kwargs={"n_rsus": 2}), 1),
-             ("handover", dict(topology="handover", topology_kwargs=dict(
-                 n_rsus=2, rsu_range=100.0, sync_every=2)), 2),
-             ("fedco", dict(aggregator="fedco", queue_len=256), 1))
+    multi = dict(topology="multi", topology_kwargs={"n_rsus": 2})
+    handover = dict(topology="handover", topology_kwargs=dict(
+        n_rsus=2, rsu_range=100.0, sync_every=2))
+    cases = (("multi", multi, 1), ("handover", handover, 2),
+             ("fedco", dict(aggregator="fedco", queue_len=256), 1),
+             ("multi delta_int8", dict(multi, codec="delta_int8"), 1),
+             ("handover delta_int8", dict(handover, codec="delta_int8"), 2))
     for name, extra, rounds in cases:
         scs = {d: Scenario(device=d, **kw, **extra) for d in (dev, "cpu")}
         state = scs["cpu"].init_state()
         handovers, synced = 0, False
         for _ in range(rounds):
             start = _state_rows(state)
-            out = {d: run_round(_state_to(state, d), sc)
-                   for d, sc in scs.items()}
+            out = {}
+            del scales[:]
+            for d, sc in scs.items():
+                torch.cuda.synchronize()
+                _zero_counts()
+                out[d] = run_round(_state_to(state, d), sc)
+                torch.cuda.synchronize()
+                if d == dev:
+                    launches, encodes = _counts(), len(scales)
+            # one code step of the largest scale either side encoded with
+            step = max(scales, default=0.0)
             (st_g, r_g), (st_c, r_c) = out[dev], out["cpu"]
             worst = (0.0, 0.0)
             for a, b, s0 in zip(_state_rows(st_g), _state_rows(st_c), start):
@@ -573,15 +631,32 @@ def topo_cross_check(dev):
             same = {k: r_g[k] == r_c[k] for k in ("velocities", "rsu_sizes",
                                                   "n_handovers", "synced")
                     if k in r_c}
+            ef_err = 0.0
+            if st_c.comms is not None:
+                ef_g, ef_c = st_g.comms["ef"].cpu(), st_c.comms["ef"]
+                if ef_g.shape != ef_c.shape \
+                        or not bool(torch.isfinite(ef_g).all()):
+                    raise AssertionError(f"[topo] {name}: card EF of shape "
+                                         f"{tuple(ef_g.shape)} or not finite")
+                ef_err = float((ef_g - ef_c).abs().max())
+            q8 = (launches["q8_encode"], launches["q8_decode"])
             print(f"[topo] {name} round {r_c['round']}: loss "
                   f"{r_g['loss']:.7f} (card) vs {r_c['loss']:.7f} (cpu); "
                   f"trees max abs {worst[0]:.3e}, relative to the update "
-                  f"{worst[1]:.3e}; records equal {same}", flush=True)
+                  f"{worst[1]:.3e}; EF max abs {ef_err:.3e}; code step "
+                  f"{step:.3e}; card q8 launches {q8} for {encodes} "
+                  f"encodes; records equal {same}", flush=True)
             if not (all(same.values()) and dloss <= CROSS_LOSS_TOL
-                    and worst[0] <= CROSS_MAX_ABS
+                    and worst[0] <= CROSS_MAX_ABS + step
+                    and ef_err <= CROSS_MAX_ABS + step
                     and worst[1] <= CROSS_REL_UPDATE):
                 raise AssertionError(f"[topo] {name}: loss diff {dloss}, "
-                                     f"trees {worst}, records {same}")
+                                     f"trees {worst}, EF {ef_err}, step "
+                                     f"{step}, records {same}")
+            if q8 != (encodes, encodes) or (extra.get("codec")
+                                            and not encodes):
+                raise AssertionError(f"[topo] {name}: card q8 launches {q8} "
+                                     f"for {encodes} encodes")
             handovers += r_c.get("n_handovers", 0)
             synced = synced or r_c.get("synced", False)
             state = st_c
@@ -923,11 +998,25 @@ def probe_path(dev, sc, state):
     launches = _counts()
     f_cpu = encode(state.global_tree, x_tr[:256], device="cpu")
     err = float(np.abs(f_tr[:256] - f_cpu).max())
+    # both probes once more on the CPU, on the card's features
+    knn_c = knn_top1(f_tr, y_tr, f_te, y_te, device="cpu")
+    lin_c = linear_probe_top1(f_tr, y_tr, f_te, y_te, device="cpu")
+    # the features' spread: |mean feature| is 1 when all point one way;
+    # the test split's largest class share is what one constant guess
+    # scores
+    cone = float(np.linalg.norm(f_tr.mean(axis=0)))
+    major = float(np.bincount(y_te).max() / len(y_te))
     print(f"[probe] encode {len(x_tr)} train and {len(x_te)} test images "
           f"{t_enc:.3f} s on the card; kNN top-1 {knn:.4f} ({t_knn:.3f} "
-          f"s), linear top-1 {lin:.4f} ({t_lin:.3f} s); card vs cpu "
-          f"features (256 images) max abs {err:.3e}; launches {launches}",
-          flush=True)
+          f"s; cpu on the card's features {knn_c:.4f}), linear top-1 "
+          f"{lin:.4f} ({t_lin:.3f} s; cpu {lin_c:.4f}); card vs cpu "
+          f"features (256 images) max abs {err:.3e}; |mean train feature| "
+          f"{cone:.4f}, largest test class share {major:.4f}; launches "
+          f"{launches}", flush=True)
+    if knn != knn_c or lin != lin_c:
+        raise AssertionError(f"[probe] card top-1 (kNN {knn}, linear {lin}) "
+                             f"!= cpu top-1 (kNN {knn_c}, linear {lin_c}) "
+                             f"on the same features")
     if not (np.isfinite(f_tr).all() and np.isfinite(f_te).all()
             and f_tr.shape == (len(x_tr), 512)
             and f_te.shape == (len(x_te), 512)):

@@ -59,12 +59,16 @@ def aggregate_fedavg(trees, data_sizes=None) -> dict:
     return _weighted_tree_sum(trees, w)
 
 
-def cohort_weighted_sum(cohort, w_valid) -> dict:
+def cohort_weighted_row(cohort, w_valid) -> torch.Tensor:
     """(n,) weights over the valid rows, zero-padded, applied with the
-    cohort's validity mask."""
-    return _weighted_stacked_sum(cohort.flat, cohort.spec,
-                                 cohort.padded_weights(w_valid),
-                                 mask=cohort.mask)
+    cohort's validity mask: the (P,) flat row of the weighted sum."""
+    w = cohort.padded_weights(w_valid)
+    return ops.wagg_flat(cohort.flat, w, cohort.mask)
+
+
+def cohort_weighted_sum(cohort, w_valid) -> dict:
+    """`cohort_weighted_row` unraveled into the model tree."""
+    return unravel(cohort_weighted_row(cohort, w_valid), cohort.spec)
 
 
 def flsimco_weights(blur_levels, normalize: bool = True) -> torch.Tensor:

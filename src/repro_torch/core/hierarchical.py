@@ -7,10 +7,10 @@
                      W_r ∝ (Σ L̄ − L̄_r)    over RSU mean blur levels,
                      optionally scaled by each RSU's vehicle count.
 
-Level 1 is one `cohort_weighted_sum` per RSU, level 2 one
-`_weighted_tree_sum` over the RSU models: n_rsus + 1 weighted sums, each
-one `ops.wagg_flat` call. The mesh forms (`two_stage_weighted_psum`,
-`sharded_*`) are ROADMAP.md Queue A, item 9.
+Level 1 is one `cohort_weighted_row` per RSU, each a row of one
+(n_rsus, P) buffer; level 2 is one weighted sum over that buffer,
+unraveled once: n_rsus + 1 `ops.wagg_flat` calls. The mesh forms
+(`two_stage_weighted_psum`, `sharded_*`) are ROADMAP.md Queue A, item 9.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.convert import flat_spec, leaves_with_paths
-from repro_torch.core.aggregation import (_weighted_tree_sum,
-                                          cohort_weighted_sum,
+from repro_torch.core.aggregation import (_weighted_stacked_sum,
+                                          cohort_weighted_row,
                                           flsimco_weights)
 from repro_torch.core.cohort import CohortBatch
 
@@ -43,15 +43,13 @@ def aggregate_hierarchical(groups: Sequence, blur_groups: Sequence = None,
     attached, or a list of client trees with blur_groups[r] its (N_r,)
     blur levels). Returns the region's model tree."""
     blur_groups = blur_groups or [None] * len(groups)
-    rsu_models, rsu_blur, rsu_count = [], [], []
-    for group, blur in zip(groups, blur_groups):
-        cohort = _as_cohort(group, blur)
-        blur = cohort.valid_blur
-        rsu_models.append(cohort_weighted_sum(cohort, flsimco_weights(blur)))
-        rsu_blur.append(blur.mean())
-        rsu_count.append(cohort.n)
-    W = flsimco_weights(torch.stack(rsu_blur))
+    cohorts = [_as_cohort(g, b) for g, b in zip(groups, blur_groups)]
+    rsu_flat = torch.stack([
+        cohort_weighted_row(c, flsimco_weights(c.valid_blur))
+        for c in cohorts])
+    W = flsimco_weights(torch.stack([c.valid_blur.mean() for c in cohorts]))
     if count_scaled:
-        W = W * torch.tensor(rsu_count, dtype=torch.float32, device=W.device)
+        W = W * torch.tensor([c.n for c in cohorts], dtype=torch.float32,
+                             device=W.device)
         W = W / W.sum()
-    return _weighted_tree_sum(rsu_models, W)
+    return _weighted_stacked_sum(rsu_flat, cohorts[0].spec, W)

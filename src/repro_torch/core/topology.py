@@ -53,7 +53,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.comms.codecs import roundtrip_cohort
-from repro_torch.convert import tree_map
+from repro_torch.convert import ravel, tree_map, unravel
 from repro_torch.core import aggregation as agg
 from repro_torch.core import ssl
 from repro_torch.core.clients import CLIENT_UPDATES
@@ -584,13 +584,18 @@ class HandoverMultiRSU(Topology):
             full = CohortBatch.concat(group_cohorts)
             row_of = np.empty(n, np.int64)
             row_of[np.concatenate(group_sel)] = np.arange(n)
+            merged = [None] * self.n_rsus       # flat rows merged this round
             for rsu, sel, w in plan.uploads:
-                rsu_models[rsu] = agg.cohort_weighted_sum(
-                    full.take(row_of[sel]), w)
+                merged[rsu] = agg.cohort_weighted_row(full.take(row_of[sel]),
+                                                      w)
+                rsu_models[rsu] = unravel(merged[rsu], full.spec)
             # between syncs the global tree keeps the last merged model
             new_tree = state.global_tree
             if plan.synced:
-                new_tree = agg._weighted_tree_sum(rsu_models, plan.sync_W)
+                flat = torch.stack([ravel(m) if r is None else r
+                                    for r, m in zip(merged, rsu_models)])
+                new_tree = agg._weighted_stacked_sum(flat, full.spec,
+                                                     plan.sync_W)
                 rsu_models = [new_tree] * self.n_rsus
         losses = _host_losses(full.losses)[row_of]      # cohort order
         rec = {"round": state.round, "loss": float(np.mean(losses)),

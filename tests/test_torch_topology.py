@@ -27,6 +27,7 @@ from repro.core.scenario import run_round as j_run_round
 from repro.core.state import unpack_host_rng
 from repro_torch import convert
 from repro_torch.comms import codecs as tcodecs
+from repro_torch.core import aggregation as tagg
 from repro_torch.core import hierarchical as thier
 from repro_torch.core import mobility as tmob
 from repro_torch.core.cohort import CohortBatch
@@ -367,6 +368,14 @@ def _all_stale_state(tsc, rounds=30):
     raise AssertionError("no all-stale upload group in the plans")
 
 
+def _distinct_models(tree, n: int) -> tuple:
+    """n RSU models that differ in value: `tree` shifted by 0.01 * (r + 1)
+    in every float leaf."""
+    return tuple(convert.tree_map(
+        lambda t, r=r: t + 0.01 * (r + 1) if t.is_floating_point() else t,
+        tree) for r in range(n))
+
+
 def test_handover_round_is_pure_and_all_stale_group_keeps_its_model():
     """stale_discount=0: an upload group of stale uploads only has no
     usable weight, so its RSU keeps its model bitwise. The round is pure:
@@ -378,8 +387,7 @@ def test_handover_round_is_pure_and_all_stale_group_keeps_its_model():
     state, plan, rsu = _all_stale_state(tsc)
     assert rsu not in [r for r, _, _ in plan.uploads]
     # every RSU model distinct, so "kept" cannot pass by coincidence
-    models = tuple(convert.tree_from_numpy(convert.tree_to_numpy(
-        state.global_tree)) for _ in range(tsc.topology.n_rsus))
+    models = _distinct_models(state.global_tree, tsc.topology.n_rsus)
     state = state.replace(topo=dict(state.topo, rsu_models=models))
     before = [convert.ravel(t).clone() for t in models]
     pos = state.topo["positions"].copy()
@@ -395,6 +403,41 @@ def test_handover_round_is_pure_and_all_stale_group_keeps_its_model():
     assert torch.equal(convert.ravel(s1.topo["rsu_models"][rsu]),
                        before[rsu])
     assert r1["n_handovers"] > 0 and not r1["synced"]
+
+
+def test_handover_sync_with_a_kept_rsu_model_is_the_weighted_sum():
+    """A sync round in which one RSU gets no usable upload (all stale,
+    stale_discount=0): its kept model enters the sync raveled from its
+    tree, the others as the rows merged this round. The synced global
+    tree is bitwise the weighted sum of the RSU models that the same
+    round leaves without the sync."""
+    def scenario(sync_every):
+        return Scenario(topology="handover", topology_kwargs=dict(
+            HANDOVER, stale_discount=0.0, sync_every=sync_every),
+            data=_data(), device="cpu", **KW)
+
+    sync, nosync = scenario(1), scenario(100)
+    state, _, rsu = _all_stale_state(nosync)
+    models = _distinct_models(state.global_tree, nosync.topology.n_rsus)
+    state = state.replace(topo=dict(state.topo, rsu_models=models))
+    gen = torch.Generator()
+    gen.set_state(state.gen_state)
+    positions = state.topo["positions"]
+    plan = sync.topology.plan_round(
+        sync.topology.draw_round(unpack_host_rng(state.host_rng), gen,
+                                 positions, sync),
+        state.round, positions, state.topo["blur_sum"],
+        state.topo["upload_count"], sync)
+    assert plan.synced and rsu not in [r for r, _, _ in plan.uploads]
+    s_sync, rec = run_round(state, sync)
+    s_no, _ = run_round(state, nosync)
+    assert rec["synced"]
+    assert torch.equal(convert.ravel(s_no.topo["rsu_models"][rsu]),
+                       convert.ravel(models[rsu]))
+    want = tagg._weighted_tree_sum(list(s_no.topo["rsu_models"]),
+                                   plan.sync_W)
+    assert torch.equal(convert.ravel(s_sync.global_tree),
+                       convert.ravel(want))
 
 
 def test_region_view_matches_reference():
