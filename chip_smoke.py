@@ -72,8 +72,10 @@ the JAX package `repro`. Phases, each of which must pass:
    * ``[probe]``: `encode` of the [main] final tree on the dataset's
      85/15 split (2,000 train, 1,000 test images), kNN and linear top-1,
      card against CPU features on 256 images (PROBE_FEAT_TOL), and both
-     probes run again on the CPU on the card's features must give the
-     same top-1.
+     probes against the CPU on the card's features, image by image: kNN
+     votes and the linear probe's weights and logits within their
+     tolerances (PROBE_SIM_TOL, PROBE_EXP_REL, PROBE_LIN_REL), the same
+     predicted class wherever the CPU's decision is not a near tie.
 7. Serve path: a fleet of 95 vehicles fetches from an
    ``RSUServer(start=False)`` over that store, driven by `drain_once`,
    with held rounds that give every reply kind (current, delta, full,
@@ -194,6 +196,15 @@ RWKV_H, RWKV_D = 32, 64
 # [probe]: card against CPU features of the same tree on 256 images
 # (unit-norm features; cuDNN and the CPU sum convolutions in other orders)
 PROBE_FEAT_TOL = 1e-4
+# [probe]: the probes on the card against the CPU on the same features.
+# Similarities (unit vectors, 512 float32 products summed in other
+# orders): max abs at most PROBE_SIM_TOL. The kNN votes exp(sim / 0.1)
+# then differ by 2 * delta / 0.1 relative plus PROBE_EXP_REL (float32
+# exp rounds differently on the two); the linear probe's weights and
+# logits (80 SGD steps) within PROBE_LIN_REL of their largest value.
+PROBE_SIM_TOL = 1e-5
+PROBE_EXP_REL = 1e-6
+PROBE_LIN_REL = 1e-4
 # [fedco]: the merged queue's first rows against the k-vectors recomputed
 # from the round's plan (the key encoder's forward once more on the card)
 FEDCO_KVEC_TOL = 1e-5
@@ -968,11 +979,62 @@ def fedco_path(dev, data):
     return launches
 
 
+def _probe_cpu_check(dev, f_tr, y_tr, f_te, y_te):
+    """Both probes on the card against the CPU on the same features, image
+    by image: the kNN votes and the linear probe's weights and logits
+    within their tolerances, and the same predicted class wherever the
+    CPU's decision is farther from a tie than those tolerances can move
+    it (a 20th and 21st neighbour, or the two leading classes, closer
+    than twice the error). Returns the CPU's two top-1 and a note of the
+    near-tie images."""
+    import numpy as np
+    import torch
+
+    from repro_torch.eval.probe import knn_votes, linear_probe_fit
+    tr, te = torch.from_numpy(f_tr), torch.from_numpy(f_te)
+    sims = te @ tr.T
+    delta = _max_err((te.to(dev) @ tr.to(dev).T).cpu(), sims)
+    v_c = knn_votes(f_tr, y_tr, f_te, device="cpu")
+    v_g = knn_votes(f_tr, y_tr, f_te, device=dev).cpu()
+    near = sims.topk(21, dim=1).values
+    boundary = (near[:, 19] - near[:, 20]) <= 2 * delta
+    rel = 2 * delta / 0.1 + PROBE_EXP_REL
+    err = ((v_g - v_c).abs().amax(dim=1) / v_c.amax(dim=1))[~boundary]
+    top2 = v_c.topk(2, dim=1).values
+    knn_tie = boundary | ((top2[:, 0] - top2[:, 1]) <= 2 * rel * top2[:, 0])
+    knn_diff = (v_g.argmax(1) != v_c.argmax(1)) & ~knn_tie
+    W_c, b_c = linear_probe_fit(f_tr, y_tr, device="cpu")
+    W_g, b_g = linear_probe_fit(f_tr, y_tr, device=dev)
+    w_err = _max_err(W_g.cpu(), W_c) / float(W_c.abs().max())
+    L_c = te @ W_c + b_c
+    L_g = (te.to(dev) @ W_g + b_g).cpu()   # the card's logits
+    e = float((L_g - L_c).abs().max())
+    top2 = L_c.topk(2, dim=1).values
+    lin_tie = (top2[:, 0] - top2[:, 1]) <= 2 * e
+    lin_diff = (L_g.argmax(1) != L_c.argmax(1)) & ~lin_tie
+    note = (f"card vs cpu on the same features: sims max abs {delta:.3e}, "
+            f"kNN votes relative {float(err.max()):.3e} (bound {rel:.3e}), "
+            f"{int(knn_tie.sum())} near-tie images; linear weights "
+            f"relative {w_err:.3e}, logits max abs {e:.3e}, "
+            f"{int(lin_tie.sum())} near-tie images")
+    if not (delta <= PROBE_SIM_TOL and float(err.max()) <= rel
+            and w_err <= PROBE_LIN_REL
+            and e <= PROBE_LIN_REL * float(L_c.abs().max())) \
+            or knn_diff.any() or lin_diff.any():
+        raise AssertionError(f"[probe] {note}; {int(knn_diff.sum())} kNN "
+                             f"and {int(lin_diff.sum())} linear predictions "
+                             f"differ away from a tie")
+    y = torch.from_numpy(np.asarray(y_te))
+    return (float((v_c.argmax(1) == y).double().mean()),
+            float((L_c.argmax(1) == y).double().mean()), note)
+
+
 def probe_path(dev, sc, state):
     """[probe]: the kNN and linear probes of the [main] final tree on the
     dataset's 85/15 split (2,000 train and 1,000 test images, as
     examples/train_federated_ssl.py), card features against CPU features
-    on 256 images."""
+    on 256 images, and both probes against the CPU on the card's
+    features (`_probe_cpu_check`)."""
     import numpy as np
     import torch
 
@@ -998,9 +1060,7 @@ def probe_path(dev, sc, state):
     launches = _counts()
     f_cpu = encode(state.global_tree, x_tr[:256], device="cpu")
     err = float(np.abs(f_tr[:256] - f_cpu).max())
-    # both probes once more on the CPU, on the card's features
-    knn_c = knn_top1(f_tr, y_tr, f_te, y_te, device="cpu")
-    lin_c = linear_probe_top1(f_tr, y_tr, f_te, y_te, device="cpu")
+    knn_c, lin_c, note = _probe_cpu_check(dev, f_tr, y_tr, f_te, y_te)
     # the features' spread: |mean feature| is 1 when all point one way;
     # the test split's largest class share is what one constant guess
     # scores
@@ -1009,14 +1069,11 @@ def probe_path(dev, sc, state):
     print(f"[probe] encode {len(x_tr)} train and {len(x_te)} test images "
           f"{t_enc:.3f} s on the card; kNN top-1 {knn:.4f} ({t_knn:.3f} "
           f"s; cpu on the card's features {knn_c:.4f}), linear top-1 "
-          f"{lin:.4f} ({t_lin:.3f} s; cpu {lin_c:.4f}); card vs cpu "
-          f"features (256 images) max abs {err:.3e}; |mean train feature| "
+          f"{lin:.4f} ({t_lin:.3f} s; cpu {lin_c:.4f}); {note}; card vs "
+          f"cpu features (256 images) max abs {err:.3e}; |mean train "
+          f"feature| "
           f"{cone:.4f}, largest test class share {major:.4f}; launches "
           f"{launches}", flush=True)
-    if knn != knn_c or lin != lin_c:
-        raise AssertionError(f"[probe] card top-1 (kNN {knn}, linear {lin}) "
-                             f"!= cpu top-1 (kNN {knn_c}, linear {lin_c}) "
-                             f"on the same features")
     if not (np.isfinite(f_tr).all() and np.isfinite(f_te).all()
             and f_tr.shape == (len(x_tr), 512)
             and f_te.shape == (len(x_te), 512)):

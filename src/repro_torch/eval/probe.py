@@ -5,9 +5,11 @@ counterpart of `repro.eval.probe` (`encode`, `knn_top1`,
 * `encode`: frozen-encoder features (pre-projector 512-D by default),
   L2-normalized.
 * `knn_top1`: weighted kNN on the normalized features (k = 20, tau =
-  0.1), the usual contrastive-learning monitor.
+  0.1), the usual contrastive-learning monitor; `knn_votes` gives each
+  test point's class votes.
 * `linear_probe_top1`: one linear layer trained on frozen features with
-  SGD, closer to the paper's fine-tune-then-classify setting.
+  SGD, closer to the paper's fine-tune-then-classify setting;
+  `linear_probe_fit` returns the trained layer.
 
 Each runs on the card unless ``device="cpu"`` is passed. Features travel
 as numpy arrays, as in the reference.
@@ -39,36 +41,40 @@ def encode(tree: dict, images, batch: int = 256, use_projector: bool = False,
     return f / np.maximum(np.linalg.norm(f, axis=-1, keepdims=True), 1e-8)
 
 
-def knn_top1(train_feats, train_labels, test_feats, test_labels,
-             k: int = 20, tau: float = 0.1, device=None) -> float:
-    """Weighted-kNN Top-1 accuracy (Wu et al. protocol): each test point
-    votes with exp(sim / tau) of its k nearest training points, summed
-    per class in float64, in batches of 512 test points."""
+def knn_votes(train_feats, train_labels, test_feats, k: int = 20,
+              tau: float = 0.1, device=None) -> torch.Tensor:
+    """(N_test, C) float64 class votes of the weighted kNN (Wu et al.
+    protocol): each test point's k nearest training points vote with
+    exp(sim / tau) for their class, in batches of 512 test points."""
     device = resolve_device(device)
     train = torch.as_tensor(np.asarray(train_feats), device=device)
     labels = torch.as_tensor(np.asarray(train_labels), device=device).long()
     test = torch.as_tensor(np.asarray(test_feats), device=device)
     n_classes = int(labels.max()) + 1
-    correct = 0
-    bs = 512
-    for i in range(0, len(test), bs):
-        sims = test[i:i + bs] @ train.T                          # (b, N)
+    out = []
+    for i in range(0, len(test), 512):
+        sims = test[i:i + 512] @ train.T                         # (b, N)
         top, idx = torch.topk(sims, k, dim=1)
         w = torch.exp(top / tau).double()
-        votes = torch.zeros((len(top), n_classes), dtype=torch.float64,
-                            device=device).scatter_add_(1, labels[idx], w)
-        pred = votes.argmax(dim=1).cpu().numpy()
-        correct += int((pred == np.asarray(test_labels[i:i + bs])).sum())
-    return float(correct) / len(test_feats)
+        out.append(torch.zeros((len(top), n_classes), dtype=torch.float64,
+                               device=device).scatter_add_(1, labels[idx], w))
+    return torch.cat(out)
 
 
-def linear_probe_top1(train_feats, train_labels, test_feats, test_labels,
-                      epochs: int = 20, lr: float = 0.5, seed: int = 0,
-                      device=None) -> float:
-    """Train a zero-initialised linear classifier on frozen features with
-    softmax cross-entropy (batches of 512 in a `RandomState(seed)`
-    permutation each epoch, lr halved every 8 epochs); return test
-    Top-1."""
+def knn_top1(train_feats, train_labels, test_feats, test_labels,
+             k: int = 20, tau: float = 0.1, device=None) -> float:
+    """Weighted-kNN Top-1 accuracy: the class with the most `knn_votes`."""
+    pred = knn_votes(train_feats, train_labels, test_feats, k, tau,
+                     device).argmax(dim=1).cpu().numpy()
+    return float((pred == np.asarray(test_labels)).sum()) / len(test_feats)
+
+
+def linear_probe_fit(train_feats, train_labels, epochs: int = 20,
+                     lr: float = 0.5, seed: int = 0, device=None):
+    """A zero-initialised linear classifier (W (D, C), b (C,)) trained on
+    frozen features with softmax cross-entropy: batches of 512 in a
+    `RandomState(seed)` permutation each epoch, lr halved every 8
+    epochs."""
     device = resolve_device(device)
     rng = np.random.RandomState(seed)
     x = torch.as_tensor(np.asarray(train_feats), device=device)
@@ -91,7 +97,15 @@ def linear_probe_top1(train_feats, train_labels, test_feats, test_labels,
             with torch.no_grad():
                 W = W.detach() - step_lr * gW
                 b = b.detach() - step_lr * gb
-    with torch.no_grad():
-        test = torch.as_tensor(np.asarray(test_feats), device=device)
-        pred = (test @ W + b).argmax(dim=1).cpu().numpy()
+    return W.detach(), b.detach()
+
+
+def linear_probe_top1(train_feats, train_labels, test_feats, test_labels,
+                      epochs: int = 20, lr: float = 0.5, seed: int = 0,
+                      device=None) -> float:
+    """Test Top-1 of `linear_probe_fit`'s classifier."""
+    W, b = linear_probe_fit(train_feats, train_labels, epochs, lr, seed,
+                            device)
+    test = torch.as_tensor(np.asarray(test_feats), device=W.device)
+    pred = (test @ W + b).argmax(dim=1).cpu().numpy()
     return float((pred == np.asarray(test_labels)).mean())
