@@ -75,7 +75,9 @@ the JAX package `repro`. Phases, each of which must pass:
      probes against the CPU on the card's features, image by image: kNN
      votes and the linear probe's weights and logits within their
      tolerances (PROBE_SIM_TOL, PROBE_EXP_REL, PROBE_LIN_REL), the same
-     predicted class wherever the CPU's decision is not a near tie.
+     predicted class wherever the CPU's decision is not a near tie; the
+     same on random unit features, where at most PROBE_SPREAD_TIES of
+     1,000 images may be near ties.
 7. Serve path: a fleet of 95 vehicles fetches from an
    ``RSUServer(start=False)`` over that store, driven by `drain_once`,
    with held rounds that give every reply kind (current, delta, full,
@@ -205,6 +207,11 @@ PROBE_FEAT_TOL = 1e-4
 PROBE_SIM_TOL = 1e-5
 PROBE_EXP_REL = 1e-6
 PROBE_LIN_REL = 1e-4
+# [probe]: the same check on random unit features, whose similarities
+# spread (std 1/sqrt(512)): at most this many near-tie images of 1,000,
+# so the check there covers nearly every image (the trained features
+# point almost one way and most of their images are near ties)
+PROBE_SPREAD_TIES = 10
 # [fedco]: the merged queue's first rows against the k-vectors recomputed
 # from the round's plan (the key encoder's forward once more on the card)
 FEDCO_KVEC_TOL = 1e-5
@@ -985,8 +992,8 @@ def _probe_cpu_check(dev, f_tr, y_tr, f_te, y_te):
     within their tolerances, and the same predicted class wherever the
     CPU's decision is farther from a tie than those tolerances can move
     it (a 20th and 21st neighbour, or the two leading classes, closer
-    than twice the error). Returns the CPU's two top-1 and a note of the
-    near-tie images."""
+    than twice the error). Returns the CPU's two top-1, a note, and the
+    number of near-tie images of either probe."""
     import numpy as np
     import torch
 
@@ -1026,7 +1033,8 @@ def _probe_cpu_check(dev, f_tr, y_tr, f_te, y_te):
                              f"differ away from a tie")
     y = torch.from_numpy(np.asarray(y_te))
     return (float((v_c.argmax(1) == y).double().mean()),
-            float((L_c.argmax(1) == y).double().mean()), note)
+            float((L_c.argmax(1) == y).double().mean()), note,
+            int((knn_tie | lin_tie).sum()))
 
 
 def probe_path(dev, sc, state):
@@ -1060,7 +1068,19 @@ def probe_path(dev, sc, state):
     launches = _counts()
     f_cpu = encode(state.global_tree, x_tr[:256], device="cpu")
     err = float(np.abs(f_tr[:256] - f_cpu).max())
-    knn_c, lin_c, note = _probe_cpu_check(dev, f_tr, y_tr, f_te, y_te)
+    knn_c, lin_c, note, _ = _probe_cpu_check(dev, f_tr, y_tr, f_te, y_te)
+    # and on random unit features with the same labels, where few images
+    # are near ties
+    rs = np.random.RandomState(0)
+    g_tr, g_te = (rs.randn(len(f), f.shape[1]).astype(np.float32)
+                  for f in (f_tr, f_te))
+    g_tr /= np.linalg.norm(g_tr, axis=1, keepdims=True)
+    g_te /= np.linalg.norm(g_te, axis=1, keepdims=True)
+    _, _, spread, ties = _probe_cpu_check(dev, g_tr, y_tr, g_te, y_te)
+    print(f"[probe] random unit features: {spread}", flush=True)
+    if ties > PROBE_SPREAD_TIES:
+        raise AssertionError(f"[probe] {ties} near-tie images on random "
+                             f"features (at most {PROBE_SPREAD_TIES})")
     # the features' spread: |mean feature| is 1 when all point one way;
     # the test split's largest class share is what one constant guess
     # scores
