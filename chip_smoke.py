@@ -21,9 +21,18 @@ the JAX package `repro`. Phases, each of which must pass:
      lse_a, lse_b, pos at atol 2e-5 against `ref.dt_loss_fwd_ref`, two
      calls bitwise equal; gradients of the mean loss through the
      autograd.Function at atol 1e-5 against autograd of the plain
-     `core.dt_loss.dt_loss_matrix`. The kernel is the Hopper design
-     (3xTF32 mma.sync, keys split over a cluster of 8 CTAs, TMA tensor
-     copies); its line gives its registers and local (spill) bytes a
+     `core.dt_loss.dt_loss_matrix`. Then its cohort form, one launch for
+     C clients, at (C, M, D) = (5, 512, 128), (3, 500, 128) and (3, 513,
+     128) (ragged rows and keys at the client boundaries), both tau
+     pairs, against `ref.dt_loss_fwd_cohort_ref` at the same tolerances,
+     two calls bitwise equal, and the gradients through
+     ``torch.func.vmap(torch.func.grad)`` (one launch) against a loop of
+     the unbatched autograd path. Timed at C = 1, 3 and 5 (M = 512): the
+     device time a launch and a client beside the bound, C times the
+     C = 1 bound; the row's numbers are at (3, 512, 128), the main
+     path's chunk. The kernel is the Hopper design (3xTF32 mma.sync, keys
+     split over a cluster of 8 CTAs, TMA tensor copies, the client on the
+     grid's y); its line gives its registers and local (spill) bytes a
      thread, shared bytes a CTA and CTAs an SM
      (`kernels.dt_loss.kernel_attributes`).
    Times each with CUDA events around calls of its Python wrapper
@@ -36,15 +45,34 @@ the JAX package `repro`. Phases, each of which must pass:
    ``device="cpu"``, compared with allclose (tolerances below).
 4. Main path: 3 rounds of the paper's Table-1 setting (95 vehicles,
    Dirichlet 0.1, 5 per round, batch 512, ResNet-18-CIFAR at full width)
-   through `Scenario` / `run_round`, with every kernel launch counter set
-   to 0 just before and read just after.
+   through `Scenario` / `run_round` with the batched cohort step
+   (``parallel=True``, the default: chunks of CLIENTS_PER_CHUNK = 3
+   clients, so dt_loss launches twice a round, for 3 + 2 clients), with
+   every kernel launch counter set to 0 just before and read just after;
+   then 3 rounds from round 0 with ``parallel=False`` (dt_loss 5 a
+   round), timed beside them, with the peak memory of each.
+   Every phase's expected launches come from the round's plan by one
+   stated rule (`_round_launches`).
 5. Comms path: 3 more Table-1 rounds from round 0 with
    ``codec="delta_int8"`` through `Scenario` / `run`, each published into
    a ``ModelStore(codec="delta_int8")`` bootstrapped with round 0; the
    counters, zeroed just before, must read q8_encode 6 and q8_decode 6
-   (3 cohort roundtrips, 3 publishes), wagg 3 and dt_loss 15.
-6. The topologies, FedCo and the probe, at the Table-1 setting on the
-   [main] path's data, each with the counters zeroed just before:
+   (3 cohort roundtrips, 3 publishes), wagg 3 and dt_loss 6.
+6. The batched step, checkpoints, the topologies, FedCo and the probe,
+   at the Table-1 setting on the [main] path's data, each with the
+   counters zeroed just before:
+   * ``[batched]``: one Table-1 round from one state with
+     ``parallel=True`` and with ``parallel=False``, and one handover
+     round whose plan pads a download group to its bucket: loss and
+     trees within the cross-check tolerances, records equal; the peak
+     memory of each, the batched Table-1 round's at most PEAK_GIB;
+   * ``[resume]``: 4 Table-1 rounds, the state saved with `save_state`
+     at round 2, restored with `restore_state` from disk (bitwise the
+     saved state) and run again to round 4: the schedule (ids, batch
+     indices, velocities, lr) and the host_rng and gen_state after it
+     bitwise, the trees within CROSS_MAX_ABS (card runs are not bitwise
+     repeatable); the same for the handover with ``delta_int8``
+     (positions, RSU models, error feedback; one code step more);
    * ``[topo]``: small rounds of MultiRSU(n_rsus=2), the handover (two
      rounds with a handover and the region sync) and FedCo, each from
      one state on the card and with ``device="cpu"``; loss, global tree,
@@ -57,11 +85,12 @@ the JAX package `repro`. Phases, each of which must pass:
      CROSS_MAX_ABS (a code may flip by one step), and the card's q8
      launches equal its encodes, one per group;
    * ``[multi]``: 2 rounds of MultiRSU(n_rsus=2): rsu_sizes [3, 2],
-     dt_loss 10, wagg 2 x (2 groups + 1 region) = 6;
+     dt_loss 4 (one chunk a group), wagg 2 x (2 groups + 1 region) = 6;
    * ``[handover]``: 5 rounds of HandoverMultiRSU at the reference's
      defaults (2 RSUs of 1 km, 20 s rounds, stale discount 0.5, sync
      every 5) with ``codec="delta_int8"``, then one `region_view`:
-     dt_loss 25, q8_encode = q8_decode = the download groups, wagg = the
+     dt_loss = the chunks of the download groups padded to their
+     buckets, q8_encode = q8_decode = the download groups, wagg = the
      upload groups + 1 (the sync at round 4) + 1 (`region_view`); fails
      without a handover and the sync;
    * ``[fedco]``: 2 rounds of the FedCo baseline (``aggregator="fedco"``:
@@ -136,7 +165,8 @@ both shapes (``device_ms_1``: at (1, Ppad)).
 
 The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode and
 rwkv6, each with its launches on the path that runs it (``paths``: its
-launches on every path: main, comms, multi, handover, fedco, zoo),
+launches on every path: main, comms, batched, resume, multi, handover,
+fedco, zoo),
 ``ms`` and ``device_ms``. The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
 "device": {...}}``. On any
@@ -215,6 +245,10 @@ PROBE_SPREAD_TIES = 10
 # [fedco]: the merged queue's first rows against the k-vectors recomputed
 # from the round's plan (the key encoder's forward once more on the card)
 FEDCO_KVEC_TOL = 1e-5
+# [batched]: the peak device memory a Table-1 round may take on the 80 GB
+# card (torch.cuda.max_memory_allocated); the chunk of the batched cohort
+# step (core/clients.py CLIENTS_PER_CHUNK) is sized for it
+PEAK_GIB = 64.0
 
 
 def _smi() -> str:
@@ -385,33 +419,120 @@ def kernel_phase(dev):
             print(f"[kernels] dt_loss M={M} D=128 taus=({ta}, {tb}): fwd err "
                   f"{fwd_err:.3e}, grad err {grad_err:.3e}, two calls "
                   f"bitwise equal", flush=True)
-        if M == 512:
-            main_in = (q, k)
-    q, k = main_in
-    M, D = q.shape
-    ms = _time_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0), iters=200)
-    dev_ms = _device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0), "dt_fwd",
-                        iters=200)
-    plain_ms = _time_ms(lambda: ref.dt_loss_fwd_ref(q, k, 0.1, 1.0),
-                        iters=200)
-    bound_ms, bound_by = _bound(4 * (2 * M * D + 4 * M), 2 * M * M * D)
+    errs += _dt_cohort_checks(dev, g)
+    # timed at the main path's shapes: a chunk of CLIENTS_PER_CHUNK
+    # clients (the row's numbers), one client, and a cohort of 5
+    from repro_torch.core.clients import CLIENTS_PER_CHUNK
+    D = 128
+    timed = {}
+    for C in sorted({1, CLIENTS_PER_CHUNK, 5}):
+        q = _unit_rows(g, dev, (C, 512, D))
+        k = _unit_rows(g, dev, (C, 512, D))
+        timed[C] = (_time_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
+                             iters=200),
+                    _device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
+                               "dt_fwd", iters=200),
+                    _time_ms(lambda: ref.dt_loss_fwd_cohort_ref(q, k, 0.1,
+                                                                1.0),
+                             iters=50),
+                    _dt_bound(C, 512, D))
+        ms, dev_ms, plain_ms, (bound_ms, bound_by) = timed[C]
+        print(f"[kernels] dt_loss ({C},512,{D}), one launch: kernel "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms a launch, "
+              f"{dev_ms / C:.4f} ms a client), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {C} x the C = 1 "
+              f"bound)", flush=True)
+    C = CLIENTS_PER_CHUNK
+    ms, dev_ms, plain_ms, (bound_ms, bound_by) = timed[C]
     attrs = dt_kernel.kernel_attributes(D)
     rows.append({"name": "dt_loss", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/dt_loss.cu",
                  "replaces": "src/repro/kernels/dt_loss.py:33",
+                 "shape": [C, 512, D],
                  "max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms,
+                 "device_ms_per_client": dev_ms / C,
+                 "device_ms_1": timed[1][1], "device_ms_5": timed[5][1],
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": None,
+                 "bound_by": bound_by, "bound_ms_1": timed[1][3][0],
+                 "library_ms": None,
                  "regs": attrs["regs"], "local_bytes": attrs["local_bytes"],
                  "blocks_per_sm": attrs["blocks_per_sm"]})
-    print(f"[kernels] dt_loss ({M},{D}): kernel {ms:.4f} ms (device "
-          f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-          f"ms ({bound_by}); {attrs['regs']} registers and "
+    print(f"[kernels] dt_loss: {attrs['regs']} registers and "
           f"{attrs['local_bytes']} local bytes a thread, "
           f"{attrs['shared_bytes']} shared bytes and {attrs['threads']} "
           f"threads a CTA, {attrs['blocks_per_sm']} CTAs an SM, clusters of "
           f"{attrs['cluster']} CTAs", flush=True)
     return rows
+
+
+def _unit_rows(g, dev, shape):
+    import torch
+    return torch.nn.functional.normalize(
+        torch.randn(shape, generator=g, device=dev), dim=-1)
+
+
+def _dt_bound(c: int, m: int, d: int):
+    """(ms, what bounds it) for the DT loss of c clients: q and k read
+    once, four (c, m) outputs written, 2 m^2 d operations a client."""
+    return _bound(4 * c * (2 * m * d + 4 * m), 2 * c * m * m * d)
+
+
+def _dt_cohort_checks(dev, g) -> list:
+    """The DT kernel's cohort form, one launch for C clients, against
+    the cohort plain version at (5, 512, 128) and at (3, 500, 128) and
+    (3, 513, 128), where the ragged rows and keys sit at the client
+    boundaries; two calls bitwise equal; the gradients through
+    torch.func.vmap(torch.func.grad) (one launch) against a loop of the
+    unbatched autograd path. Returns the errors."""
+    import torch
+
+    from repro_torch.kernels import dt_loss as dt_kernel
+    from repro_torch.kernels import ops, ref
+
+    errs = []
+    for C, M in ((5, 512), (3, 500), (3, 513)):
+        q = _unit_rows(g, dev, (C, M, 128))
+        k = _unit_rows(g, dev, (C, M, 128))
+        for ta, tb in DT_TAUS:
+            before = dt_kernel.LAUNCHES
+            got = ops.dt_loss_fwd(q, k, ta, tb)
+            launched = dt_kernel.LAUNCHES - before
+            want = ref.dt_loss_fwd_cohort_ref(q, k, ta, tb)
+            fwd_err = max(_max_err(a, b) for a, b in zip(got, want))
+            again = ops.dt_loss_fwd(q, k, ta, tb)
+            torch.cuda.synchronize()
+            if launched != 1 or not all(torch.equal(a, b)
+                                        for a, b in zip(got, again)):
+                raise AssertionError(f"dt_loss cohort ({C},{M}): {launched} "
+                                     f"launches, or two calls differ")
+            if not fwd_err <= DT_FWD_TOL:
+                raise AssertionError(f"dt_loss cohort ({C},{M}) taus=({ta}, "
+                                     f"{tb}): {fwd_err} > {DT_FWD_TOL}")
+
+            def loss(a, b):
+                return ops.dt_loss(a, b, ta, tb)
+
+            before = dt_kernel.LAUNCHES
+            gq, gk = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)))(
+                q, k)
+            launched = dt_kernel.LAUNCHES - before
+            grad_err = 0.0
+            for c in range(C):
+                qc = q[c].clone().requires_grad_()
+                kc = k[c].clone().requires_grad_()
+                a, b = torch.autograd.grad(loss(qc, kc), (qc, kc))
+                grad_err = max(grad_err, _max_err(a, gq[c]),
+                               _max_err(b, gk[c]))
+            if launched != 1 or not grad_err <= DT_GRAD_TOL:
+                raise AssertionError(f"dt_loss cohort ({C},{M}) vmapped "
+                                     f"grad: {launched} launches, err "
+                                     f"{grad_err} > {DT_GRAD_TOL}")
+            errs.append(max(fwd_err, grad_err))
+            print(f"[kernels] dt_loss cohort ({C},{M},128) taus=({ta}, "
+                  f"{tb}), one launch: fwd err {fwd_err:.3e}, vmapped grad "
+                  f"vs the unbatched loop {grad_err:.3e}, two calls bitwise "
+                  f"equal", flush=True)
+    return errs
 
 
 def q8_kernels(dev):
@@ -622,7 +743,6 @@ def _topo_cross_check(dev, scales):
         state = scs["cpu"].init_state()
         handovers, synced = 0, False
         for _ in range(rounds):
-            start = _state_rows(state)
             out = {}
             del scales[:]
             for d, sc in scs.items():
@@ -635,16 +755,10 @@ def _topo_cross_check(dev, scales):
             # one code step of the largest scale either side encoded with
             step = max(scales, default=0.0)
             (st_g, r_g), (st_c, r_c) = out[dev], out["cpu"]
-            worst = (0.0, 0.0)
-            for a, b, s0 in zip(_state_rows(st_g), _state_rows(st_c), start):
-                if not bool(torch.isfinite(a).all()):
-                    raise AssertionError(f"[topo] {name}: card tree not "
-                                         f"finite")
-                upd = float((b - s0).norm())
-                diff = float((a - b).norm())
-                rel = diff / upd if upd else (0.0 if diff == 0 else np.inf)
-                worst = (max(worst[0], float((a - b).abs().max())),
-                         max(worst[1], rel))
+            if not all(bool(torch.isfinite(a).all())
+                       for a in _state_rows(st_g)):
+                raise AssertionError(f"[topo] {name}: card tree not finite")
+            worst = _rows_diff(st_g, st_c, state)
             dloss = abs(r_g["loss"] - r_c["loss"])
             same = {k: r_g[k] == r_c[k] for k in ("velocities", "rsu_sizes",
                                                   "n_handovers", "synced")
@@ -683,6 +797,59 @@ def _topo_cross_check(dev, scales):
                                  f"synced {synced}")
 
 
+def _plan_of(sc, state):
+    """The plan of `state`'s next round under `sc` (pure: fresh copies of
+    both random streams)."""
+    from repro_torch.core import topology as T
+    from repro_torch.core.state import generator_from, unpack_host_rng
+
+    rng, gen = unpack_host_rng(state.host_rng), generator_from(state.gen_state)
+    if sc.topology.name != "handover":
+        return T._cohort_plan(rng, gen, state.round, sc)
+    positions = state.topo["positions"]
+    return sc.topology.plan_round(
+        sc.topology.draw_round(rng, gen, positions, sc), state.round,
+        positions, state.topo["blur_sum"], state.topo["upload_count"], sc)
+
+
+def _round_launches(sc, plan, parallel: bool = True) -> dict:
+    """The kernel launches one round of `sc` makes, from its plan. The
+    training groups are the cohort (SingleRSU), the round-robin RSU
+    groups (MultiRSU) or the download groups (the handover, each padded
+    to its bucket_size under parallel and bucketed). dt_loss: one launch
+    per chunk of CLIENTS_PER_CHUNK clients per local iteration in each
+    group under parallel=True, one per client per iteration under
+    parallel=False, none for FedCo. wagg: one per group and one for the
+    region (MultiRSU), one per upload group and one for a sync (the
+    handover), one (SingleRSU). q8_encode and q8_decode: one each per
+    group under delta_int8 (the padded rows are not encoded)."""
+    from repro_torch.core.clients import CLIENTS_PER_CHUNK
+
+    cfg, topo = sc.cfg, sc.topology
+    n = len(plan.ids)
+    if topo.name == "handover":
+        groups = [int(s.size) for _, s in plan.down_groups]
+        trained = [topo.pad_to(g) or g for g in groups] if parallel \
+            else groups
+        wagg = len(plan.uploads) + int(plan.synced)
+    elif topo.name == "multi":
+        groups = trained = [len(range(r, n, topo.n_rsus))
+                            for r in range(min(topo.n_rsus, n))]
+        wagg = len(groups) + 1
+    else:
+        groups = trained = [n]
+        wagg = 1
+    per = sum(-(-g // CLIENTS_PER_CHUNK) if parallel else g for g in trained)
+    q8 = len(groups) if cfg.codec == "delta_int8" else 0
+    return {"wagg": wagg,
+            "dt_loss": 0 if cfg.client == "fedco" else cfg.local_iters * per,
+            "q8_encode": q8, "q8_decode": q8, "rwkv6": 0}
+
+
+def _add(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels import dt_loss, qdelta, rwkv6, wagg
     wagg.LAUNCHES = dt_loss.LAUNCHES = rwkv6.LAUNCHES = 0
@@ -697,8 +864,10 @@ def _counts() -> dict:
 
 
 def main_path(dev):
-    """3 Table-1 rounds; returns (launches per kernel, the scenario, the
-    final state)."""
+    """3 Table-1 rounds with the batched cohort step (parallel=True, the
+    default), then 3 more from round 0 with parallel=False for their
+    times; returns (launches per kernel of the batched rounds, the
+    scenario, the final state)."""
     import math
 
     import torch
@@ -714,37 +883,55 @@ def main_path(dev):
     print(f"[main] data {len(sc.dataset[0])} images over "
           f"{len(sc.data)} vehicles, set-up {time.time() - t0:.2f} s",
           flush=True)
+    start = state
     before = ravel(state.global_tree).clone()
     rounds = 3
-    torch.cuda.synchronize()
-    _zero_counts()
-    for _ in range(rounds):
-        t = time.time()
-        state, rec = run_round(state, sc)
+    runs = {}
+    for parallel in (True, False):
+        state, want, times = start, {}, []
         torch.cuda.synchronize()
-        dt = time.time() - t
-        w = flsimco_weights(sc.mobility.blur_level(rec["velocities"]))
-        print(f"[main] round {rec['round']}: {dt:.3f} s, loss "
-              f"{rec['loss']:.6f}, lr {rec['lr']:.6f}, weights "
-              f"{[round(float(x), 4) for x in w]}", flush=True)
-        if not math.isfinite(rec["loss"]):
-            raise AssertionError(f"round {rec['round']}: loss not finite")
-        if abs(float(w.sum()) - 1.0) > 1e-6:
-            raise AssertionError(f"Eq.-11 weights sum to {float(w.sum())}")
-    launches = _counts()
-    after = ravel(state.global_tree)
-    if after.shape != before.shape or not bool(torch.isfinite(after).all()):
-        raise AssertionError("global tree has the wrong shape or is not "
-                             "finite")
-    if torch.equal(after, before):
-        raise AssertionError("global tree did not change")
-    want = {"wagg": rounds, "dt_loss": rounds * sc.cfg.vehicles_per_round
-            * sc.cfg.local_iters, "q8_encode": 0, "q8_decode": 0,
-            "rwkv6": 0}
-    print(f"[main] launches {launches} (expected {want}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        for _ in range(rounds):
+            want = _add(want, _round_launches(sc, _plan_of(sc, state),
+                                              parallel))
+            t = time.time()
+            state, rec = run_round(state, sc, parallel=parallel)
+            torch.cuda.synchronize()
+            times.append(time.time() - t)
+            w = flsimco_weights(sc.mobility.blur_level(rec["velocities"]))
+            print(f"[main] round {rec['round']} (parallel={parallel}): "
+                  f"{times[-1]:.3f} s, loss {rec['loss']:.6f}, lr "
+                  f"{rec['lr']:.6f}, weights "
+                  f"{[round(float(x), 4) for x in w]}", flush=True)
+            if not math.isfinite(rec["loss"]):
+                raise AssertionError(f"round {rec['round']}: loss not "
+                                     f"finite")
+            if abs(float(w.sum()) - 1.0) > 1e-6:
+                raise AssertionError(f"Eq.-11 weights sum to "
+                                     f"{float(w.sum())}")
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[main] parallel={parallel}: launches {launches} (expected "
+              f"{want}: dt_loss a round = local_iters x "
+              f"{'ceil(5 / CLIENTS_PER_CHUNK)' if parallel else '5'}); "
+              f"peak memory {peak:.2f} GiB", flush=True)
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches} != {want}")
+        after = ravel(state.global_tree)
+        if after.shape != before.shape \
+                or not bool(torch.isfinite(after).all()):
+            raise AssertionError("global tree has the wrong shape or is "
+                                 "not finite")
+        if torch.equal(after, before):
+            raise AssertionError("global tree did not change")
+        runs[parallel] = (launches, state, times, peak)
+    print(f"[main] round times, batched (parallel=True) "
+          f"{[round(t, 4) for t in runs[True][2]]} s, peak "
+          f"{runs[True][3]:.2f} GiB; client by client (parallel=False) "
+          f"{[round(t, 4) for t in runs[False][2]]} s, peak "
+          f"{runs[False][3]:.2f} GiB", flush=True)
+    launches, state = runs[True][:2]
     return launches, sc, state
 
 
@@ -766,10 +953,13 @@ def comms_path(dev, main_sc, main_state):
     state = sc.init_state()
     store = ModelStore(codec="delta_int8")
     store.publish(state.round, state.global_tree)
-    rounds = 3
+    rounds, want = 3, {}
     torch.cuda.synchronize()
     _zero_counts()
     for _ in range(rounds):
+        # the round's launches, and one q8 pair for its publish
+        want = _add(want, _round_launches(sc, _plan_of(sc, state)))
+        want = _add(want, {"q8_encode": 1, "q8_decode": 1})
         t = time.time()
         state, (rec,) = run(sc, state, rounds=1, publish=store.publish)
         torch.cuda.synchronize()
@@ -779,10 +969,8 @@ def comms_path(dev, main_sc, main_state):
             raise AssertionError(f"comms round {rec['round']}: loss not "
                                  f"finite")
     launches = _counts()
-    per = sc.cfg.vehicles_per_round * sc.cfg.local_iters
-    want = {"wagg": rounds, "dt_loss": rounds * per, "q8_encode": 2 * rounds,
-            "q8_decode": 2 * rounds, "rwkv6": 0}
-    print(f"[comms] launches {launches} (expected {want})", flush=True)
+    print(f"[comms] launches {launches} (expected {want}: a round wagg 1, "
+          f"dt_loss ceil(5 / CLIENTS_PER_CHUNK), q8 pairs 2)", flush=True)
     if launches != want:
         raise AssertionError(f"comms launches {launches} != {want}")
     ef = state.comms["ef"]
@@ -831,10 +1019,11 @@ def multi_path(dev, data):
     sc = Scenario(device=dev, data=data, **dict(
         TABLE1, topology="multi", topology_kwargs={"n_rsus": 2}))
     state = sc.init_state()
-    rounds = 2
+    rounds, want = 2, {}
     torch.cuda.synchronize()
     _zero_counts()
     for _ in range(rounds):
+        want = _add(want, _round_launches(sc, _plan_of(sc, state)))
         t = time.time()
         state, rec = run_round(state, sc)
         torch.cuda.synchronize()
@@ -844,10 +1033,8 @@ def multi_path(dev, data):
         if rec["rsu_sizes"] != [3, 2]:
             raise AssertionError(f"[multi] rsu_sizes {rec['rsu_sizes']}")
     launches = _counts()
-    per = sc.cfg.vehicles_per_round * sc.cfg.local_iters
-    want = {"wagg": rounds * (2 + 1), "dt_loss": rounds * per,
-            "q8_encode": 0, "q8_decode": 0, "rwkv6": 0}
-    print(f"[multi] launches {launches} (expected {want})", flush=True)
+    print(f"[multi] launches {launches} (expected {want}: a round wagg "
+          f"2 groups + 1 region, dt_loss one chunk a group)", flush=True)
     if launches != want:
         raise AssertionError(f"[multi] launches {launches} != {want}")
     return launches
@@ -860,7 +1047,6 @@ def handover_path(dev, data):
     import torch
 
     from repro_torch.core.scenario import Scenario, run_round
-    from repro_torch.core.state import generator_from, unpack_host_rng
     from repro_torch.trace_round import TABLE1
 
     sc = Scenario(device=dev, data=data, **dict(
@@ -868,31 +1054,26 @@ def handover_path(dev, data):
         codec="delta_int8"))
     topo = sc.topology
     state = sc.init_state()
-    rounds, down_groups, up_groups = 5, 0, 0
+    rounds, want = 5, {"wagg": 1}                   # + the region_view
     handovers, syncs = 0, []
     torch.cuda.synchronize()
     _zero_counts()
     for _ in range(rounds):
-        # the round's plan once more (pure; fresh copies of both streams),
-        # for the expected launch counts
-        positions = state.topo["positions"]
-        plan = topo.plan_round(
-            topo.draw_round(unpack_host_rng(state.host_rng),
-                            generator_from(state.gen_state), positions, sc),
-            state.round, positions, state.topo["blur_sum"],
-            state.topo["upload_count"], sc)
+        # the round's plan once more, for the expected launch counts
+        plan = _plan_of(sc, state)
+        want = _add(want, _round_launches(sc, plan))
         t = time.time()
         state, rec = run_round(state, sc)
         torch.cuda.synchronize()
         dt = time.time() - t
-        down_groups += len(plan.down_groups)
-        up_groups += len(plan.uploads)
         handovers += rec["n_handovers"]
         if rec["synced"]:
             syncs.append(rec["round"])
         print(f"[handover] round {rec['round']} (delta_int8): {dt:.3f} s, "
               f"loss {rec['loss']:.6f}, download groups "
-              f"{[int(s.size) for _, s in plan.down_groups]}, rsu_sizes "
+              f"{[int(s.size) for _, s in plan.down_groups]} (trained as "
+              f"{[topo.pad_to(s.size) for _, s in plan.down_groups]}), "
+              f"rsu_sizes "
               f"{rec['rsu_sizes']}, n_handovers {rec['n_handovers']}, "
               f"synced {rec['synced']}", flush=True)
         _check_round("handover", rec, state)
@@ -900,9 +1081,6 @@ def handover_path(dev, data):
     view = topo.region_view(state)
     torch.cuda.synchronize()
     launches = _counts()
-    per = sc.cfg.vehicles_per_round * sc.cfg.local_iters
-    want = {"wagg": up_groups + len(syncs) + 1, "dt_loss": rounds * per,
-            "q8_encode": down_groups, "q8_decode": down_groups, "rwkv6": 0}
     print(f"[handover] region_view {1e3 * (time.time() - t):.3f} ms; "
           f"{handovers} handovers, syncs at rounds {syncs}; launches "
           f"{launches} (expected {want})", flush=True)
@@ -984,6 +1162,240 @@ def fedco_path(dev, data):
             raise AssertionError(f"[fedco] queue err {err}, tail {tail}, "
                                  f"key_tree {key}")
     return launches
+
+
+def _rows_diff(a_state, b_state, start) -> tuple:
+    """(max abs, worst norm relative to the update) of the global tree and
+    every RSU model of two states, each against `start`'s."""
+    worst = (0.0, 0.0)
+    for a, b, s0 in zip(_state_rows(a_state), _state_rows(b_state),
+                        _state_rows(start)):
+        upd = float((b - s0).norm())
+        diff = float((a - b).norm())
+        rel = diff / upd if upd else (0.0 if diff == 0 else float("inf"))
+        worst = (max(worst[0], float((a - b).abs().max())),
+                 max(worst[1], rel))
+    return worst
+
+
+def _padded_state(sc):
+    """A round-0 state of `sc` carried through the plans (positions, sync
+    statistics, both random streams) until its next round pads a download
+    group; the models stay the round-0 ones."""
+    from repro_torch.core.cohort import bucket_size
+    from repro_torch.core.state import generator_from, unpack_host_rng
+    from repro_torch.core.state import pack_host_rng
+
+    state, topo = sc.init_state(), sc.topology
+    for _ in range(20):
+        rng = unpack_host_rng(state.host_rng)
+        gen = generator_from(state.gen_state)
+        positions = state.topo["positions"]
+        plan = topo.plan_round(topo.draw_round(rng, gen, positions, sc),
+                               state.round, positions,
+                               state.topo["blur_sum"],
+                               state.topo["upload_count"], sc)
+        if any(bucket_size(s.size) != s.size for _, s in plan.down_groups):
+            return state
+        state = state.replace(
+            host_rng=pack_host_rng(rng), gen_state=gen.get_state(),
+            round=state.round + 1,
+            topo=dict(state.topo, positions=plan.positions,
+                      blur_sum=plan.blur_sum,
+                      upload_count=plan.upload_count))
+    raise AssertionError("[batched] no padded download group in 20 plans")
+
+
+def _chunk_record(sc, state, plan) -> None:
+    """The record behind the chunk rule: the peak memory of the batched
+    step on this Table-1 cohort with one client more a chunk than
+    CLIENTS_PER_CHUNK (printed, not held: it is what the rule avoids)."""
+    import torch
+
+    from repro_torch.core import clients
+
+    chunk = clients.CLIENTS_PER_CHUNK
+    batches, draws, _ = sc.topology._batches(sc, plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clients.CLIENTS_PER_CHUNK = chunk + 1
+    try:
+        clients.CLIENT_UPDATES["dtssl"].run_cohort(
+            sc.cfg, state.global_tree, None, batches, draws, plan.lr)
+    finally:
+        clients.CLIENTS_PER_CHUNK = chunk
+    torch.cuda.synchronize()
+    print(f"[batched] the same cohort in chunks of {chunk + 1}: peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (PEAK_GIB "
+          f"{PEAK_GIB})", flush=True)
+
+
+def batched_path(dev, data):
+    """[batched]: one Table-1 round from one state with parallel=True and
+    with parallel=False on the card, then the same for a handover round
+    whose plan pads a download group; loss and trees within the
+    cross-check tolerances, launches by their formulas, and the peak
+    memory of the batched Table-1 round at most PEAK_GIB. Returns the
+    launches of the batched Table-1 round."""
+    import torch
+
+    from repro_torch.core.scenario import Scenario, run_round
+    from repro_torch.trace_round import TABLE1
+
+    cases = (("Table-1", dict(TABLE1), None),
+             ("handover", dict(TABLE1, topology="handover",
+                               topology_kwargs={}), _padded_state))
+    for name, kw, prepare in cases:
+        sc = Scenario(device=dev, data=data, **kw)
+        state = prepare(sc) if prepare else sc.init_state()
+        plan = _plan_of(sc, state)
+        out = {}
+        for parallel in (True, False):
+            want = _round_launches(sc, plan, parallel)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t = time.time()
+            st, rec = run_round(state, sc, parallel=parallel)
+            torch.cuda.synchronize()
+            out[parallel] = (st, rec, time.time() - t, _counts(),
+                             torch.cuda.max_memory_allocated() / 2**30)
+            if out[parallel][3] != want:
+                raise AssertionError(f"[batched] {name} parallel={parallel}:"
+                                     f" launches {out[parallel][3]} != "
+                                     f"{want}")
+            _check_round("batched", rec, st)
+        (st_p, r_p, t_p, l_p, peak_p), (st_s, r_s, t_s, _, peak_s) = \
+            out[True], out[False]
+        worst = _rows_diff(st_p, st_s, state)
+        dloss = abs(r_p["loss"] - r_s["loss"])
+        groups = [int(s.size) for _, s in getattr(plan, "down_groups", [])]
+        print(f"[batched] {name} round {r_p['round']}"
+              f"{f' (download groups {groups})' if groups else ''}: "
+              f"parallel=True {t_p:.3f} s, peak {peak_p:.2f} GiB, loss "
+              f"{r_p['loss']:.7f}, launches {l_p}; parallel=False {t_s:.3f} "
+              f"s, peak {peak_s:.2f} GiB, loss {r_s['loss']:.7f}; trees max "
+              f"abs {worst[0]:.3e}, relative to the update {worst[1]:.3e}",
+              flush=True)
+        same = {k: r_p[k] == r_s[k] for k in r_s if k != "loss"}
+        if not (all(same.values()) and dloss <= CROSS_LOSS_TOL
+                and worst[0] <= CROSS_MAX_ABS
+                and worst[1] <= CROSS_REL_UPDATE):
+            raise AssertionError(f"[batched] {name}: loss diff {dloss}, "
+                                 f"trees {worst}, records {same}")
+        if name == "Table-1":
+            if peak_p > PEAK_GIB:
+                raise AssertionError(f"[batched] peak memory {peak_p:.2f} "
+                                     f"GiB > {PEAK_GIB} GiB")
+            table1 = l_p
+            _chunk_record(sc, state, plan)
+        elif all(sc.topology.pad_to(g) == g for g in groups):
+            raise AssertionError("[batched] handover round pads no group")
+    return table1
+
+
+def resume_path(dev, data):
+    """[resume]: 4 rounds straight through, saving the state at round 2
+    with save_state; then restore_state from disk and run rounds 2 and 3
+    again. The restored state is the saved one bitwise; the schedule of
+    the resumed rounds (ids, batch indices, velocities, lr) and the
+    host_rng and gen_state after them are bitwise the straight run's;
+    the trees (global, RSU models) within CROSS_MAX_ABS and the error
+    feedback within it plus one code step (card runs are not bitwise
+    repeatable). For Table-1, and for the handover with delta_int8
+    (positions, RSU models, error feedback). Returns the launches of the
+    straight Table-1 run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.store import (_leaves, restore_state,
+                                              save_state)
+    from repro_torch.core.scenario import Scenario, run_round
+    from repro_torch.trace_round import TABLE1
+
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    cases = (("Table-1", dict(TABLE1)),
+             ("handover delta_int8", dict(TABLE1, topology="handover",
+                                          topology_kwargs={},
+                                          codec="delta_int8")))
+    scales = []
+    restore = _recording_scales(scales)
+    try:
+        for name, kw in cases:
+            del scales[:]
+            sc = Scenario(device=dev, data=data, **kw)
+            state, plans, recs, want = sc.init_state(), [], [], {}
+            torch.cuda.synchronize()
+            _zero_counts()
+            for r in range(4):
+                plans.append(_plan_of(sc, state))
+                want = _add(want, _round_launches(sc, plans[-1]))
+                if r == 2:
+                    saved = state
+                    path = save_state(os.path.join(ckpt_dir, "ckpt_2.npz"),
+                                      state, scenario=sc)
+                state, rec = run_round(state, sc)
+                recs.append(rec)
+            torch.cuda.synchronize()
+            launches = _counts()
+            if name == "Table-1":
+                table1 = launches
+            if launches != want:
+                raise AssertionError(f"[resume] {name}: launches "
+                                     f"{launches} != {want}")
+            straight = state
+            state = restore_state(path, scenario=sc)
+            shutil.rmtree(ckpt_dir)
+            exact = all(np.array_equal(np.asarray(
+                a.cpu() if isinstance(a, torch.Tensor) else a), np.asarray(
+                b.cpu() if isinstance(b, torch.Tensor) else b))
+                for a, b in zip(_leaves(saved.to_tree()),
+                                _leaves(state.to_tree())))
+            schedule, resumed = exact, []
+            for r in (2, 3):
+                plan = _plan_of(sc, state)
+                schedule &= (np.array_equal(plan.ids, plans[r].ids)
+                             and torch.equal(plan.velocities,
+                                             plans[r].velocities)
+                             and plan.lr == plans[r].lr)
+                idx = getattr(plan, "idx", None)
+                schedule &= (np.array_equal(idx, plans[r].idx)
+                             if idx is not None else all(
+                                 np.array_equal(a, b) for a, b in zip(
+                                     plan.batch_idx, plans[r].batch_idx)))
+                state, rec = run_round(state, sc)
+                resumed.append(rec["loss"])
+                schedule &= all(rec[k] == recs[r][k]
+                                for k in rec if k != "loss")
+            schedule &= torch.equal(state.gen_state, straight.gen_state)
+            schedule &= all(np.array_equal(state.host_rng[k],
+                                           straight.host_rng[k])
+                            for k in straight.host_rng)
+            worst = _rows_diff(state, straight, saved)
+            step = max(scales, default=0.0)
+            ef_err = 0.0
+            if straight.comms is not None:
+                ef_err = _max_err(state.comms["ef"], straight.comms["ef"])
+            print(f"[resume] {name}: saved at round 2, restored from disk "
+                  f"(bitwise the saved state {exact}), rounds 2-3 again: "
+                  f"schedule, host_rng and gen_state bitwise {schedule}; "
+                  f"trees max abs diff {worst[0]:.3e} (relative to the "
+                  f"update {worst[1]:.3e}), EF max abs {ef_err:.3e}, code "
+                  f"step {step:.3e}; losses of rounds 2-3 "
+                  f"{[r['loss'] for r in recs[2:]]} straight, {resumed} "
+                  f"resumed; launches of the straight run {launches}",
+                  flush=True)
+            # a code may flip by one step under delta_int8 (step 0 else)
+            if not (exact and schedule and worst[0] <= CROSS_MAX_ABS + step
+                    and ef_err <= CROSS_MAX_ABS + step):
+                raise AssertionError(f"[resume] {name}: exact {exact}, "
+                                     f"schedule {schedule}, trees {worst}, "
+                                     f"EF {ef_err}")
+    finally:
+        restore()
+    return table1
 
 
 def _probe_cpu_check(dev, f_tr, y_tr, f_te, y_te):
@@ -1541,6 +1953,8 @@ def run() -> int:
     comms_launches, sc, state, store = comms_path(dev, main_sc, main_state)
     topo_cross_check(dev)
     paths = {"main": launches, "comms": comms_launches,
+             "batched": batched_path(dev, main_sc.data),
+             "resume": resume_path(dev, main_sc.data),
              "multi": multi_path(dev, main_sc.data),
              "handover": handover_path(dev, main_sc.data),
              "fedco": fedco_path(dev, main_sc.data)}

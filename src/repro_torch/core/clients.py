@@ -8,18 +8,29 @@ client algorithm the same way:
 
   init_state(cfg, global_tree)          -> client_state (or None)
   run_cohort(cfg, tree, client_state,
-             batches, draws, lr)         -> (CohortBatch, uploads)
+             batches, draws, lr,
+             parallel, pad_to)           -> (CohortBatch, uploads)
   finalize(cfg, client_state,
            aggregated_tree, uploads)     -> new client_state
 
 `draws` holds, per client, one (pi1, pi2) draw pair per local iteration
 (core/ssl.py). `uploads` is what the vehicles send besides their trees
 (FedCo: each client's k-vectors of its last local iteration; DT-SSL:
-None). `run_cohort` trains the cohort client by client, as the
-reference's ``parallel=False`` path does (the reference pins that path
-bitwise equal to its vmapped one); a batched cohort step is later work.
-Each client's trained tree is written into its row of the cohort's flat
-buffer (core/cohort.py).
+None). The trained trees land in the rows of the cohort's flat buffer
+(core/cohort.py).
+
+DT-SSL trains the cohort in one of two ways, as the reference does:
+* ``parallel=True`` (the default) is the reference's vmapped step: the
+  client step (`client_step`, written for `torch.func`) runs under
+  `torch.func.vmap` over a chunk of CLIENTS_PER_CHUNK clients, the init
+  tree unbatched, so the first iteration's forward runs one weight over
+  the chunk's images, BN statistics stay per client and the DT loss is
+  one kernel launch a chunk (kernels/ops.py). `pad_to` pads the cohort
+  to that many rows by repeating the last client's batch and draws (no
+  random numbers drawn); the extra rows train and are masked out.
+* ``parallel=False`` trains client by client through autograd: the
+  port's own oracle for the batched step.
+FedCo is sequential either way, as the reference's is.
 
 DT-SSL's loss is the fused DT kernel (`kernels.ops.dt_loss`); the
 reference's client differentiates the jnp `dt_loss_matrix`, which
@@ -54,6 +65,17 @@ def _trainable(params: dict) -> dict:
     return tree_map(lambda t: t.detach().requires_grad_(True), params)
 
 
+# Clients a chunk of the batched step. The step's peak memory grows with
+# the images it holds for the backward: about 18 MB an image and a view
+# at full width (`resnet_apply` keeps its activations, and its BN three
+# maps where one would do), so about 18.5 GB a client at the Table-1
+# batch (two views of 512 images). A Table-1 round may take at most
+# 64 GiB of the 80 GB card. Measured on an H100 80GB HBM3 (chip_smoke.py
+# [batched]): chunks of 3 peak at 51.7 GiB, chunks of 4 at 69.0 GiB; the
+# whole cohort of 5 would not fit.
+CLIENTS_PER_CHUNK = 3
+
+
 def _sgd_step(opt_update, params: dict, loss, opt_state, lr: float):
     """One SGD update of the `_trainable` params from d loss / d params.
     Returns (new params, new optimizer state), detached."""
@@ -81,6 +103,53 @@ def local_train(cfg: FLConfig, tree: dict, images: torch.Tensor,
                 "state": tree_map(torch.Tensor.detach, t2["state"])}
         losses.append(loss.detach())
     return tree, torch.stack(losses).mean()
+
+
+def _loss_and_state(params: dict, state: dict, cfg: FLConfig,
+                    images: torch.Tensor, d1: dict, d2: dict):
+    """`client_loss` as `torch.func.grad` takes it: (loss, (loss, new
+    BN state))."""
+    loss, t2 = client_loss({"params": params, "state": state}, cfg, images,
+                           d1, d2)
+    return loss, (loss, t2["state"])
+
+
+def client_step(cfg: FLConfig, tree: dict, images: torch.Tensor,
+                draws: list, lr: float):
+    """`local_train` in `torch.func` form: the gradient by
+    `torch.func.grad`, nothing in place, so it runs under
+    `torch.func.vmap` (the batched cohort step). Returns (tree, mean
+    loss)."""
+    opt_init, opt_update = sgd(cfg.momentum, cfg.weight_decay)
+    params, state = tree["params"], tree["state"]
+    opt_state = opt_init(params)
+    losses = []
+    for d1, d2 in draws:
+        grads, (loss, state) = torch.func.grad(_loss_and_state, has_aux=True)(
+            params, state, cfg, images, d1, d2)
+        params, opt_state = opt_update(params, grads, opt_state, lr)
+        losses.append(loss)
+    return {"params": params, "state": state}, torch.stack(losses).mean()
+
+
+def _stack_draws(draws: list) -> list:
+    """Clients' per-iteration (pi1, pi2) draw pairs -> one pair a
+    iteration, each draw tensor stacked along a leading client axis."""
+    def stack(ds):
+        return {k: torch.stack([d[k] for d in ds]) for k in ds[0]}
+    return [tuple(stack([c[it][v] for c in draws]) for v in (0, 1))
+            for it in range(len(draws[0]))]
+
+
+def _pad_inputs(batches: list, draws: list, pad_to):
+    """The cohort's inputs padded to `pad_to` clients by repeating the
+    last client's batch and draws; no random numbers are drawn."""
+    n = len(batches)
+    m = n if pad_to is None else int(pad_to)
+    if m < n:
+        raise ValueError(f"pad_to={pad_to} smaller than cohort size {n}")
+    return (list(batches) + [batches[-1]] * (m - n),
+            list(draws) + [draws[-1]] * (m - n))
 
 
 def moco_local_train(cfg: FLConfig, tree: dict, key_tree: dict,
@@ -114,8 +183,8 @@ def moco_local_train(cfg: FLConfig, tree: dict, key_tree: dict,
     return tree, key_tree, kvec, torch.stack(losses).mean()
 
 
-def _empty_cohort(tree: dict, batches: list) -> CohortBatch:
-    return CohortBatch.empty(flat_spec(tree), len(batches),
+def _empty_cohort(tree: dict, batches: list, n=None) -> CohortBatch:
+    return CohortBatch.empty(flat_spec(tree), len(batches), n=n,
                              device=batches[0].device)
 
 
@@ -128,13 +197,29 @@ class DTSSLClient:
         return None
 
     def run_cohort(self, cfg: FLConfig, tree: dict, client_state,
-                   batches: list, draws: list, lr: float):
+                   batches: list, draws: list, lr: float,
+                   parallel: bool = True, pad_to=None):
         """Train each client from `tree` on its batch with its draws;
-        returns (the cohort with client i's tree in row i, None)."""
-        cohort = _empty_cohort(tree, batches)
-        for i, (images, client_draws) in enumerate(zip(batches, draws)):
-            t, loss = local_train(cfg, tree, images, client_draws, lr)
-            cohort.write(i, t, loss)
+        returns (the cohort with client i's tree in row i, None).
+        `parallel` vmaps the step over chunks of CLIENTS_PER_CHUNK
+        clients, and only then does `pad_to` pad the cohort (see the
+        module docstring), as in the reference."""
+        if not parallel:
+            cohort = _empty_cohort(tree, batches)
+            for i, (images, client_draws) in enumerate(zip(batches, draws)):
+                t, loss = local_train(cfg, tree, images, client_draws, lr)
+                cohort.write(i, t, loss)
+            return cohort, None
+        n = len(batches)
+        batches, draws = _pad_inputs(batches, draws, pad_to)
+        cohort = _empty_cohort(tree, batches, n)
+        step = torch.func.vmap(
+            lambda images, d: client_step(cfg, tree, images, d, lr))
+        for i0 in range(0, len(batches), CLIENTS_PER_CHUNK):
+            sl = slice(i0, i0 + CLIENTS_PER_CHUNK)
+            trees, losses = step(torch.stack(batches[sl]),
+                                 _stack_draws(draws[sl]))
+            cohort.write_rows(i0, trees, losses)
         return cohort, None
 
     def finalize(self, cfg: FLConfig, client_state, aggregated_tree,
@@ -160,9 +245,14 @@ class FedCoClient:
                                           cfg.feature_dim, device)}
 
     def run_cohort(self, cfg: FLConfig, tree: dict, client_state: dict,
-                   batches: list, draws: list, lr: float):
+                   batches: list, draws: list, lr: float,
+                   parallel: bool = True, pad_to=None):
         """Each client from `tree`, the round's key encoder and queue;
-        returns (the cohort, each client's k-vectors in cohort order)."""
+        returns (the cohort, each client's k-vectors in cohort order).
+        Sequential whatever `parallel` says, as the reference's is: the
+        key encoder's EMA threads through each client's steps. `pad_to`
+        is taken for the registry's signature and ignored, as the
+        reference ignores it."""
         cohort = _empty_cohort(tree, batches)
         kvecs = []
         for i, (images, client_draws) in enumerate(zip(batches, draws)):

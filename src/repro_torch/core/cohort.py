@@ -1,12 +1,14 @@
 """`CohortBatch` — a round's trained cohort as one flat buffer.
 
-Counterpart of `repro.core.cohort.CohortBatch` (`empty`, `write`,
-`concat`, `take`, `with_stats`, `padded_weights`). The reference stacks
+Counterpart of `repro.core.cohort` (`bucket_size`; `CohortBatch`:
+`empty`, `write`, `concat`, `take`, `with_stats`, `padded_weights`,
+`pad_to`). The reference stacks
 each leaf of the client trees along a leading cohort axis and ravels the
 stack into an (m, P) matrix at the aggregation boundary
 (`ops.wagg_stacked`). The port keeps the cohort in that matrix from the
 start: each client's trained tree is written into its row, in the flat
-row layout of convert.py, so aggregation reads the buffer as it is.
+row layout of convert.py (`write`; `write_rows` for a chunk of clients
+trained as one batch), so aggregation reads the buffer as it is.
 
   flat        (m, P) float32, row i = client i's raveled tree
   spec        where each leaf lives in a row (convert.FlatSpec)
@@ -16,9 +18,12 @@ row layout of convert.py, so aggregation reads the buffer as it is.
   velocities  (m,) per-client velocities (attached by the topology)
   blur        (m,) Eq.-2 blur levels (attached by the topology)
 
-Padding rows (m > n) are allocated as zeros and get weight 0, so the
-masked aggregation (fmaf(0, 0, acc) == acc) is bitwise equal to the
-unpadded one.
+Padding rows (m > n) get weight 0 and mask 0, so the masked aggregation
+(fmaf(0, x, acc) == acc for finite x) is bitwise equal to the unpadded
+one. `empty` allocates them as zeros; the batched client step of a
+bucketed cohort writes them with the trained rows of the padded inputs
+(the last client's batch and draws again), and `pad_to` repeats the last
+row.
 """
 from __future__ import annotations
 
@@ -28,7 +33,18 @@ from typing import Optional
 
 import torch
 
-from repro_torch.convert import FlatSpec, ravel_into
+from repro_torch.convert import FlatSpec, leaves_with_paths, ravel_into
+
+
+def bucket_size(n: int) -> int:
+    """Smallest power of two >= n: the padded size of a handover
+    download group under ``bucketed=True`` (as the reference pads)."""
+    if n < 1:
+        raise ValueError(f"cohort size must be >= 1, got {n}")
+    m = 1
+    while m < n:
+        m *= 2
+    return m
 
 
 @dataclass(frozen=True)
@@ -90,6 +106,17 @@ class CohortBatch:
         ravel_into(tree, self.flat[i], self.spec)
         self.losses[i] = loss
 
+    def write_rows(self, i0: int, trees, losses) -> None:
+        """Write a chunk of c clients at once (in place): `trees` holds
+        each leaf stacked along a leading axis of c, client j's tree going
+        into row i0 + j; `losses` is (c,). One copy a leaf."""
+        c = int(losses.shape[0])
+        rows = self.flat[i0:i0 + c]
+        for (_, _, off, n), (_, leaf) in zip(self.spec.entries,
+                                             leaves_with_paths(trees)):
+            rows[:, off:off + n].copy_(leaf.reshape(c, n))
+        self.losses[i0:i0 + c] = losses
+
     @property
     def size(self) -> int:
         return int(self.mask.shape[0])
@@ -123,6 +150,28 @@ class CohortBatch:
         return dataclasses.replace(self, velocities=pad(velocities,
                                                         self.velocities),
                                    blur=pad(blur, self.blur))
+
+    def pad_to(self, m: int) -> "CohortBatch":
+        """The cohort re-padded to m rows: the last row of the buffer,
+        the losses and the stats repeated (finite values, no RNG), the
+        mask still the valid prefix [0, n); so every masked aggregation
+        is bitwise the unpadded one's."""
+        if m < self.size:
+            raise ValueError(f"pad_to({m}) smaller than the current size "
+                             f"{self.size}")
+        if m == self.size:
+            return self
+        pad = m - self.size
+
+        def ext(x):
+            if x is None:
+                return None
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+
+        return CohortBatch(
+            flat=ext(self.flat), spec=self.spec, losses=ext(self.losses),
+            mask=(torch.arange(m, device=self.flat.device) < self.n).float(),
+            n=self.n, velocities=ext(self.velocities), blur=ext(self.blur))
 
     def padded_weights(self, w_valid) -> torch.Tensor:
         """(n,) weights over the valid rows -> (m,) with zero padding."""

@@ -16,6 +16,9 @@ parity mode (runtime.py). Every topology (``single``, ``multi``,
 ``aggregator="fedco"`` spelling), aggregator and codec of the reference
 is accepted; the mesh options of the topologies raise
 NotImplementedError naming the ROADMAP.md entry that ports them.
+``parallel=True`` (the default, as in the reference) trains each cohort
+or RSU group with the batched client step, ``parallel=False`` client by
+client (core/clients.py).
 """
 from __future__ import annotations
 
@@ -161,7 +164,8 @@ class Scenario:
 
 def run_round(state: FLState, scenario: Scenario, parallel: bool = True):
     """One federated round: (state, scenario) -> (state, record). Pure.
-    Runs on the scenario's device."""
+    Runs on the scenario's device; `parallel` picks the batched cohort
+    step (True) or the client-by-client one."""
     return scenario.topology.run_round(state, scenario, parallel=parallel)
 
 

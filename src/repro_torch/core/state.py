@@ -12,6 +12,10 @@ CPU `torch.Generator` that takes the place of the reference's jax key
     state, rec = run_round(state, scenario)      # core/scenario.py
 
 is pure: the same state in gives the same state out.
+
+`FLState.to_tree()` / `FLState.from_tree()` convert to and from the
+plain dict pytree that `checkpoint.store` writes, in the reference's
+layout, with `gen_state` where the reference has its jax `key`.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.convert import tree_map
 from repro_torch.core.mobility import BLUR_KMH_100
 
 ROADMAP_FOR = {
@@ -113,6 +118,13 @@ def unpack_host_rng(packed: dict) -> np.random.RandomState:
     return rng
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A checkpoint leaf (numpy, or a tensor) as a tensor on `device`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.tensor(np.asarray(a), device=device)
+
+
 def generator_from(gen_state: torch.Tensor) -> torch.Generator:
     gen = torch.Generator()
     gen.set_state(gen_state)
@@ -148,3 +160,56 @@ class FLState:
 
     def replace(self, **kw) -> "FLState":
         return dataclasses.replace(self, **kw)
+
+    # -- checkpoint payload -------------------------------------------------
+
+    def to_tree(self) -> dict:
+        """Plain dict pytree — what checkpoint.store writes; the
+        reference's layout with `gen_state` in the place of `key`."""
+        return {"global_tree": self.global_tree,
+                "gen_state": self.gen_state,
+                "host_rng": dict(self.host_rng),
+                "round": np.int64(self.round),
+                "topo": self.topo,
+                "client_state": self.client_state,
+                "comms": self.comms}
+
+    @classmethod
+    def from_tree(cls, tree: dict, device="cpu",
+                  gen_state: Optional[torch.Tensor] = None) -> "FLState":
+        """The state a `to_tree` payload (numpy or tensor leaves)
+        describes: model trees, FedCo's key tree and queue and the error
+        feedback as tensors on `device`; host_rng, the handover's
+        positions and sync statistics as numpy; rsu_models a tuple;
+        gen_state a CPU uint8 tensor.
+
+        A payload of the reference holds a jax `key` and no generator
+        state; it needs `gen_state` (which also takes the place of a
+        stored one), since a threefry key has no torch counterpart and a
+        silent reseed would change the run."""
+        if gen_state is None:
+            if "gen_state" not in tree:
+                raise ValueError(
+                    "this state holds no torch generator state (a "
+                    "checkpoint of the JAX reference holds a jax key "
+                    "instead); pass gen_state= explicitly to resume it")
+            gen_state = tree["gen_state"]
+
+        def on_device(t):
+            return tree_map(lambda a: _tensor(a, device), t)
+
+        topo = dict(tree.get("topo") or {})
+        for k in ("positions", "blur_sum", "upload_count"):
+            if k in topo:
+                topo[k] = np.asarray(topo[k])
+        if "rsu_models" in topo:
+            topo["rsu_models"] = tuple(on_device(t)
+                                       for t in topo["rsu_models"])
+        cs, comms = tree.get("client_state"), tree.get("comms")
+        return cls(global_tree=on_device(tree["global_tree"]),
+                   gen_state=_tensor(gen_state, "cpu"),
+                   host_rng={k: np.asarray(v)
+                             for k, v in tree["host_rng"].items()},
+                   round=int(tree["round"]), topo=topo,
+                   client_state=on_device(cs) if cs else None,
+                   comms=on_device(comms) if comms else None)

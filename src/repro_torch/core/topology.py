@@ -33,9 +33,12 @@ two steps, `draw_round` (the draws) and `plan_round` (a pure function of
 them: grouping, motion, upload weights, the sync), so a test can hand
 `plan_round` and `execute` draws replayed from the reference.
 
-On one card every topology runs on the host path: each RSU group is
-trained client by client, as the reference's ``parallel=False`` does.
-The mesh paths (`MultiRSU(mesh_aggregate=True)`,
+Each cohort or RSU group trains through the client's `run_cohort`:
+``parallel=True`` (the default, the reference's vmapped path) runs the
+batched client step over chunks of clients, ``parallel=False`` trains
+client by client (core/clients.py); the handover pads each download
+group to its power-of-two bucket when ``parallel and bucketed``, as the
+reference does. The mesh paths (`MultiRSU(mesh_aggregate=True)`,
 `HandoverMultiRSU(mesh_shard=True)`) are ROADMAP.md Queue A, item 9.
 
 The phases are marked with `torch.profiler.record_function` ranges
@@ -57,7 +60,7 @@ from repro_torch.convert import ravel, tree_map, unravel
 from repro_torch.core import aggregation as agg
 from repro_torch.core import ssl
 from repro_torch.core.clients import CLIENT_UPDATES
-from repro_torch.core.cohort import CohortBatch
+from repro_torch.core.cohort import CohortBatch, bucket_size
 from repro_torch.core.hierarchical import aggregate_hierarchical
 from repro_torch.core.mobility import apply_motion_blur
 from repro_torch.core.state import (FLConfig, FLState, generator_from,
@@ -198,14 +201,14 @@ class SingleRSU(Topology):
     name = "single"
 
     def run_round(self, state: FLState, scenario, parallel: bool = True):
-        """One round: (state, scenario) -> (new state, record). `parallel`
-        is accepted for the reference's signature; the port trains the
-        cohort client by client either way."""
+        """One round: (state, scenario) -> (new state, record).
+        `parallel` picks the batched (True) or the client-by-client
+        cohort step."""
         with record_function("round.plan"):
             rng = unpack_host_rng(state.host_rng)
             gen = generator_from(state.gen_state)
             plan = _cohort_plan(rng, gen, state.round, scenario)
-        state, rec = self.execute(state, scenario, plan)
+        state, rec = self.execute(state, scenario, plan, parallel)
         return state.replace(gen_state=gen.get_state(),
                              host_rng=pack_host_rng(rng)), rec
 
@@ -219,7 +222,8 @@ class SingleRSU(Topology):
             draws = [_client_draws(d, device) for d in plan.draws]
             return batches, draws, plan.velocities.to(device)
 
-    def execute(self, state: FLState, scenario, plan: CohortPlan):
+    def execute(self, state: FLState, scenario, plan: CohortPlan,
+                parallel: bool = True):
         """Run `plan` from `state` (its tree, client state and comms) on
         the scenario's device. Returns (state after the round, record);
         the RNG fields are left as they were."""
@@ -229,7 +233,8 @@ class SingleRSU(Topology):
         batches, draws, v = self._batches(scenario, plan)
         with record_function("round.clients"):
             cohort, uploads = client.run_cohort(
-                cfg, tree, state.client_state, batches, draws, plan.lr)
+                cfg, tree, state.client_state, batches, draws, plan.lr,
+                parallel=parallel)
             cohort = cohort.with_stats(velocities=v, blur=mob.blur_level(v))
         # comms tier: the RSU aggregates what survived the V2I link
         # (encode -> decode against the broadcast base model); identity
@@ -251,7 +256,8 @@ class MultiRSU(SingleRSU):
     """N RSUs + regional server, no motion: hierarchical Eq. 11.
 
     The cohort (drawn as SingleRSU draws it, batches in round order) is
-    dealt round-robin across RSUs; each RSU trains its group, the codec
+    dealt round-robin across RSUs; each RSU trains its group (one batched
+    step a group under ``parallel=True``), the codec
     stage runs per group with the cohort indices as error-feedback slots,
     and `aggregate_hierarchical` merges the groups. FedCo uploads are
     kept in group order. `mesh_aggregate=None` or False runs this host
@@ -285,7 +291,8 @@ class MultiRSU(SingleRSU):
     def validate(self, cfg: FLConfig) -> None:
         _require_flsimco(cfg, "MultiRSU")
 
-    def execute(self, state: FLState, scenario, plan: CohortPlan):
+    def execute(self, state: FLState, scenario, plan: CohortPlan,
+                parallel: bool = True):
         cfg, mob = scenario.cfg, scenario.mobility
         client = CLIENT_UPDATES[cfg.client]
         tree = tree_map(lambda t: t.to(scenario.device), state.global_tree)
@@ -300,7 +307,7 @@ class MultiRSU(SingleRSU):
             with record_function("round.clients"):
                 cohort, ups = client.run_cohort(
                     cfg, tree, state.client_state, [batches[i] for i in sel],
-                    [draws[i] for i in sel], plan.lr)
+                    [draws[i] for i in sel], plan.lr, parallel=parallel)
                 cohort = cohort.with_stats(velocities=v[rows],
                                            blur=blur[rows])
             # the codec is row-wise: per-group roundtrips with rows=sel
@@ -395,11 +402,15 @@ class HandoverMultiRSU(Topology):
     `FLState.topo`: positions (n_vehicles,) float32, rsu_models (a tuple
     of n_rsus trees), blur_sum and upload_count (n_rsus,) float64.
 
-    `bucketed` is accepted and kept in `signature` but changes nothing:
-    the reference pads each download group to a power-of-two size for its
-    vmapped step, and the port trains each group client by client, as the
-    reference's sequential path (which its bucketed path equals) does.
-    `mesh_shard=True` raises (ROADMAP.md Queue A, item 9).
+    Under ``parallel=True`` each download group trains as one batched
+    step; with `bucketed` (the default) it is first padded to its
+    power-of-two `bucket_size` by repeating the last client's batch and
+    draws (no random numbers drawn), and the padded rows are masked out,
+    as in the reference. `bucketed=False` runs each group at its exact
+    size; ``parallel=False`` trains client by client and never pads. As
+    in the reference, `bucketed` is not part of `signature` (it changes
+    no result beyond rounding). `mesh_shard=True` raises (ROADMAP.md
+    Queue A, item 9).
     """
 
     name = "handover"
@@ -433,7 +444,7 @@ class HandoverMultiRSU(Topology):
                 "stale_discount": self.stale_discount,
                 "sync_every": self.sync_every,
                 "count_scaled": self.count_scaled,
-                "bucketed": self.bucketed, "mesh_shard": self.mesh_shard}
+                "mesh_shard": self.mesh_shard}
 
     def validate(self, cfg: FLConfig) -> None:
         _require_flsimco(cfg, "HandoverMultiRSU")
@@ -454,6 +465,11 @@ class HandoverMultiRSU(Topology):
                 "rsu_models": tuple([global_tree] * self.n_rsus),
                 "blur_sum": np.zeros(self.n_rsus),
                 "upload_count": np.zeros(self.n_rsus)}
+
+    def pad_to(self, group_size: int):
+        """The padded size of a download group under the batched step:
+        its `bucket_size` when `bucketed`, else None (exact size)."""
+        return bucket_size(int(group_size)) if self.bucketed else None
 
     def rsu_index(self, positions) -> np.ndarray:
         return (np.floor_divide(np.asarray(positions), self.rsu_range)
@@ -534,8 +550,9 @@ class HandoverMultiRSU(Topology):
             blur_sum=blur_sum, upload_count=upload_count)
 
     def run_round(self, state: FLState, scenario, parallel: bool = True):
-        """One round: (state, scenario) -> (new state, record). `parallel`
-        is accepted for the reference's signature."""
+        """One round: (state, scenario) -> (new state, record).
+        `parallel` picks the batched (True) or the client-by-client
+        cohort step."""
         with record_function("round.plan"):
             rng = unpack_host_rng(state.host_rng)
             gen = generator_from(state.gen_state)
@@ -544,11 +561,12 @@ class HandoverMultiRSU(Topology):
             plan = self.plan_round(draws, state.round, positions,
                                    state.topo["blur_sum"],
                                    state.topo["upload_count"], scenario)
-        state, rec = self.execute(state, scenario, plan)
+        state, rec = self.execute(state, scenario, plan, parallel)
         return state.replace(gen_state=gen.get_state(),
                              host_rng=pack_host_rng(rng)), rec
 
-    def execute(self, state: FLState, scenario, plan: HandoverPlan):
+    def execute(self, state: FLState, scenario, plan: HandoverPlan,
+                parallel: bool = True):
         """Run `plan` from `state` on the scenario's device. Returns
         (state after the round, record); the RNG fields are left as they
         were."""
@@ -567,9 +585,10 @@ class HandoverMultiRSU(Topology):
                                           device) for i in sel]
                 draws = [_client_draws(plan.draws[i], device) for i in sel]
             with record_function("round.clients"):
-                cohort, _ = client.run_cohort(cfg, rsu_models[rsu],
-                                              state.client_state, batches,
-                                              draws, plan.lr)
+                cohort, _ = client.run_cohort(
+                    cfg, rsu_models[rsu], state.client_state, batches,
+                    draws, plan.lr, parallel=parallel,
+                    pad_to=self.pad_to(sel.size) if parallel else None)
             with record_function("round.comms"):
                 cohort, comms = roundtrip_cohort(cfg, cohort,
                                                  rsu_models[rsu], comms,

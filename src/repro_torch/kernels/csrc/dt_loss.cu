@@ -4,7 +4,9 @@
 //   pos   = sim_ii,
 //   loss  = -(w_b / max(w_a, 1e-8)) * (pos / tau_a - lse_a),
 //   w_a = 1 - exp(pos / tau_a - lse_a),  w_b = 1 - exp(pos / tau_b - lse_b).
-// Columns j >= n_valid are masked out.
+// Columns j >= n_valid are masked out. A launch takes a cohort of C such
+// problems, (C, M, D) q and k, one per client, and writes four (C, M)
+// outputs.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/dt_loss.py:_dt_fwd_kernel
 // (launched by dt_loss_fwd_pallas), which walks (128, 128) tiles on the
@@ -15,9 +17,16 @@
 // needs 2*M*M*D = 67 MFLOP and reads 0.5 MB, so it is bound by
 // operations: about 1 us at the 67 TFLOP/s float32 rate. At that size the
 // time goes to a serial chain of latencies (launch, the first TMA copy,
-// the products, the merges across the cluster), not to bandwidth.
+// the products, the merges across the cluster), not to bandwidth. A
+// chunk of C clients needs C times the work; its clients run side by side
+// on the SMs, so the chain of latencies is paid about once a launch.
 //
 // Design (Hopper):
+// * The cohort. Client z is grid row blockIdx.y; its q and k are the z-th
+//   (M, D) slices of 3-D tensor maps (D, M, C) whose boxes are one client
+//   deep, so a tile never reads the next client's rows: the hardware
+//   fills rows past M with zeros, as it does at the ragged edge of one
+//   matrix. The clients of a chunk share one launch (core/clients.py).
 // * Parallelism. A thread-block cluster of kCluster = 8 CTAs takes 32
 //   anchor rows (two m16 tiles of mma.m16n8k8) and splits the keys: CTA
 //   rank r walks the 64-key tiles r, r + 8, r + 16, ... At M = 512 that
@@ -123,15 +132,15 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Copies the box of `map` at (column c0, row r0) into shared memory with
-// the TMA engine (rows and columns past the tensor's edge come as zeros);
-// the transfer completes its bytes on barrier `bar`.
+// Copies the box of `map` at (column c0, row r0) of client z into shared
+// memory with the TMA engine (rows and columns past the client's matrix
+// come as zeros); the transfer completes its bytes on barrier `bar`.
 __device__ __forceinline__ void tma_box(float* dst, const CUtensorMap* map,
-                                        int c0, int r0, uint64_t* bar) {
+                                        int c0, int r0, int z, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(z),
       "r"(smem_addr(bar))
       : "memory");
 }
@@ -266,6 +275,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int row0 = (blockIdx.x / kCluster) * kRows;
+  const int z = blockIdx.y;                // the client
+  loss += size_t(z) * m;
+  lse_a_out += size_t(z) * m;
+  lse_b_out += size_t(z) * m;
+  pos_out += size_t(z) * m;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // mma group and thread in group
@@ -287,7 +301,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     if (rows > 0 && lane == 0) {
       expect_bytes(&bars[warp], 4u * kBox * kWarpKeys * chunks);
       for (int c = 0; c < chunks; ++c)
-        tma_box(slice + c * kWarpKeys * kBox, &k_map, c * kBox, key0,
+        tma_box(slice + c * kWarpKeys * kBox, &k_map, c * kBox, key0, z,
                 &bars[warp]);
     }
     return rows;
@@ -307,7 +321,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   if (warp == 0 && lane == 0 && rank < n_tiles) {   // Q rows row0 ..
     expect_bytes(q_bar, 4u * kBox * kRows * chunks);
     for (int c = 0; c < chunks; ++c)
-      tma_box(qs + c * kRows * kBox, &q_map, c * kBox, row0, q_bar);
+      tma_box(qs + c * kRows * kBox, &q_map, c * kBox, row0, z, q_bar);
   }
   // arrive now, wait before touching rank 0's shared memory at the end
   asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
@@ -489,16 +503,18 @@ EncodeFn encoder() {
   return fn;
 }
 
-// The (m, d) row-major float32 tensor at `ptr` in boxes of kBox columns
-// by `rows` rows, 128-byte swizzled, zeros past its edges.
-bool encode(CUtensorMap* map, const void* ptr, int m, int d, int rows) {
+// The (c, m, d) row-major float32 tensor at `ptr` in boxes of kBox
+// columns by `rows` rows of one of the c matrices, 128-byte swizzled,
+// zeros past each matrix's edges.
+bool encode(CUtensorMap* map, const void* ptr, int c, int m, int d,
+            int rows) {
   const EncodeFn fn = encoder();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cuuint64_t(d), cuuint64_t(m)};
-  const cuuint64_t strides[1] = {cuuint64_t(d) * 4};
-  const cuuint32_t box[2] = {cuuint32_t(kBox), cuuint32_t(rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
+  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(m), cuuint64_t(c)};
+  const cuuint64_t strides[2] = {cuuint64_t(d) * 4, cuuint64_t(m) * d * 4};
+  const cuuint32_t box[3] = {cuuint32_t(kBox), cuuint32_t(rows), 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
             dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -506,13 +522,14 @@ bool encode(CUtensorMap* map, const void* ptr, int m, int d, int rows) {
 
 }  // namespace
 
-// q, k: (m, d) row-major f32, 16-byte aligned, d % 4 == 0, d <= 256;
-// outputs: four (m,) f32. Launched on `stream`.
+// q, k: (c, m, d) row-major f32, 16-byte aligned, d % 4 == 0, d <= 256;
+// outputs: four (c, m) f32. One launch for the c clients, on `stream`.
 extern "C" int dt_loss_fwd_launch(const void* q, const void* k, void* loss,
-                                  void* lse_a, void* lse_b, void* pos, int m,
-                                  int d, int n_valid, float tau_a, float tau_b,
-                                  void* stream) {
-  if (m < 1 || d < 4 || d > kMaxD || d % 4 || n_valid < 1 || n_valid > m)
+                                  void* lse_a, void* lse_b, void* pos, int c,
+                                  int m, int d, int n_valid, float tau_a,
+                                  float tau_b, void* stream) {
+  if (c < 1 || c > 65535 || m < 1 || d < 4 || d > kMaxD || d % 4 ||
+      n_valid < 1 || n_valid > m)
     return static_cast<int>(cudaErrorInvalidValue);
   // the tiles pass 48 KB: raise the kernel's limit once per device
   static bool ready[64];
@@ -524,9 +541,10 @@ extern "C" int dt_loss_fwd_launch(const void* q, const void* k, void* loss,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap q_map, k_map;
-  if (!encode(&q_map, q, m, d, kRows) || !encode(&k_map, k, m, d, kWarpKeys))
+  if (!encode(&q_map, q, c, m, d, kRows) ||
+      !encode(&k_map, k, c, m, d, kWarpKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = kCluster * ((m + kRows - 1) / kRows);
+  const dim3 grid(kCluster * ((m + kRows - 1) / kRows), c);
   dt_fwd_mma_kernel<<<grid, kThreads, smem_bytes((d + kBox - 1) / kBox),
                       static_cast<cudaStream_t>(stream)>>>(
       q_map, k_map, static_cast<float*>(loss), static_cast<float*>(lse_a),

@@ -2,8 +2,9 @@
 
 Counterpart of `repro.kernels.dt_loss.dt_loss_fwd_pallas` (the Pallas TPU
 kernel `_dt_fwd_kernel`). `dt_loss_fwd_cuda` launches the hand-written
-CUDA kernel on CUDA tensors and nothing else; the device dispatch, the
-plain version and the gradient live in `kernels.ops`. `kernel_attributes`
+CUDA kernel on CUDA tensors and nothing else: one (M, D) pair, or a
+cohort of C pairs (C, M, D) in one launch. The device dispatch, the plain
+version and the gradient live in `kernels.ops`. `kernel_attributes`
 reports the kernel's registers, spills and CTAs per SM.
 
 `LAUNCHES` counts kernel launches (and nothing else).
@@ -29,8 +30,8 @@ _c = ctypes
 def _lib():
     """The configured C entry point (built and loaded at first launch)."""
     fn = build.load("dt_loss").dt_loss_fwd_launch
-    fn.argtypes = [_c.c_void_p] * 6 + [_c.c_int, _c.c_int, _c.c_int,
-                                       _c.c_float, _c.c_float, _c.c_void_p]
+    fn.argtypes = [_c.c_void_p] * 6 + [_c.c_int] * 4 + [
+        _c.c_float, _c.c_float, _c.c_void_p]
     fn.restype = _c.c_int
     return fn
 
@@ -52,8 +53,10 @@ def kernel_attributes(d: int = 128) -> dict:
 
 def dt_loss_fwd_cuda(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
                      tau_beta: float):
-    """q, k (M, D) float32 CUDA -> (loss_vec, lse_a, lse_b, pos), each (M,).
-    Raises on anything the kernel does not take."""
+    """q, k (M, D) float32 CUDA -> (loss_vec, lse_a, lse_b, pos), each
+    (M,); or a cohort q, k (C, M, D) -> four (C, M), client c's rows from
+    q[c] and k[c] alone, in one launch. Raises on anything the kernel
+    does not take."""
     # analysis: allow=purity-global-mutation -- the launch counter that
     # shows a run went through the kernel (chip_smoke.py reads it)
     global LAUNCHES
@@ -61,24 +64,27 @@ def dt_loss_fwd_cuda(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
         if t.device.type != "cuda":
             raise ValueError(f"dt_loss_fwd_cuda needs CUDA tensors, "
                              f"{name} is on {t.device}")
-        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"dt_loss: {name} must be contiguous 2-D "
-                             f"float32, got {t.dtype} {tuple(t.shape)}")
+        if t.dtype != torch.float32 or t.dim() not in (2, 3) \
+                or not t.is_contiguous():
+            raise ValueError(f"dt_loss: {name} must be contiguous 2-D or "
+                             f"3-D float32, got {t.dtype} {tuple(t.shape)}")
     if q.shape != k.shape or q.device != k.device:
         raise ValueError(f"dt_loss: q {tuple(q.shape)} on {q.device} and "
                          f"k {tuple(k.shape)} on {k.device} must match")
-    m, d = q.shape
-    if m < 1:
-        raise ValueError(f"dt_loss kernel takes M >= 1, got {tuple(q.shape)}")
+    c, m, d = q.shape if q.dim() == 3 else (1, *q.shape)
+    if m < 1 or not 1 <= c <= 65535:
+        raise ValueError(f"dt_loss kernel takes M >= 1 and 1 <= C <= 65535, "
+                         f"got {tuple(q.shape)}")
     _check_d(d)
     if q.data_ptr() % 16 or k.data_ptr() % 16:
         raise ValueError("dt_loss kernel needs 16-byte aligned q and k")
-    # one allocation, handed out as four (M,) rows
-    out = torch.empty((4, m), dtype=torch.float32, device=q.device)
-    ptr, row = out.data_ptr(), 4 * m
+    # one allocation, handed out as four outputs of q's leading shape
+    out = torch.empty((4, *q.shape[:-1]), dtype=torch.float32,
+                      device=q.device)
+    ptr, row = out.data_ptr(), 4 * c * m
     fn = _lib()
     args = (q.data_ptr(), k.data_ptr(), ptr, ptr + row, ptr + 2 * row,
-            ptr + 3 * row, m, d, m, float(tau_alpha), float(tau_beta))
+            ptr + 3 * row, c, m, d, m, float(tau_alpha), float(tau_beta))
     if q.device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:

@@ -12,7 +12,10 @@ a failed build or launch raises too.
   a `torch.autograd.Function` whose forward is the DT kernel and whose
   backward is the plain-torch port of the reference's `_dt_bwd` (the
   reference has no backward kernel either), with the Eq.-6 weight
-  treated as a constant.
+  treated as a constant. It composes with `torch.func`: under
+  `torch.func.vmap` its `vmap` rule sends the batched (C, M, D) q and k
+  to ONE launch of the kernel's cohort form (the cohort plain version
+  on the CPU), and the backward runs batched.
 * ``q8_encode_flat(flat (N, P), ef (N, P))`` and
   ``q8_decode_flat(codes, scales)`` — the blockwise-int8 delta codec
   (one float32 scale per BQ = 256 columns), P zero-padded to a multiple
@@ -56,22 +59,51 @@ def wagg_flat(stacked: torch.Tensor, w: torch.Tensor,
 
 def dt_loss_fwd(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
                 tau_beta: float):
-    """(loss_vec, lse_a, lse_b, pos), each (M,) float32."""
+    """(loss_vec, lse_a, lse_b, pos), each (M,) float32 for (M, D) q and
+    k; each (C, M) for a cohort (C, M, D), in one launch on the card."""
     if _on_cuda(q, k):
         return _dt_kernel.dt_loss_fwd_cuda(q, k, tau_alpha, tau_beta)
+    if q.dim() == 3:
+        return ref.dt_loss_fwd_cohort_ref(q, k, tau_alpha, tau_beta)
     return ref.dt_loss_fwd_ref(q, k, tau_alpha, tau_beta)
 
 
 class _DTLoss(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, tau_alpha, tau_beta):
-        loss_vec, lse_a, lse_b, pos = dt_loss_fwd(q, k, tau_alpha, tau_beta)
-        ctx.save_for_backward(q, k, lse_a, lse_b, pos)
-        ctx.taus = (tau_alpha, tau_beta)
-        return loss_vec.mean()
+    """(mean loss, lse_a, lse_b, pos); only the loss is differentiable.
+    The three statistics are outputs so that the backward may save them
+    (the `setup_context` form, which `torch.func` needs)."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(q, k, tau_alpha, tau_beta):
+        loss_vec, lse_a, lse_b, pos = dt_loss_fwd(q, k, tau_alpha, tau_beta)
+        return loss_vec.mean(), lse_a, lse_b, pos
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, tau_alpha, tau_beta = inputs
+        _, lse_a, lse_b, pos = output
+        ctx.mark_non_differentiable(lse_a, lse_b, pos)
+        ctx.save_for_backward(q, k, lse_a, lse_b, pos)
+        ctx.taus = (tau_alpha, tau_beta)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, tau_alpha, tau_beta):
+        """The cohort: q and k batched over clients (any vmap levels
+        folded into one leading C) -> one `dt_loss_fwd` of (C, M, D)."""
+        def cohort(t, dim):
+            t = (t.expand(info.batch_size, *t.shape) if dim is None
+                 else t.movedim(dim, 0))
+            return t.reshape(-1, *t.shape[-2:]).contiguous(), t.shape[:-2]
+
+        (q3, lead), (k3, _) = cohort(q, in_dims[0]), cohort(k, in_dims[1])
+        loss_vec, lse_a, lse_b, pos = dt_loss_fwd(q3, k3, tau_alpha,
+                                                  tau_beta)
+        outs = (loss_vec.mean(-1).reshape(lead),
+                *(t.reshape(*lead, -1) for t in (lse_a, lse_b, pos)))
+        return outs, (0, 0, 0, 0)
+
+    @staticmethod
+    def backward(ctx, g, _lse_a, _lse_b, _pos):
         """d/dq, d/dk of mean_i [-w_i (pos_i/ta - lse_a_i)] with w_i held
         constant (stop-gradient, Eq. 6): dL/dsim_ij = w_i/(ta M) (p_a_ij -
         delta_ij). Materialises the (M, M) matrix, as the reference does."""
@@ -96,7 +128,7 @@ class _DTLoss(torch.autograd.Function):
 def dt_loss(q: torch.Tensor, k: torch.Tensor, tau_alpha: float = 0.1,
             tau_beta: float = 1.0) -> torch.Tensor:
     """Mean dual-temperature loss over in-batch similarities (fused)."""
-    return _DTLoss.apply(q, k, tau_alpha, tau_beta)
+    return _DTLoss.apply(q, k, tau_alpha, tau_beta)[0]
 
 
 def _pad_cols(x: torch.Tensor, multiple: int):

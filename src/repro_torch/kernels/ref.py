@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels — counterpart of
-`repro.kernels.ref` (`dt_loss_fwd_ref`, `wagg_ref`, `q8_encode_ref`,
+`repro.kernels.ref` (`dt_loss_fwd_ref`, and its cohort form
+`dt_loss_fwd_cohort_ref`, `wagg_ref`, `q8_encode_ref`,
 `q8_decode_ref`, `rwkv6_ref`).
 
 They define what the CUDA kernels compute. The CPU path of every wrapper
@@ -25,6 +26,16 @@ def dt_loss_fwd_ref(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
     over the in-batch similarity row sim_i = q_i @ k^T (positive = diag).
     """
     return dt_loss_from_sim(q.float() @ k.float().T, tau_alpha, tau_beta)
+
+
+def dt_loss_fwd_cohort_ref(q: torch.Tensor, k: torch.Tensor,
+                           tau_alpha: float, tau_beta: float):
+    """The cohort form: q, k (C, M, D) -> four (C, M), row c from q[c] and
+    k[c] alone through `dt_loss_fwd_ref` (so each is bitwise the
+    unbatched call)."""
+    outs = [dt_loss_fwd_ref(qc, kc, tau_alpha, tau_beta)
+            for qc, kc in zip(q, k)]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def dt_loss_from_sim(sim: torch.Tensor, tau_alpha: float, tau_beta: float):

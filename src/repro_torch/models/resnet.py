@@ -20,6 +20,12 @@ Two places where PyTorch's defaults differ from the reference:
   updates the running stats with it too (``new = 0.9*old + 0.1*batch``,
   eps 1e-5); ``nn.BatchNorm2d`` would store the unbiased variance. `_bn`
   is written out here.
+
+`resnet_apply` does nothing in place, so it runs under `torch.func.vmap`
+(the batched cohort step, core/clients.py) with the tree unbatched: the
+convolutions then take the chunk's images as one batch against one
+weight, while BN's statistics stay per client (they reduce over each
+client's own N, H, W) and the running-stat update stays detached.
 """
 from __future__ import annotations
 

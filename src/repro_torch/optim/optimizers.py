@@ -9,7 +9,9 @@ The paper trains with SGD(momentum=0.9, weight_decay=5e-4) under a
 cosine-annealed lr from 0.9 (Table 1). The update is float32 elementwise
 in the reference's order, one operation at a time (no fused
 multiply-add), so on the CPU it is bitwise equal to the reference run
-op by op. The schedules return a Python float holding a float32 value.
+op by op. The update is out of place, so it runs under
+`torch.func.vmap` (the batched cohort step's per-client SGD). The
+schedules return a Python float holding a float32 value.
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Where a round's time goes on the card.
 
     python -m repro_torch.trace_round [--rounds 2] [--codec identity]
-        [--topology single|multi|handover] [--client dtssl|fedco] [--out DIR]
+        [--topology single|multi|handover] [--client dtssl|fedco]
+        [--sequential] [--out DIR]
 
 (with ``src`` on PYTHONPATH, on a machine with one CUDA card). Builds the
 paper's Table-1 scenario (as chip_smoke.py's main path does) with the
 given codec, topology (``multi``: two RSUs; ``handover``: the reference's
 defaults, two RSUs of 1 km) and client, warms up, then runs one more
-round under `torch.profiler` and reports:
+round under `torch.profiler` (with the batched cohort step, or client by
+client under ``--sequential``) and reports:
 
 * each phase that the topology marks with a ``round.*`` range (plan,
   batches, clients, comms, aggregate; MultiRSU and the handover mark the
@@ -15,7 +17,8 @@ round under `torch.profiler` and reports:
   how many ranges, and the device span from the first kernel launched
   inside one of them to the last;
 * device time by kernel and by host op, and the device's busy and idle
-  share of the round's wall time.
+  share of the round's wall time;
+* the profiled round's peak device memory.
 
 Prints one JSON line, and with ``--out DIR`` also writes the profiler's
 chrome trace there. All times include the profiler's own overhead.
@@ -41,7 +44,7 @@ TOPOLOGY_KWARGS = {"single": None, "multi": {"n_rsus": 2}, "handover": {}}
 PHASE = "round."
 
 
-def _profiled_round(sc, state, out_dir) -> dict:
+def _profiled_round(sc, state, out_dir, parallel: bool = True) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -49,7 +52,7 @@ def _profiled_round(sc, state, out_dir) -> dict:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t = time.perf_counter()
-        _, rec = run_round(state, sc)
+        _, rec = run_round(state, sc, parallel=parallel)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     if out_dir:
@@ -58,9 +61,11 @@ def _profiled_round(sc, state, out_dir) -> dict:
     # the round.* ranges appear as host ranges and as device annotations
     # (one per stream the range launched on); a phase's device span runs
     # from the first annotation's start to the last one's end
-    phases, spans = {}, {}
+    phases, spans, intervals = {}, {}, []
     for e in prof.events():
         if not e.name.startswith(PHASE):
+            if e.device_type == DeviceType.CUDA:
+                intervals.append((e.time_range.start, e.time_range.end))
             continue
         ph = phases.setdefault(e.name[len(PHASE):], {})
         if e.device_type == DeviceType.CUDA:
@@ -75,11 +80,19 @@ def _profiled_round(sc, state, out_dir) -> dict:
     events = prof.key_averages()
     # kernels are the device-side events; host-side aten ops carry the
     # device time of the kernels they launched as their "self" time
-    real = [e for e in events if not e.key.startswith(PHASE)]
+    # ("Command Buffer Full" marks the host waiting for room in the
+    # launch queue; it is no op)
+    real = [e for e in events if not e.key.startswith(PHASE)
+            and e.key != "Command Buffer Full"]
     kernels = [e for e in real if e.device_type == DeviceType.CUDA]
     ops = [e for e in real if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    # busy: the union of the kernels' intervals (kernels on two streams
+    # may overlap, so their summed times can pass the wall time)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted(intervals):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
 
     def top(evs, n):
         evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
@@ -103,6 +116,8 @@ def main(argv=None) -> int:
     p.add_argument("--topology", default="single",
                    choices=sorted(TOPOLOGY_KWARGS))
     p.add_argument("--client", default="dtssl", choices=["dtssl", "fedco"])
+    p.add_argument("--sequential", action="store_true",
+                   help="train client by client (run_round(parallel=False))")
     p.add_argument("--out", default=None,
                    help="directory for the chrome trace (none by default)")
     args = p.parse_args(argv)
@@ -111,16 +126,18 @@ def main(argv=None) -> int:
         TABLE1, codec=args.codec, topology=args.topology, client=args.client,
         topology_kwargs=TOPOLOGY_KWARGS[args.topology]))
     state = sc.init_state()
+    parallel = not args.sequential
     for _ in range(args.rounds):
-        state, _ = run_round(state, sc)
+        state, _ = run_round(state, sc, parallel=parallel)
     torch.cuda.synchronize()
-    prof = _profiled_round(sc, state, args.out)
+    torch.cuda.reset_peak_memory_stats()
+    prof = _profiled_round(sc, state, args.out, parallel)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"card": smi, "codec": args.codec,
                       "topology": args.topology, "client": args.client,
-                      "profiled": prof,
+                      "parallel": parallel, "profiled": prof,
                       "peak_mem_gib": torch.cuda.max_memory_allocated()
                       / 2 ** 30}))
     return 0

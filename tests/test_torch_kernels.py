@@ -291,6 +291,56 @@ def test_dt_loss_kernel_matches_plain_on_card(cuda, M, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,M,D", [(5, 512, 128), (3, 500, 128),
+                                   (3, 513, 128), (1, 512, 128),
+                                   (4, 17, 12), (2, 1024, 32)])
+def test_dt_loss_cohort_kernel_matches_plain_on_card(cuda, C, M, D):
+    """A cohort of C clients in ONE launch against the cohort plain
+    version: ragged rows and keys at the client boundaries (M = 500, 513,
+    17) read no other client's rows; each client's outputs are bitwise
+    its own unbatched launch's; two calls bitwise equal."""
+    rs = np.random.RandomState(C * 100000 + M * 1000 + D)
+    q = torch.from_numpy(_unit(rs, (C, M, D))).to(cuda)
+    k = torch.from_numpy(_unit(rs, (C, M, D))).to(cuda)
+    for ta, tb in DT_TAUS:
+        before = dt_kernel.LAUNCHES
+        got = ops.dt_loss_fwd(q, k, ta, tb)
+        assert dt_kernel.LAUNCHES == before + 1
+        assert all(t.shape == (C, M) for t in got)
+        for a, b in zip(got, ref.dt_loss_fwd_cohort_ref(q, k, ta, tb)):
+            torch.testing.assert_close(a, b, atol=DT_FWD_TOL, rtol=0)
+        again = ops.dt_loss_fwd(q, k, ta, tb)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for c in range(C):
+            one = ops.dt_loss_fwd(q[c].contiguous(), k[c].contiguous(), ta,
+                                  tb)
+            assert all(torch.equal(a, b[c]) for a, b in zip(one, got))
+
+
+@pytest.mark.cuda
+def test_dt_loss_vmapped_grads_match_the_loop_on_card(cuda):
+    """`torch.func.vmap(torch.func.grad)` of the fused loss launches the
+    cohort kernel once, and its gradients match a loop of the unbatched
+    autograd path."""
+    rs = np.random.RandomState(7)
+    q = torch.from_numpy(_unit(rs, (3, 512, 128))).to(cuda)
+    k = torch.from_numpy(_unit(rs, (3, 512, 128))).to(cuda)
+    for ta, tb in DT_TAUS:
+        def loss(a, b):
+            return ops.dt_loss(a, b, ta, tb)
+
+        before = dt_kernel.LAUNCHES
+        gq, gk = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)))(q, k)
+        assert dt_kernel.LAUNCHES == before + 1
+        for c in range(3):
+            qc = q[c].clone().requires_grad_()
+            kc = k[c].clone().requires_grad_()
+            a, b = torch.autograd.grad(loss(qc, kc), (qc, kc))
+            torch.testing.assert_close(gq[c], a, atol=DT_GRAD_TOL, rtol=0)
+            torch.testing.assert_close(gk[c], b, atol=DT_GRAD_TOL, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tau", [0.1, 0.07, 0.2, 1.0])
 def test_plain_scalar_division_is_reciprocal_multiply_on_card(cuda, tau):
     """The plain version's sim / tau on the card is sim times the float32
