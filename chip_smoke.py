@@ -52,7 +52,8 @@ the JAX package `repro`. Phases, each of which must pass:
    then 3 rounds from round 0 with ``parallel=False`` (dt_loss 5 a
    round), timed beside them, with the peak memory of each.
    Every phase's expected launches come from the round's plan by one
-   stated rule (`_round_launches`).
+   stated rule (`_round_launches`; `_engine_launches` for the campaign
+   engine, which trains the whole cohort unpadded).
 5. Comms path: 3 more Table-1 rounds from round 0 with
    ``codec="delta_int8"`` through `Scenario` / `run`, each published into
    a ``ModelStore(codec="delta_int8")`` bootstrapped with round 0; the
@@ -73,6 +74,20 @@ the JAX package `repro`. Phases, each of which must pass:
      bitwise, the trees within CROSS_MAX_ABS (card runs are not bitwise
      repeatable); the same for the handover with ``delta_int8``
      (positions, RSU models, error feedback; one code step more);
+   * ``[engine]``: the campaign engine (`run_campaign`), the general
+     cache released before it and the engine's graph after it: small
+     rounds of every topology with every codec, a replayed round against
+     the eager one from one state; 4 Table-1 rounds in ``mode="graph"`` (one CUDA graph a round, one
+     capture across two chunks of ``checkpoint_every=2``, published into
+     a ``ModelStore``), warm replays under ``transfer_guard=True`` and one
+     under torch.profiler (the kernels inside a replay), then each chunk
+     again in ``mode="eager"`` and through `run`: the schedule bitwise,
+     the trees within CROSS_MAX_ABS chunk by chunk, launches wagg 1 and
+     dt_loss 2 a round from the replays; 5 handover rounds (delta_int8,
+     the sync at round 4) graph against eager; 2 MultiRSU rounds graph
+     against `run`. Prints seconds a round, host ms a round, the
+     device's idle share, the peak memory, the graph pool and the
+     capture's seconds for each mode;
    * ``[topo]``: small rounds of MultiRSU(n_rsus=2), the handover (two
      rounds with a handover and the region sync) and FedCo, each from
      one state on the card and with ``device="cpu"``; loss, global tree,
@@ -165,8 +180,8 @@ both shapes (``device_ms_1``: at (1, Ppad)).
 
 The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode and
 rwkv6, each with its launches on the path that runs it (``paths``: its
-launches on every path: main, comms, batched, resume, multi, handover,
-fedco, zoo),
+launches on every path: main, comms, batched, resume, engine (its
+graph campaigns), multi, handover, fedco, zoo),
 ``ms`` and ``device_ms``. The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
 "device": {...}}``. On any
@@ -857,10 +872,8 @@ def _zero_counts() -> None:
 
 
 def _counts() -> dict:
-    from repro_torch.kernels import dt_loss, qdelta, rwkv6, wagg
-    return {"wagg": wagg.LAUNCHES, "dt_loss": dt_loss.LAUNCHES,
-            "q8_encode": qdelta.ENCODE_LAUNCHES,
-            "q8_decode": qdelta.DECODE_LAUNCHES, "rwkv6": rwkv6.LAUNCHES}
+    from repro_torch.kernels import ops
+    return ops.launch_counts()
 
 
 def main_path(dev):
@@ -1396,6 +1409,390 @@ def resume_path(dev, data):
     finally:
         restore()
     return table1
+
+
+def _engine_launches(sc, rounds: int) -> dict:
+    """The launches `rounds` rounds of `sc` make through the campaign
+    engine (core/engine.py), which trains the whole cohort in chunks of
+    CLIENTS_PER_CHUNK (no groups, no padding): dt_loss one a chunk a
+    local iteration; wagg 1 (SingleRSU), one per RSU group + 1 for the
+    region (MultiRSU), n_rsus + 1 (the handover: every RSU's upload sum
+    and the sync's merge, taken or not); q8_encode and q8_decode one each
+    under delta_int8."""
+    from repro_torch.core.clients import CLIENTS_PER_CHUNK
+
+    cfg, topo = sc.cfg, sc.topology
+    n = cfg.vehicles_per_round
+    wagg = {"single": 1, "multi": min(getattr(topo, "n_rsus", 1), n) + 1,
+            "handover": getattr(topo, "n_rsus", 1) + 1}[topo.name]
+    q8 = int(cfg.codec == "delta_int8")
+    per = {"wagg": wagg,
+           "dt_loss": cfg.local_iters * -(-n // CLIENTS_PER_CHUNK),
+           "q8_encode": q8, "q8_decode": q8, "rwkv6": 0}
+    return {k: v * rounds for k, v in per.items()}
+
+
+# the port's kernels as the profiler names them
+ENGINE_KERNELS = (("wagg", "wagg_kernel"), ("dt_loss", "dt_fwd"),
+                  ("q8_encode", "q8_encode_kernel"),
+                  ("q8_decode", "q8_decode_kernel"))
+
+
+def _engine_profile(work) -> dict:
+    """`work()` (a campaign) under torch.profiler: the host ms inside the
+    engine's ``engine.round`` ranges; the round window, from the first
+    such range's start to the last device event's end (the planning, the
+    data stack's upload and the set-up before it left out); the device's
+    busy ms in it (the union of its kernel and copy intervals) and its
+    idle share; each port kernel's launches the device trace holds; the
+    host ops with the most device time (a replay's kernels are listed
+    under the ops that recorded them only in eager rounds)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    host_ms, first, intervals = 0.0, float("inf"), []
+    seen = {name: 0 for name, _ in ENGINE_KERNELS}
+    # ("Activity Buffer Request" and "Command Buffer Full" are the
+    # profiler's and the launch queue's, not ops)
+    ops_ = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_device_time_total > 0
+            and not e.key.startswith(("engine.", "Activity Buffer",
+                                      "Command Buffer"))]
+    for e in prof.events():
+        if e.name.startswith("engine."):
+            if e.name == "engine.round" and e.device_type == DeviceType.CPU:
+                host_ms += e.time_range.elapsed_us() / 1e3
+                first = min(first, e.time_range.start)
+            continue
+        if e.device_type == DeviceType.CUDA:
+            intervals.append((e.time_range.start, e.time_range.end))
+            for name, key in ENGINE_KERNELS:
+                seen[name] += key in e.name
+    last = max(hi for _, hi in intervals)
+    busy_us, end = 0.0, first
+    for lo, hi in sorted(intervals):
+        busy_us += max(0.0, min(hi, last) - max(lo, end))
+        end = max(end, hi)
+    window_us = last - first
+    top = sorted(ops_, key=lambda e: -e.self_device_time_total)[:6]
+    return {"round_host_ms": host_ms, "window_ms": window_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / window_us, "kernels": seen,
+            "top_ops_ms": [(e.key[:40], e.count,
+                            round(e.self_device_time_total / 1e3, 1))
+                           for e in top]}
+
+
+def _sans_loss(hist) -> list:
+    return [{k: v for k, v in r.items() if k != "loss"} for r in hist]
+
+
+def _same_schedule(a, b, hist_a, hist_b) -> bool:
+    """Records but the loss, host_rng, gen_state and the handover's host
+    state of two campaigns' results, bitwise."""
+    import numpy as np
+    import torch
+
+    same = (_sans_loss(hist_a) == _sans_loss(hist_b)
+            and torch.equal(a.gen_state, b.gen_state) and a.round == b.round
+            and all(np.array_equal(a.host_rng[k], b.host_rng[k])
+                    for k in a.host_rng))
+    return same and all(np.array_equal(a.topo[k], b.topo[k])
+                        for k in ("positions", "blur_sum", "upload_count")
+                        if k in a.topo)
+
+
+def engine_path(dev, data):
+    """[engine]: the campaign engine (`run_campaign`) at the Table-1
+    setting. Returns the launches of its graph-mode campaigns, counters
+    zeroed before each and each held to `_engine_launches`.
+    * small rounds (16x16 images, batch 8) of every topology with every
+      codec: a captured round, then a replayed one against the same round
+      in mode="eager" from one state (the schedule bitwise, the trees and
+      the error feedback within CROSS_MAX_ABS plus one code step);
+    * Table 1: 4 rounds in mode="graph" with checkpoint_every=2 into
+      build/chip_smoke_engine/ (removed after), published into a
+      ModelStore: one capture across the two chunks, each published tree
+      bitwise its checkpoint's, the last decoding bitwise to the final
+      tree. 3 more rounds replayed with transfer_guard=True (any
+      host-device sync raises), then one under torch.profiler (the
+      kernels the device trace sees inside a replay). The graph freed,
+      each chunk again in mode="eager" and through `run`, from the state
+      the graph campaign started the chunk from (its checkpoint): the
+      schedule, host_rng and gen_state bitwise across the three, the
+      trees graph against eager and run against eager within
+      CROSS_MAX_ABS at every chunk's end (each chunk is 2 rounds from one
+      state: card runs are not bitwise repeatable, and 4 chained rounds
+      at lr 0.9 grow the difference of two eager runs past 1e-2 while it
+      stays below 0.1% of the update);
+    * the handover: 5 rounds at the reference's defaults with delta_int8
+      (the sync at round 4), graph against eager the same way in chunks
+      of 2, 2 and 1: the schedule bitwise, the trees and the error
+      feedback within CROSS_MAX_ABS plus one code step;
+    * MultiRSU: 2 rounds on 2 RSUs in mode="graph" against `run`: the
+      schedule bitwise, the trees within CROSS_MAX_ABS.
+    Prints, per mode, seconds a round (between the publishes of chunks
+    of one round, the set-up left out), host ms a round, the device's
+    idle share in a profiled round, the peak memory, the graph pool's
+    size and the capture's seconds."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.store import restore_state
+    from repro_torch.comms.codecs import CODECS, decode_snapshot
+    from repro_torch.convert import ravel
+    from repro_torch.core import engine
+    from repro_torch.core.scenario import Scenario, run, run_campaign
+    from repro_torch.serve import ModelStore
+    from repro_torch.trace_round import TABLE1
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_engine")
+    total = {}
+
+    def campaign(tag, sc, state, rounds, **kw):
+        """One counted campaign: (state, history, peak GiB, the seconds
+        between consecutive publishes when publish_every=1)."""
+        stamps = []
+        if kw.get("publish_every") == 1:
+            kw["publish"] = lambda r, t: stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        state, hist = run_campaign(sc, state, rounds, **kw)
+        torch.cuda.synchronize()
+        launches, want = _counts(), _engine_launches(sc, rounds)
+        if launches != want:
+            raise AssertionError(f"[engine] {tag}: launches {launches} != "
+                                 f"{want}")
+        if kw.get("mode") == "graph":
+            total.update(_add(total, launches))
+        for rec in hist:
+            _check_round("engine", rec, state)
+        return (state, hist, torch.cuda.max_memory_allocated() / 2**30,
+                [b - a for a, b in zip(stamps, stamps[1:])])
+
+    def run_timed(sc, state, rounds):
+        stamps = []
+        state, hist = run(sc, state, rounds=rounds,
+                          publish=lambda r, t: stamps.append(
+                              time.perf_counter()))
+        return state, hist, [b - a for a, b in zip(stamps, stamps[1:])]
+
+    def graph_chunks(tag, sc, start, rounds, every, **kw):
+        """The graph campaign with checkpoint_every=`every`: (its state
+        and history, peak GiB, [(round, the state the graph campaign
+        started each chunk from, restored from its checkpoint)], a line
+        on the capture)."""
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        st, hist, peak, _ = campaign(tag, sc, start, rounds, mode="graph",
+                                     checkpoint_every=every,
+                                     checkpoint_dir=ckpt_dir, **kw)
+        starts = [(0, start)] + [
+            (r, restore_state(os.path.join(ckpt_dir, f"round_{r:06d}"),
+                              scenario=sc))
+            for r in range(every, rounds, every)]
+        stats = engine.graph_stats(sc)
+        line = (f"capture {stats['capture_s']:.3f} s, graph pool "
+                f"{stats['pool_bytes'] / 2**30:.2f} GiB, compile_counts "
+                f"{engine.compile_counts(sc)}, peak {peak:.2f} GiB")
+        return st, hist, starts, line
+
+    def held(tag, a, a_hist, b, b_hist, start, step=0.0):
+        """Schedule bitwise, trees (and the error feedback) within
+        CROSS_MAX_ABS (+ step); returns the worst differences."""
+        schedule = _same_schedule(a, b, a_hist, b_hist)
+        worst = _rows_diff(a, b, start)
+        ef = (_max_err(a.comms["ef"], b.comms["ef"])
+              if a.comms is not None else 0.0)
+        if not (schedule and worst[0] <= CROSS_MAX_ABS + step
+                and ef <= CROSS_MAX_ABS + step):
+            raise AssertionError(f"[engine] {tag}: schedule {schedule}, "
+                                 f"trees {worst}, EF {ef}, step {step}")
+        return worst[0], worst[1], ef
+
+    # -- every topology and codec, small ----------------------------------
+    rs = np.random.RandomState(0)
+    small = [rs.rand(24, 16, 16, 3).astype(np.float32) for _ in range(6)]
+    worst = {}
+    for topo, tkw in (("single", None), ("multi", {"n_rsus": 2}),
+                      ("handover", {"n_rsus": 2, "rsu_range": 100.0,
+                                    "sync_every": 2})):
+        for codec in ("identity", "delta", "delta_int8"):
+            tag = f"small {topo} {codec}"
+            sc = Scenario(device=dev, data=small, n_vehicles=6,
+                          vehicles_per_round=5, batch_size=8, rounds=4,
+                          topology=topo, topology_kwargs=tkw, codec=codec)
+            # round 0 captures, round 1 replays; round 1 eagerly from the
+            # same state
+            s1 = campaign(tag, sc, sc.init_state(), 1, mode="graph")[0]
+            st_g, h_g = campaign(tag, sc, s1, 1, mode="graph")[:2]
+            counts = engine.compile_counts(sc)
+            st_e, h_e = campaign(tag, sc, s1, 1, mode="eager")[:2]
+            step = 0.0 if s1.comms is None else 2 * max(
+                float(st.comms["ef"].abs().max()) for st in (st_g, st_e))
+            worst[f"{topo} {codec}"] = held(tag, st_g, h_g, st_e, h_e, s1,
+                                            step)[0]
+            if counts != {"graph": 1}:
+                raise AssertionError(f"[engine] {tag}: compile_counts "
+                                     f"{counts}")
+            engine.reset_engine_caches()
+    print(f"[engine] small rounds (16x16 images, batch 8), a replayed "
+          f"round against the eager one from one state, schedule bitwise, "
+          f"trees max abs: {worst}", flush=True)
+
+    # -- Table 1 ---------------------------------------------------------
+    sc = Scenario(device=dev, data=data, **TABLE1)
+    store = ModelStore()
+    st_g, h_g, starts, line = graph_chunks("Table-1 graph", sc,
+                                           sc.init_state(), 4, 2,
+                                           publish=store.publish)
+    # where the graph campaign ended each chunk: the next one's start
+    ends = [s for _, s in starts[1:]] + [st_g]
+    snap = decode_snapshot(CODECS[store.codec], store.get(4).delta_payload,
+                           store.get(2).served_tree)
+    published = (store.rounds() == [2, 4]
+                 and torch.equal(ravel(store.get(2).tree),
+                                 ravel(ends[0].global_tree))
+                 and torch.equal(ravel(store.get(4).tree),
+                                 ravel(st_g.global_tree))
+                 and torch.equal(ravel(snap), ravel(st_g.global_tree)))
+    counts = engine.compile_counts(sc)
+    st_w, _, _, t_g = campaign("Table-1 graph, guarded", sc, st_g, 3,
+                               mode="graph", transfer_guard=True,
+                               publish_every=1)
+    prof_g = _engine_profile(lambda: run_campaign(sc, st_w, 1, mode="graph"))
+    counts_after = engine.compile_counts(sc)
+    engine.reset_engine_caches()
+    worst, t_e, t_r, peak_e = [], [], [], 0.0
+    for (r0, s0), end in zip(starts, ends):
+        k = 2
+        st_e, h_e, peak, dt = campaign("Table-1 eager", sc, s0, k,
+                                       mode="eager", publish_every=1)
+        st_r, h_r, dt_r = run_timed(sc, s0, k)
+        peak_e, t_e, t_r = max(peak_e, peak), t_e + dt, t_r + dt_r
+        worst.append((held("Table-1 graph vs eager", end, h_g[r0:r0 + k],
+                           st_e, h_e, s0),
+                      held("Table-1 run vs eager", st_r, h_r, st_e, h_e,
+                           s0)))
+    prof_e = _engine_profile(lambda: run_campaign(sc, st_e, 1, mode="eager"))
+    one = _engine_launches(sc, 1)
+    seen = dict(prof_g["kernels"])
+    print(f"[engine] Table-1 graph: {line}; seconds a round (warm, "
+          f"transfer_guard) {[round(t, 4) for t in t_g]}; profiled replay: "
+          f"host {prof_g['round_host_ms']:.3f} ms, round window "
+          f"{prof_g['window_ms']:.3f} ms, device busy "
+          f"{prof_g['device_busy_ms']:.3f} ms, idle "
+          f"{prof_g['idle_share']:.4f}, kernels seen on the device {seen}",
+          flush=True)
+    print(f"[engine] Table-1 eager round, device ms by op: "
+          f"{prof_e['top_ops_ms']}", flush=True)
+    print(f"[engine] Table-1 eager: seconds a round "
+          f"{[round(t, 4) for t in t_e]}, peak {peak_e:.2f} GiB; profiled "
+          f"round: host {prof_e['round_host_ms']:.3f} ms, round window "
+          f"{prof_e['window_ms']:.3f} ms, device busy "
+          f"{prof_e['device_busy_ms']:.3f} ms, idle "
+          f"{prof_e['idle_share']:.4f}, kernels seen {prof_e['kernels']}; "
+          f"run(parallel=True) seconds a round {[round(t, 4) for t in t_r]}",
+          flush=True)
+    print(f"[engine] Table-1: schedule, host_rng and gen_state bitwise "
+          f"across graph, eager and run at rounds 2 and 4; trees at each "
+          f"chunk's end (max abs, relative to the update), graph vs eager "
+          f"{[w[0][:2] for w in worst]}, run vs eager "
+          f"{[w[1][:2] for w in worst]}; graph losses "
+          f"{[r['loss'] for r in h_g]}; publishes bitwise the checkpoints "
+          f"and the final tree {published}; compile_counts {counts} after "
+          f"the campaign, {counts_after} after the warm ones", flush=True)
+    if not any(seen.values()):
+        print("[engine] the profiler saw no kernel inside the replayed "
+              "graph: launches rest on the replay counts", flush=True)
+    elif seen != {k: one[k] for k in seen}:
+        raise AssertionError(f"[engine] kernels in one profiled replay "
+                             f"{seen} != {one}")
+    if not (published and counts == counts_after == {"graph": 1}):
+        raise AssertionError(f"[engine] Table-1: published {published}, "
+                             f"compile_counts {counts} {counts_after}")
+    del st_g, st_w, st_e, st_r, starts, ends, store, snap
+    engine.reset_engine_caches()
+
+    # -- the handover, delta_int8 ----------------------------------------
+    sc = Scenario(device=dev, data=data, **dict(
+        TABLE1, topology="handover", topology_kwargs={}, codec="delta_int8"))
+    st_g, h_g, starts, line = graph_chunks("handover graph", sc,
+                                           sc.init_state(), 5, 2)
+    shutil.rmtree(ckpt_dir)
+    ends = [s for _, s in starts[1:]] + [st_g]
+    st_w, _, _, t_g = campaign("handover graph, warm", sc, st_g, 2,
+                               mode="graph", publish_every=1)
+    prof_g = _engine_profile(lambda: run_campaign(sc, st_w, 1, mode="graph"))
+    del st_w
+    engine.reset_engine_caches()
+    scales, worst, t_e = [], [], []
+    restore = _recording_scales(scales)
+    try:
+        for (r0, s0), end in zip(starts, ends):
+            k = min(2, 5 - r0)
+            del scales[:]
+            st_e, h_e, peak_e, dt = campaign("handover eager", sc, s0, k,
+                                             mode="eager", publish_every=1)
+            t_e += dt
+            # one code step of the largest block scale either side
+            # encoded with (the graph's from its residual: |ef| <= scale/2)
+            step = max(max(scales), 2 * float(end.comms["ef"].abs().max()))
+            worst.append(held("handover graph vs eager", end,
+                              h_g[r0:r0 + k], st_e, h_e, s0, step)
+                         + (step,))
+    finally:
+        restore()
+    syncs = [r["round"] for r in h_g if r["synced"]]
+    handovers = sum(r["n_handovers"] for r in h_g)
+    prof_e = _engine_profile(lambda: run_campaign(sc, st_e, 1, mode="eager"))
+    print(f"[engine] handover delta_int8 graph: {line}; seconds a round "
+          f"(warm) {[round(t, 4) for t in t_g]}; profiled replay: host "
+          f"{prof_g['round_host_ms']:.3f} ms, round window "
+          f"{prof_g['window_ms']:.3f} ms, idle {prof_g['idle_share']:.4f}, "
+          f"kernels seen {prof_g['kernels']}; eager round, device ms by op "
+          f"{prof_e['top_ops_ms']}", flush=True)
+    print(f"[engine] handover delta_int8: eager seconds a "
+          f"round {[round(t, 4) for t in t_e]}, peak {peak_e:.2f} GiB; "
+          f"schedule bitwise; {handovers} handovers, syncs at {syncs}; at "
+          f"rounds 2, 4, 5 (trees max abs, relative, EF max abs, code step) "
+          f"{worst}; graph losses {[r['loss'] for r in h_g]}", flush=True)
+    if not (handovers and syncs == [4]):
+        raise AssertionError(f"[engine] handover: {handovers} handovers, "
+                             f"syncs at {syncs}; expected handovers and the "
+                             f"sync at round 4")
+    del st_g, st_e, starts, ends
+    engine.reset_engine_caches()
+
+    # -- MultiRSU ---------------------------------------------------------
+    sc = Scenario(device=dev, data=data, **dict(
+        TABLE1, topology="multi", topology_kwargs={"n_rsus": 2}))
+    start = sc.init_state()
+    st_g, h_g, peak_g, _ = campaign("multi graph", sc, start, 2,
+                                    mode="graph")
+    stats = engine.graph_stats(sc)
+    engine.reset_engine_caches()
+    st_r, h_r = run(sc, start, rounds=2)
+    worst = held("multi graph vs run", st_g, h_g, st_r, h_r, start)
+    print(f"[engine] MultiRSU graph: capture {stats['capture_s']:.3f} s, "
+          f"graph pool {stats['pool_bytes'] / 2**30:.2f} GiB, peak "
+          f"{peak_g:.2f} GiB; against run: schedule bitwise, rsu_sizes "
+          f"{[r['rsu_sizes'] for r in h_g]}, trees max abs {worst[0]:.3e} "
+          f"(relative {worst[1]:.3e}); graph launches of the phase {total}",
+          flush=True)
+    engine.reset_engine_caches()
+    return total
 
 
 def _probe_cpu_check(dev, f_tr, y_tr, f_te, y_te):
@@ -1955,6 +2352,7 @@ def run() -> int:
     paths = {"main": launches, "comms": comms_launches,
              "batched": batched_path(dev, main_sc.data),
              "resume": resume_path(dev, main_sc.data),
+             "engine": engine_path(dev, main_sc.data),
              "multi": multi_path(dev, main_sc.data),
              "handover": handover_path(dev, main_sc.data),
              "fedco": fedco_path(dev, main_sc.data)}

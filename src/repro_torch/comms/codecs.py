@@ -215,8 +215,9 @@ def roundtrip_cohort(cfg, cohort, base, comms, rows=None,
     `base` (a stacked tree, one row per valid client, with
     ``stacked_base=True``). Returns (cohort', comms').
 
-    rows: index array mapping cohort row -> error-feedback slot; None
-    means slots [0, n) in order. The decoded rows go into a new (m, P)
+    rows: index array mapping cohort row -> error-feedback slot (numpy,
+    or an int64 tensor on the residual's device, used with no copy);
+    None means slots [0, n) in order. The decoded rows go into a new (m, P)
     buffer; padding rows (m > n) repeat the last decoded row, as in the
     reference (they are masked out of every aggregation). The input
     cohort and ``comms`` are not modified, so a round stays pure.

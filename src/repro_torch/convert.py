@@ -171,11 +171,13 @@ def ravel(tree) -> torch.Tensor:
 
 
 def unravel(row: torch.Tensor, spec: FlatSpec) -> dict:
-    """(P,) row -> tree whose leaves are views into `row`."""
+    """(P,) row -> tree whose leaves are views into `row`; (m, P) rows ->
+    the stacked tree, each leaf (m, *shape), row i being tree i."""
     tree: dict = {}
+    lead = tuple(row.shape[:-1])
     for path, shape, off, n in spec.entries:
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = row[off:off + n].view(shape)
+        node[path[-1]] = row[..., off:off + n].view(lead + tuple(shape))
     return tree

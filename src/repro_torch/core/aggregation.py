@@ -29,7 +29,9 @@ from repro_torch.kernels import ops
 def _weighted_stacked_sum(flat: torch.Tensor, spec, weights,
                           mask=None) -> dict:
     """sum_m w_m * row[m] over an (m, P) cohort buffer, unraveled into
-    the model tree (leaves are views of the one (P,) result)."""
+    the model tree (leaves are views of the one (P,) result). `weights`
+    already float32 on the buffer's device are used as they are, with no
+    copy (the campaign engine's captured round)."""
     w = torch.as_tensor(weights, dtype=torch.float32, device=flat.device)
     return unravel(ops.wagg_flat(flat, w, mask), spec)
 

@@ -132,6 +132,28 @@ def client_step(cfg: FLConfig, tree: dict, images: torch.Tensor,
     return {"params": params, "state": state}, torch.stack(losses).mean()
 
 
+def train_chunks(cfg: FLConfig, tree: dict, images: torch.Tensor,
+                 draws: list, lr, cohort: CohortBatch,
+                 tree_batched: bool = False) -> None:
+    """The batched client step over a cohort, CLIENTS_PER_CHUNK clients a
+    `torch.func.vmap`: client i's trained tree and mean loss go into row
+    i of `cohort` (in place). images (m, B, H, W, C); draws one (pi1,
+    pi2) pair a local iteration, each draw tensor stacked over the m
+    clients (`_stack_draws`); `tree` is every client's init tree, or with
+    `tree_batched` each leaf (m, ...), client i's init tree in row i (the
+    handover's engine body). `lr` is a float or a 0-d float32 tensor."""
+    step = torch.func.vmap(
+        lambda t, x, d: client_step(cfg, t, x, d, lr),
+        in_dims=(0 if tree_batched else None, 0, 0))
+    for i0 in range(0, images.shape[0], CLIENTS_PER_CHUNK):
+        sl = slice(i0, i0 + CLIENTS_PER_CHUNK)
+        t = tree_map(lambda a: a[sl], tree) if tree_batched else tree
+        chunk = [tuple({k: v[sl] for k, v in d.items()} for d in pair)
+                 for pair in draws]
+        trees, losses = step(t, images[sl], chunk)
+        cohort.write_rows(i0, trees, losses)
+
+
 def _stack_draws(draws: list) -> list:
     """Clients' per-iteration (pi1, pi2) draw pairs -> one pair a
     iteration, each draw tensor stacked along a leading client axis."""
@@ -213,13 +235,8 @@ class DTSSLClient:
         n = len(batches)
         batches, draws = _pad_inputs(batches, draws, pad_to)
         cohort = _empty_cohort(tree, batches, n)
-        step = torch.func.vmap(
-            lambda images, d: client_step(cfg, tree, images, d, lr))
-        for i0 in range(0, len(batches), CLIENTS_PER_CHUNK):
-            sl = slice(i0, i0 + CLIENTS_PER_CHUNK)
-            trees, losses = step(torch.stack(batches[sl]),
-                                 _stack_draws(draws[sl]))
-            cohort.write_rows(i0, trees, losses)
+        train_chunks(cfg, tree, torch.stack(batches), _stack_draws(draws),
+                     lr, cohort)
         return cohort, None
 
     def finalize(self, cfg: FLConfig, client_state, aggregated_tree,

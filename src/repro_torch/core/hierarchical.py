@@ -9,7 +9,10 @@
 
 Level 1 is one `cohort_weighted_row` per RSU, each a row of one
 (n_rsus, P) buffer; level 2 is one weighted sum over that buffer,
-unraveled once: n_rsus + 1 `ops.wagg_flat` calls. The mesh forms
+unraveled once: n_rsus + 1 `ops.wagg_flat` calls. The weights and the
+counts stay on the cohorts' device (each count is its validity mask's
+sum), so the campaign engine's captured round runs it with no host copy
+(core/engine.py). The mesh forms
 (`two_stage_weighted_psum`, `sharded_*`) are ROADMAP.md Queue A, item 9.
 """
 from __future__ import annotations
@@ -18,11 +21,10 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.convert import flat_spec, leaves_with_paths
-from repro_torch.core.aggregation import (_weighted_stacked_sum,
-                                          cohort_weighted_row,
-                                          flsimco_weights)
+from repro_torch.convert import flat_spec, leaves_with_paths, unravel
+from repro_torch.core.aggregation import cohort_weighted_row, flsimco_weights
 from repro_torch.core.cohort import CohortBatch
+from repro_torch.kernels import ops
 
 
 def _as_cohort(group, blur) -> CohortBatch:
@@ -37,6 +39,20 @@ def _as_cohort(group, blur) -> CohortBatch:
     return cohort.with_stats(blur=blur)
 
 
+def hierarchical_row(cohorts: Sequence[CohortBatch],
+                     count_scaled: bool = True) -> torch.Tensor:
+    """The region's model as a (P,) flat row, from one `CohortBatch` an
+    RSU with its blur levels attached."""
+    rsu_flat = torch.stack([
+        cohort_weighted_row(c, flsimco_weights(c.valid_blur))
+        for c in cohorts])
+    W = flsimco_weights(torch.stack([c.valid_blur.mean() for c in cohorts]))
+    if count_scaled:
+        W = W * torch.stack([c.mask.sum() for c in cohorts])
+        W = W / W.sum()
+    return ops.wagg_flat(rsu_flat, W)
+
+
 def aggregate_hierarchical(groups: Sequence, blur_groups: Sequence = None,
                            count_scaled: bool = True) -> dict:
     """groups[r] = the cohort at RSU r (a `CohortBatch` with blur
@@ -44,12 +60,4 @@ def aggregate_hierarchical(groups: Sequence, blur_groups: Sequence = None,
     blur levels). Returns the region's model tree."""
     blur_groups = blur_groups or [None] * len(groups)
     cohorts = [_as_cohort(g, b) for g, b in zip(groups, blur_groups)]
-    rsu_flat = torch.stack([
-        cohort_weighted_row(c, flsimco_weights(c.valid_blur))
-        for c in cohorts])
-    W = flsimco_weights(torch.stack([c.valid_blur.mean() for c in cohorts]))
-    if count_scaled:
-        W = W * torch.tensor([c.n for c in cohorts], dtype=torch.float32,
-                             device=W.device)
-        W = W / W.sum()
-    return _weighted_stacked_sum(rsu_flat, cohorts[0].spec, W)
+    return unravel(hierarchical_row(cohorts, count_scaled), cohorts[0].spec)

@@ -1,5 +1,5 @@
 """Declarative experiment builder + the pure round API — counterpart of
-`repro.core.scenario` (`Scenario`, `run_round`, `run`).
+`repro.core.scenario` (`Scenario`, `run_round`, `run`, `run_campaign`).
 
     sc = Scenario(topology="single", client="dtssl", aggregator="flsimco",
                   partitioner="dirichlet", alpha=0.1, n_vehicles=8,
@@ -7,6 +7,8 @@
     state = sc.init_state()
     state, rec = run_round(state, sc)            # one pure round
     state, history = run(sc, state, rounds=5)    # or many
+    state, history = run_campaign(sc, state, rounds=5)   # planned ahead,
+                                                 # a CUDA graph a round
 
 Same signatures as the reference; `Scenario` also takes ``device``: the
 scenario runs on CUDA unless ``device="cpu"`` is passed, and raises if
@@ -187,3 +189,14 @@ def run(scenario: Scenario, state: Optional[FLState] = None,
             print(f"[round {rec['round']:4d}] loss={rec['loss']:.4f} "
                   f"lr={rec['lr']:.4f}")
     return state, history
+
+
+def run_campaign(scenario: Scenario, state: Optional[FLState] = None,
+                 rounds: Optional[int] = None, **kwargs):
+    """`run` through the campaign engine: the whole schedule drawn ahead
+    from the same random streams, then one round body a round, eager or
+    replayed from a CUDA graph (``mode``) — see core/engine.py for the
+    modes, checkpoints, publishing and what is bitwise. Signature sugar
+    over `engine.run_campaign`."""
+    from repro_torch.core.engine import run_campaign as _run_campaign
+    return _run_campaign(scenario, state, rounds, **kwargs)

@@ -291,6 +291,13 @@ class MultiRSU(SingleRSU):
     def validate(self, cfg: FLConfig) -> None:
         _require_flsimco(cfg, "MultiRSU")
 
+    def rsu_groups(self, n: int) -> list:
+        """The non-empty round-robin groups of a cohort of n: one array of
+        cohort indices per RSU."""
+        assign = np.arange(n) % self.n_rsus
+        sels = [np.where(assign == rsu)[0] for rsu in range(self.n_rsus)]
+        return [s for s in sels if s.size]
+
     def execute(self, state: FLState, scenario, plan: CohortPlan,
                 parallel: bool = True):
         cfg, mob = scenario.cfg, scenario.mobility
@@ -298,9 +305,7 @@ class MultiRSU(SingleRSU):
         tree = tree_map(lambda t: t.to(scenario.device), state.global_tree)
         batches, draws, v = self._batches(scenario, plan)
         blur = mob.blur_level(v)
-        assign = np.arange(len(plan.ids)) % self.n_rsus
-        sels = [np.where(assign == rsu)[0] for rsu in range(self.n_rsus)]
-        sels = [s for s in sels if s.size]
+        sels = self.rsu_groups(len(plan.ids))
         comms, cohorts, uploads = state.comms, [], []
         for sel in sels:
             rows = torch.from_numpy(sel).to(v.device)

@@ -25,6 +25,11 @@ a failed build or launch raises too.
   plain version is chunked, CHUNK = 16), returning the true state after
   S steps (`ref.rwkv6_ref`'s, not the reference wrapper's decayed one);
   ``rwkv6_plain`` is its plain version on any device.
+
+`launch_counts()` reads every kernel's launch counter (each wrapper adds
+one where it launches its kernel); `add_launches` is for whoever replays
+a CUDA graph, which runs the launches its capture recorded without
+calling the wrappers (core/engine.py).
 """
 from __future__ import annotations
 
@@ -36,6 +41,28 @@ from repro_torch.kernels import qdelta as _q8_kernel
 from repro_torch.kernels import rwkv6 as _rwkv6_kernel
 from repro_torch.kernels import wagg as _wagg_kernel
 from repro_torch.kernels.qdelta import BQ
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by kernel name."""
+    return {"wagg": _wagg_kernel.LAUNCHES, "dt_loss": _dt_kernel.LAUNCHES,
+            "q8_encode": _q8_kernel.ENCODE_LAUNCHES,
+            "q8_decode": _q8_kernel.DECODE_LAUNCHES,
+            "rwkv6": _rwkv6_kernel.LAUNCHES}
+
+
+def add_launches(counts: dict) -> None:
+    """Add `counts` (kernel name -> launches, as `launch_counts` names
+    them) to the counters. A graph replay adds what its capture recorded;
+    a capture takes its own calls back (they recorded the launches, they
+    did not run them)."""
+    # analysis: allow=purity-global-mutation -- the launch counters
+    _wagg_kernel.LAUNCHES += counts.get("wagg", 0)
+    _dt_kernel.LAUNCHES += counts.get("dt_loss", 0)
+    _rwkv6_kernel.LAUNCHES += counts.get("rwkv6", 0)
+    with _q8_kernel._COUNT_LOCK:
+        _q8_kernel.ENCODE_LAUNCHES += counts.get("q8_encode", 0)
+        _q8_kernel.DECODE_LAUNCHES += counts.get("q8_decode", 0)
 
 
 def _on_cuda(*ts) -> bool:

@@ -11,7 +11,11 @@ in the reference's order, one operation at a time (no fused
 multiply-add), so on the CPU it is bitwise equal to the reference run
 op by op. The update is out of place, so it runs under
 `torch.func.vmap` (the batched cohort step's per-client SGD). The
-schedules return a Python float holding a float32 value.
+schedules return a Python float holding a float32 value; `update` takes
+`lr` as that float or as a 0-d float32 tensor, with bitwise the same
+result (the campaign engine's captured round reads it from a device
+tensor, which a replay refills each round: a float would be captured as
+a constant).
 """
 from __future__ import annotations
 
