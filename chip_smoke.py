@@ -168,6 +168,35 @@ the JAX package `repro`. Phases, each of which must pass:
      and the device time by op of one profiled prefill (with the
      kernel's share) and of four profiled decode steps.
 
+9. Train path (``[train]``): the zoo's federated train step.
+   * The differentiable rwkv6 (`ops.rwkv6`'s autograd.Function: the
+     kernel forward, the plain chunked form differentiated all chunks at
+     once in the backward): gradients of r, k, v, logw, u and state0
+     against autograd through the plain chunk loop on the card, at (32,
+     4096, 64) (one full-width sequence) and at a ragged S with a state,
+     one kernel launch each, within RWKV6_GRAD_REL of each leaf's max.
+   * The DT kernel's wide form (256 < D <= 2048, the zoo's features)
+     against `ref.dt_loss_fwd_ref` at (8, 2048), (2, 8, 2048) and (512,
+     2048), DT_FWD_TOL, one launch of it and none of the narrow kernel,
+     two calls bitwise equal; timed at (8, 2048), a DT micro-batch.
+   * Cross-check: ``rwkv6-1.6b-smoke`` in float32, one ``lm`` step (2
+     micro-batches) and one ``dt`` step (S = 37, the last chunk ragged)
+     on the card and with ``device="cpu"``: loss, every gradient leaf,
+     params and momentum after the step (`train_cross_check` gives the
+     tolerances).
+   * Full width: ``rwkv6-1.6b``, random bfloat16 weights from seed 0,
+     through `repro_torch.launch.train`'s functions: the first ``lm``
+     micro-batch (1 x 4096) with the kernel forward against the plain
+     forward, its loss and gradient norms within ZOO_BF16_FLOOR_X times
+     the divergence of a 2-ULP perturbed plain forward in the same run;
+     then ``lm`` (flsimco, sgdm) at 8 x 4096 in 8 micro-batches,
+     TRAIN_LM_STEPS steps, and ``dt`` at 8 x 512 in one, TRAIN_DT_STEPS
+     steps (each after a warm-up step): seconds a step, tok/s, finite
+     losses, peak memory at most PEAK_GIB, launches a step (rwkv6 24 a
+     micro-batch and view, dt_loss_wide one a micro-batch), and one
+     step under torch.profiler with the device time of the
+     ``rwkv6.recompute`` range (the plain backward) and the idle share.
+
 The q8 kernels are held against their plain versions in phase 2, at
 (5, Ppad), (3, Ppad), (2, Ppad) and (1, Ppad), Ppad = 11,506,688 (the
 cohort, the groups of MultiRSU and the handover, a snapshot): codes,
@@ -178,10 +207,12 @@ yardstick of the decode is ``torch.mul(codes.view(N, -1, 256),
 scales[..., None])``; the encode has none. Their ``device_ms`` is taken at
 both shapes (``device_ms_1``: at (1, Ppad)).
 
-The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode and
-rwkv6, each with its launches on the path that runs it (``paths``: its
+The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode,
+rwkv6 and dt_loss_wide (the DT kernel's wide form, launched by the train
+path), each with its launches on the path that runs it (``paths``: its
 launches on every path: main, comms, batched, resume, engine (its
-graph campaigns), multi, handover, fedco, zoo),
+graph campaigns), multi, handover, fedco, zoo, train (the timed steps of
+both objectives)),
 ``ms`` and ``device_ms``. The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
 "device": {...}}``. On any
@@ -190,7 +221,9 @@ and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -240,6 +273,26 @@ ZOO_ULP_EPS = 2.0 ** -22
 ZOO_F32_REL = 1e-3
 ZOO_B, ZOO_S, ZOO_DECODE = 16, 2048, 64
 RWKV_H, RWKV_D = 32, 64
+# [train]: the full-width runs, (batch, seq_len, n_micro). lm: train_4k's
+# length, the batch cut from 256 to 8, one sequence a micro-batch (41.7
+# GiB peak; two a micro-batch peak at 55.4 GiB alone and ran out of the
+# card's memory after the earlier phases; H100 80GB HBM3, 700 W); dt:
+# micro-batches of at least 8 rows (the loss's in-batch negatives) and
+# two forwards each, S cut to 512 to stay under PEAK_GIB.
+TRAIN_LM, TRAIN_LM_STEPS = (8, 4096, 8), 3
+TRAIN_DT, TRAIN_DT_STEPS = (8, 512, 1), 2
+TRAIN_S, TRAIN_D = 4096, 2048
+# [train]: the rwkv6 Function's gradients against autograd through the
+# plain chunk loop on the card, of each leaf's max: the same sums taken
+# in another order (the chunk states all at once against one by one)
+# over 4096 steps
+RWKV6_GRAD_REL = 2e-5
+# [train]: the smoke config's step card vs CPU, float32: the CPU tests'
+# tolerances (loss 1e-6 relative, leaves 2e-5 of their max); for the dt
+# step, widened by the DT kernel's own float32 difference as it reaches
+# the gradient (`train_cross_check`)
+TRAIN_LOSS_REL = 1e-6
+TRAIN_LEAF_REL = 2e-5
 # [probe]: card against CPU features of the same tree on 256 images
 # (unit-norm features; cuDNN and the CPU sum convolutions in other orders)
 PROBE_FEAT_TOL = 1e-4
@@ -858,7 +911,8 @@ def _round_launches(sc, plan, parallel: bool = True) -> dict:
     q8 = len(groups) if cfg.codec == "delta_int8" else 0
     return {"wagg": wagg,
             "dt_loss": 0 if cfg.client == "fedco" else cfg.local_iters * per,
-            "q8_encode": q8, "q8_decode": q8, "rwkv6": 0}
+            "q8_encode": q8, "q8_decode": q8, "rwkv6": 0,
+            "dt_loss_wide": 0}
 
 
 def _add(total: dict, more: dict) -> dict:
@@ -868,6 +922,7 @@ def _add(total: dict, more: dict) -> dict:
 def _zero_counts() -> None:
     from repro_torch.kernels import dt_loss, qdelta, rwkv6, wagg
     wagg.LAUNCHES = dt_loss.LAUNCHES = rwkv6.LAUNCHES = 0
+    dt_loss.WIDE_LAUNCHES = 0
     qdelta.ENCODE_LAUNCHES = qdelta.DECODE_LAUNCHES = 0
 
 
@@ -1146,7 +1201,7 @@ def fedco_path(dev, data):
         state = new
     launches = _counts()
     want = {"wagg": rounds, "dt_loss": 0, "q8_encode": 0, "q8_decode": 0,
-            "rwkv6": 0}
+            "rwkv6": 0, "dt_loss_wide": 0}
     print(f"[fedco] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"[fedco] launches {launches} != {want}")
@@ -1428,7 +1483,8 @@ def _engine_launches(sc, rounds: int) -> dict:
     q8 = int(cfg.codec == "delta_int8")
     per = {"wagg": wagg,
            "dt_loss": cfg.local_iters * -(-n // CLIENTS_PER_CHUNK),
-           "q8_encode": q8, "q8_decode": q8, "rwkv6": 0}
+           "q8_encode": q8, "q8_decode": q8, "rwkv6": 0,
+           "dt_loss_wide": 0}
     return {k: v * rounds for k, v in per.items()}
 
 
@@ -2159,14 +2215,24 @@ def zoo_cross_check(dev):
                              f"vs full {dec_err} > {ZOO_CROSS_TOL}")
 
 
-def _profile(work) -> dict:
+def _profile(work, ranges=()) -> dict:
     """`work()` (which returns its own synchronised wall seconds) under
     torch.profiler: device time by kernel and by host op, the rwkv6
-    kernel's share, the device's idle share of the wall time."""
+    kernel's share, the device's idle share of the wall time, and for
+    each record_function range named in `ranges` the device time of the
+    kernels launched inside it (``<name>_ms``) and its count."""
     from torch.autograd import DeviceType
 
     wall, events = _profiled(work)
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = {}
+    for name in ranges:     # the host range: its child kernels' time
+        hits = [e for e in events if e.key == name
+                and e.device_type == DeviceType.CPU]
+        spans[f"{name}_ms"] = sum(e.device_time_total for e in hits) / 1e3
+        spans[f"{name}_count"] = sum(e.count for e in hits)
+    # kernels, not the ranges' own spans on the device's timeline
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in ranges]
     ops_ = [e for e in events if e.device_type == DeviceType.CPU
             and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -2182,7 +2248,8 @@ def _profile(work) -> dict:
             "rwkv6_ms": rwkv, "rwkv6_share": rwkv / busy if busy else None,
             "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
             "kernel_launches": sum(e.count for e in kernels),
-            "top_ops": top(ops_, 10), "top_kernels": top(kernels, 6)}
+            "top_ops": top(ops_, 10), "top_kernels": top(kernels, 6),
+            **spans}
 
 
 def _plain_prefill(cfg, params, prompts, dtype, eps: float = 0.0):
@@ -2320,6 +2387,373 @@ def zoo_full_width(dev):
     return pre
 
 
+def _leaf_rel(a, b) -> float:
+    """max |a - b| over max |b| (0 where both are 0)."""
+    den = float(b.double().abs().max())
+    num = float((a.double() - b.double()).abs().max())
+    return num / den if den else num
+
+
+def _tree_rel(a, b) -> float:
+    """The largest `_leaf_rel` over two trees' leaves (on any devices)."""
+    from repro_torch.convert import leaves_with_paths
+    return max(_leaf_rel(x.cpu(), y.cpu()) for (_, x), (_, y) in
+               zip(leaves_with_paths(a), leaves_with_paths(b)))
+
+
+def rwkv6_grad_check(dev):
+    """The differentiable rwkv6 on the card: the gradients of r, k, v,
+    logw, u and state0 through `ops.rwkv6` (its forward the kernel, one
+    launch; its backward the plain chunked form with all chunks at once)
+    against autograd through `ops.rwkv6_plain` (the chunk loop), at one
+    full-width sequence (32 heads x 4096 tokens) and at a ragged S with
+    a state. Returns the largest error."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bh, d, worst = RWKV_H, RWKV_D, 0.0
+    for s, with_state in ((TRAIN_S, False), (TRAIN_S - 3, True)):
+        def draw(shape, scale):
+            return torch.randn(shape, generator=g, device=dev) * scale
+
+        r, k, v = (draw((bh, s, d), 0.5) for _ in range(3))
+        lw = torch.clamp(-torch.exp(draw((bh, s, d), 0.3) - 1.0), -4.0,
+                         -1e-4)
+        leaves = [r, k, v, lw, draw((bh, d), 0.3)]
+        if with_state:
+            leaves.append(draw((bh, d, d), 0.3))
+        leaves = [t.requires_grad_() for t in leaves]
+        go, gs = draw((bh, s, d), 1.0), draw((bh, d, d), 1.0)
+
+        def grads(fn):
+            o, st = fn(*leaves, *([None] * (6 - len(leaves))))
+            return torch.autograd.grad((o * go).sum() + (st * gs).sum(),
+                                       leaves)
+
+        _zero_counts()
+        got = grads(ops.rwkv6)
+        launched = _counts()["rwkv6"]
+        want = grads(ops.rwkv6_plain)
+        err = max(_leaf_rel(a, b) for a, b in zip(got, want))
+        ms = _time_ms(lambda: grads(ops.rwkv6), iters=5, warmup=1)
+        plain_ms = _time_ms(lambda: grads(ops.rwkv6_plain), iters=3,
+                            warmup=1)
+        print(f"[train] rwkv6 Function ({bh}, {s}, {d}) state0="
+              f"{'yes' if with_state else 'no'}: {launched} kernel launch, "
+              f"gradients of {len(leaves)} inputs vs autograd through the "
+              f"plain chunk loop: max error {err:.3e} of each leaf's max "
+              f"(tol {RWKV6_GRAD_REL}); forward + backward {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms", flush=True)
+        if launched != 1 or not err <= RWKV6_GRAD_REL:
+            raise AssertionError(f"rwkv6 Function S={s}: {launched} "
+                                 f"launches, gradient error {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def dt_wide_check(dev):
+    """The DT kernel's wide form (256 < D <= 2048) against
+    `ref.dt_loss_fwd_ref` on unit rows at (8, 2048) (a DT micro-batch of
+    the full-width model), (2, 8, 2048) (the cohort form) and (512,
+    2048); one launch each, none of the narrow kernel; two calls bitwise
+    equal. Timed at (8, 2048); device time and bound at (512, 2048) too.
+    Returns its kernels-line row."""
+    import torch
+
+    from repro_torch.kernels import dt_loss as dt_kernel
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    errs, d = [], TRAIN_D
+    for shape in ((TRAIN_DT[0], d), (2, TRAIN_DT[0], d), (512, d)):
+        q, k = _unit_rows(g, dev, shape), _unit_rows(g, dev, shape)
+        _zero_counts()
+        got = ops.dt_loss_fwd(q, k, 0.1, 1.0)
+        counts = (dt_kernel.LAUNCHES, dt_kernel.WIDE_LAUNCHES)
+        plain = (ref.dt_loss_fwd_cohort_ref if q.dim() == 3
+                 else ref.dt_loss_fwd_ref)(q, k, 0.1, 1.0)
+        err = max(_max_err(a, b) for a, b in zip(got, plain))
+        again = ops.dt_loss_fwd(q, k, 0.1, 1.0)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"[train] dt_loss wide {shape}: max abs err vs plain "
+              f"{err:.3e} (tol {DT_FWD_TOL}), launches (narrow, wide) "
+              f"{counts}, two calls bitwise equal: {same}", flush=True)
+        if not (err <= DT_FWD_TOL and counts == (0, 1) and same):
+            raise AssertionError(f"dt_loss wide {shape}: err {err}, "
+                                 f"launches {counts}, bitwise {same}")
+        errs.append(err)
+        if shape == (512, d):
+            dev_512 = _device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
+                                 "dt_fwd_wide", iters=50)
+            bound_512 = _dt_bound(1, 512, d)
+    q, k = (_unit_rows(g, dev, (TRAIN_DT[0], d)) for _ in range(2))
+    ms = _time_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0), iters=200)
+    dev_ms = _device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
+                        "dt_fwd_wide", iters=200)
+    plain_ms = _time_ms(lambda: ref.dt_loss_fwd_ref(q, k, 0.1, 1.0),
+                        iters=50)
+    bound_ms, bound_by = _dt_bound(1, TRAIN_DT[0], d)
+    print(f"[train] dt_loss wide ({TRAIN_DT[0]}, {d}): kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}); at (512, {d}): device "
+          f"{dev_512:.4f} ms, bound {bound_512[0]:.4f} ms "
+          f"({bound_512[1]})", flush=True)
+    return {"name": "dt_loss_wide", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dt_loss.cu",
+            "replaces": "src/repro/kernels/dt_loss.py:33",
+            "shape": [TRAIN_DT[0], d], "max_abs_err": max(errs), "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "device_ms_512": dev_512, "bound_ms_512": bound_512[0]}
+
+
+def _dt_lse_widening(cfg, params, tokens, drops) -> tuple:
+    """How far the DT kernel's float32 difference may reach the DT
+    loss's gradient on this batch, by specification: the kernel's lse_a
+    is held to DT_FWD_TOL of the plain version's on the card's features
+    (asserted here), and the backward (`ops._DTLoss`) forms dL/dsim_ii
+    from p_a(pos) - 1 = -w_a with the kernel's lse_a, w_a = 1 - p_a(pos)
+    from the plain version. A row whose positive takes nearly all of the
+    softmax at tau_a turns an error e in lse_a into a relative one e /
+    w_a (the loss itself, w_b to first order, does not see it), so the
+    gradient may move by DT_FWD_TOL / min(w_a). Returns (that widening,
+    the measured max |lse_a (kernel) - lse_a (plain)|, min(w_a))."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        q, k = (T.forward_features(cfg, params, torch.where(
+            d, steps.MASK_TOKEN, tokens))[0] for d in drops)
+        _, lse_k, _, _ = ops.dt_loss_fwd(q, k, 0.1, 1.0)
+        _, lse_p, _, pos = ref.dt_loss_fwd_ref(q, k, 0.1, 1.0)
+    lse_err = float((lse_k - lse_p).abs().max())
+    w_min = float((1.0 - torch.exp(pos / 0.1 - lse_p)).min())
+    if not lse_err <= DT_FWD_TOL:
+        raise AssertionError(f"[train] dt_loss lse_a on the card's "
+                             f"features: {lse_err} > {DT_FWD_TOL}")
+    return DT_FWD_TOL / w_min, lse_err, w_min
+
+
+def train_cross_check(dev):
+    """``rwkv6-1.6b-smoke`` in float32: one ``lm`` step (flsimco, sgdm,
+    2 micro-batches) and one ``dt`` step from the same params and batch
+    on the card and on the CPU: the loss, every gradient leaf, and the
+    params and momentum after the step. The ``dt`` leaves are held at
+    TRAIN_LEAF_REL plus DT_FWD_TOL / min(w_a), the most the DT kernel's
+    specified float32 difference in lse_a can reach the gradient
+    (`_dt_lse_widening`, which also holds the kernel's lse_a to
+    DT_FWD_TOL on the card's features)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("rwkv6-1.6b-smoke")
+    b, s = 4, 37
+    shape = InputShape("cross", s, b, "train")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    batch = {"tokens": torch.from_numpy(rs.randint(1, cfg.vocab_size,
+                                                   (b, s))),
+             "blur": torch.from_numpy(rs.uniform(9.0, 25.0, b).astype(
+                 np.float32)),
+             "drops": steps.draw_drop_masks((b, s),
+                                            torch.Generator().manual_seed(1))}
+    for objective, nm in (("lm", 2), ("dt", 1)):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            p = tree_map(lambda t: t.to(d), params)
+            bt = {k: v.to(d) for k, v in batch.items()}
+            loss, grads = steps.make_grad_fn(cfg, objective=objective,
+                                             n_micro=nm)(p, bt)
+            fn, _ = steps.make_train_step(cfg, shape, objective=objective,
+                                          n_micro=nm)
+            new_p, new_m, _ = fn(p, steps.init_momentum(p), bt)
+            outs.append((float(loss), grads, new_p, new_m))
+        (lc, gc, pc, mc), (lh, gh, ph, mh) = outs
+        amp, lse_err, w_min = 0.0, 0.0, 1.0
+        if objective == "dt":
+            amp, lse_err, w_min = _dt_lse_widening(
+                cfg, tree_map(lambda t: t.to(dev), params),
+                batch["tokens"].to(dev), batch["drops"].to(dev))
+        leaf_tol = TRAIN_LEAF_REL + amp
+        loss_rel = abs(lc - lh) / abs(lh)
+        grad_rel = max(_leaf_rel(a.cpu(), b_) for a, b_ in zip(gc, gh))
+        tree_rel = max(_tree_rel(pc, ph), _tree_rel(mc, mh))
+        print(f"[train] {cfg.name} float32 {objective} step (B={b}, S={s}, "
+              f"{nm} micro): card vs cpu loss {lc:.7f} vs {lh:.7f} "
+              f"(relative {loss_rel:.2e}, tol {TRAIN_LOSS_REL}); gradient "
+              f"leaves {grad_rel:.2e}, params and momentum after the step "
+              f"{tree_rel:.2e} of each leaf's max (tol {leaf_tol:.2e}"
+              + (f" = {TRAIN_LEAF_REL} + DT_FWD_TOL / min(w_a), min(w_a) "
+                 f"{w_min:.3e}; the DT kernel's lse_a on this batch within "
+                 f"{lse_err:.2e} of the plain version's, tol {DT_FWD_TOL})"
+                 if amp else ")"), flush=True)
+        if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= leaf_tol
+                and tree_rel <= leaf_tol):
+            raise AssertionError(f"[train] {objective} card vs cpu: loss "
+                                 f"{loss_rel}, grads {grad_rel}, trees "
+                                 f"{tree_rel}, tol {leaf_tol}")
+
+
+def _micro_norms(cfg, params, batch, eps=None):
+    """The loss and the gradient norms (one a leaf) of an ``lm`` micro-
+    batch: with the rwkv6 Function's forward on the kernel (`eps` None),
+    or through the plain chunked version on the card, its outputs o
+    scaled by (1 +- eps) with a seeded random sign when eps > 0."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    grad_fn = steps.make_grad_fn(cfg, objective="lm", aggregation="fedavg")
+    if eps is None:
+        loss, grads = grad_fn(params, batch)
+        return [float(loss)] + [float(x.norm()) for x in grads]
+    g = torch.Generator(device=batch["tokens"].device).manual_seed(321)
+
+    def plain(*args):
+        o, st = ops.rwkv6_plain(*args)
+        if eps:
+            sign = torch.randint(0, 2, o.shape, generator=g,
+                                 device=o.device) * 2.0 - 1.0
+            o = o * (1.0 + eps * sign)
+        return o, st
+
+    saved = ops._rwkv6_forward
+    ops._rwkv6_forward = plain
+    try:
+        _zero_counts()
+        loss, grads = grad_fn(params, batch)
+        if _counts()["rwkv6"]:
+            raise AssertionError("train: the plain micro-batch launched "
+                                 "rwkv6")
+    finally:
+        ops._rwkv6_forward = saved
+    return [float(loss)] + [float(x.norm()) for x in grads]
+
+
+def _norms_rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b) if y)
+
+
+def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev):
+    """Full-width steps through `launch/train.py`'s functions: one
+    warm-up step, then `steps_` timed steps with the counters zeroed just
+    before and the peak memory reset; one more step under the profiler.
+    Returns (params, per-step launches, profile)."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train as tr
+
+    shape = InputShape(objective, seq, batch_, "train")
+    fn, nm = st.make_train_step(cfg, shape, objective=objective,
+                                n_micro=n_micro)
+    mom = st.init_momentum(params)
+    batches = [tr.make_batch(cfg, shape, i, 0, dev, objective)
+               for i in range(steps_ + 2)]
+    t = time.time()
+    params, mom, [(loss0, _)] = tr.run_steps(fn, params, mom, batches[:1],
+                                             dev)
+    warm = time.time() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    params, mom, timed = tr.run_steps(fn, params, mom,
+                                      batches[1:steps_ + 1], dev)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = batch_ * seq
+    secs = [t_ for _, t_ in timed]
+    per = {k: v // steps_ for k, v in counts.items()}
+    print(f"[train] {cfg.name} {objective} bfloat16, {batch_} x {seq} "
+          f"tokens a step in {nm} micro-batches: warm-up step {warm:.2f} s "
+          f"(loss {loss0:.4f}); {steps_} steps, seconds a step "
+          f"{[round(x, 4) for x in secs]}, {tokens * steps_ / sum(secs):.0f} "
+          f"tok/s; losses {[round(l_, 5) for l_, _ in timed]}; peak memory "
+          f"{peak:.2f} GiB; launches a step {per}", flush=True)
+    want = {k: 0 for k in counts}
+    want["rwkv6"] = cfg.n_layers * nm * (2 if objective == "dt" else 1)
+    want["dt_loss_wide"] = nm if objective == "dt" else 0
+    if per != want or any(v % steps_ for v in counts.values()):
+        raise AssertionError(f"[train] {objective} launches {counts} over "
+                             f"{steps_} steps, want {want} a step")
+    if not all(math.isfinite(l_) for l_, _ in timed + [(loss0, 0)]):
+        raise AssertionError(f"[train] {objective}: a loss is not finite")
+    if not peak <= PEAK_GIB:
+        raise AssertionError(f"[train] {objective}: peak {peak:.2f} GiB > "
+                             f"{PEAK_GIB}")
+
+    def work():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(params, mom, batches[-1])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    prof = _profile(work, ranges=("rwkv6.recompute",))
+    print(f"[train] profiled {objective} step: {json.dumps(prof)}",
+          flush=True)
+    return params, counts
+
+
+def train_full_width(dev):
+    """``rwkv6-1.6b`` at full width, random bfloat16 weights from seed 0,
+    through `launch/train.py`: the ``lm`` objective (flsimco, sgdm) at
+    TRAIN_LM and the ``dt`` objective at TRAIN_DT; the first ``lm``
+    micro-batch's loss and gradient norms held against the plain rwkv6
+    forward. Returns the timed steps' launches, both runs summed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import decode as dec
+    from repro_torch.launch import train as tr
+
+    cfg = get_config("rwkv6-1.6b")
+    torch.cuda.empty_cache()
+    print(f"[train] full width: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated before the phase", flush=True)
+    params = dec.init_model(cfg, 0, torch.bfloat16, dev)
+    # the kernel in place: one lm micro-batch (one sequence), its loss
+    # and gradient norms with the kernel, the plain version, and the
+    # plain version perturbed by 2 float32 ULP (the floor)
+    mb = tr.make_batch(cfg, InputShape("lm", TRAIN_S, 1, "train"), 0, 0,
+                       dev, "lm")
+    kern = _micro_norms(cfg, params, mb)
+    plain = _micro_norms(cfg, params, mb, 0.0)
+    floor = _micro_norms(cfg, params, mb, ZOO_ULP_EPS)
+    k_rel, f_rel = _norms_rel(kern, plain), _norms_rel(floor, plain)
+    print(f"[train] bfloat16 lm micro-batch (1 x {TRAIN_S}), kernel vs "
+          f"plain forward: loss {kern[0]:.6f} vs {plain[0]:.6f}; loss and "
+          f"{len(kern) - 1} gradient norms, largest relative difference "
+          f"{k_rel:.4e} (2-ULP floor {f_rel:.4e}, held at "
+          f"{ZOO_BF16_FLOOR_X} x)", flush=True)
+    if not k_rel <= ZOO_BF16_FLOOR_X * f_rel:
+        raise AssertionError(f"[train] kernel vs plain {k_rel} > "
+                             f"{ZOO_BF16_FLOOR_X} x floor {f_rel}")
+    b, s, nm = TRAIN_LM
+    params, lm = _train_run(cfg, params, "lm", b, s, nm, TRAIN_LM_STEPS,
+                            dev)
+    del params
+    torch.cuda.empty_cache()
+    params = dec.init_model(cfg, 0, torch.bfloat16, dev)
+    b, s, nm = TRAIN_DT
+    _, dt = _train_run(cfg, params, "dt", b, s, nm, TRAIN_DT_STEPS, dev)
+    return _add(lm, dt)
+
+
 def run() -> int:
     import torch
 
@@ -2360,12 +2794,23 @@ def run() -> int:
     serve_path(store)
     threaded_serve(sc, state)
     lossless_round(dev, main_sc.data, state)
+    # the FL paths' data, states and store are done with: free them for
+    # the zoo's full-width phases
+    del main_sc, main_state, sc, state, store
+    gc.collect()
+    torch.cuda.empty_cache()
     rows.append(rwkv6_kernel_check(dev))
     zoo_cross_check(dev)
     paths["zoo"] = zoo_launches = zoo_full_width(dev)
+    rwkv6_grad_check(dev)
+    rows.append(dt_wide_check(dev))
+    train_cross_check(dev)
+    paths["train"] = train_launches = train_full_width(dev)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
-                else zoo_launches if r["name"] == "rwkv6" else launches)
+                else zoo_launches if r["name"] == "rwkv6"
+                else train_launches if r["name"] == "dt_loss_wide"
+                else launches)
         r["launches"] = path[r["name"]]
         r["paths"] = {p: c[r["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": rows}))

@@ -9,7 +9,8 @@ a failed build or launch raises too.
 
 * ``wagg_flat(stacked (m, P), w (m,), mask=None)`` — Eq.-11 weighted sum.
 * ``dt_loss(q, k, tau_alpha, tau_beta)`` — mean DT loss, differentiable:
-  a `torch.autograd.Function` whose forward is the DT kernel and whose
+  a `torch.autograd.Function` whose forward is the DT kernel (its wide
+  form for 256 < D <= 2048, the zoo's features) and whose
   backward is the plain-torch port of the reference's `_dt_bwd` (the
   reference has no backward kernel either), with the Eq.-6 weight
   treated as a constant. It composes with `torch.func`: under
@@ -24,7 +25,11 @@ a failed build or launch raises too.
   any S >= 1 (the CUDA kernel steps it with the state in registers; the
   plain version is chunked, CHUNK = 16), returning the true state after
   S steps (`ref.rwkv6_ref`'s, not the reference wrapper's decayed one);
-  ``rwkv6_plain`` is its plain version on any device.
+  ``rwkv6_plain`` is its plain version on any device. Differentiable:
+  a `torch.autograd.Function` whose forward is the kernel and whose
+  backward differentiates the plain chunked form with every chunk at
+  once (`ref.rwkv6_chunked_parallel`); the reference has no backward
+  kernel.
 
 `launch_counts()` reads every kernel's launch counter (each wrapper adds
 one where it launches its kernel); `add_launches` is for whoever replays
@@ -46,6 +51,7 @@ from repro_torch.kernels.qdelta import BQ
 def launch_counts() -> dict:
     """Every kernel's launch counter, by kernel name."""
     return {"wagg": _wagg_kernel.LAUNCHES, "dt_loss": _dt_kernel.LAUNCHES,
+            "dt_loss_wide": _dt_kernel.WIDE_LAUNCHES,
             "q8_encode": _q8_kernel.ENCODE_LAUNCHES,
             "q8_decode": _q8_kernel.DECODE_LAUNCHES,
             "rwkv6": _rwkv6_kernel.LAUNCHES}
@@ -59,6 +65,7 @@ def add_launches(counts: dict) -> None:
     # analysis: allow=purity-global-mutation -- the launch counters
     _wagg_kernel.LAUNCHES += counts.get("wagg", 0)
     _dt_kernel.LAUNCHES += counts.get("dt_loss", 0)
+    _dt_kernel.WIDE_LAUNCHES += counts.get("dt_loss_wide", 0)
     _rwkv6_kernel.LAUNCHES += counts.get("rwkv6", 0)
     with _q8_kernel._COUNT_LOCK:
         _q8_kernel.ENCODE_LAUNCHES += counts.get("q8_encode", 0)
@@ -206,26 +213,81 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r, k, v, logw: (BH, S, D) float32 with u (BH, D) or (D,) and state0
     (BH, D, D) or None (zeros); or (B, S, H, D) with u (H, D) or (D,) and
     state0 (B, H, D, D). Returns (o in the input's layout, state (BH, D, D)
-    or (B, H, D, D)), float32. Semantics of `ref.rwkv6_ref`."""
+    or (B, H, D, D)), float32. Semantics of `ref.rwkv6_ref`.
+
+    Differentiable: where an input requires a gradient, the call goes
+    through `_RWKV6`, whose forward is this same call and whose backward
+    differentiates the plain chunked form (`ref.rwkv6_chunked_parallel`).
+    Without gradients (prefill) nothing is saved."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, logw, u, state0)):
+        return _RWKV6.apply(r, k, v, logw, u, state0)
+    return _rwkv6_forward(r, k, v, logw, u, state0)
+
+
+def _rwkv6_forward(r, k, v, logw, u, state0):
+    """The kernel on the card, the plain chunked version on the CPU."""
     if _on_cuda(r, k, v, logw, u, state0):
         return _rwkv6_kernel.rwkv6_cuda(r, k, v, logw, u, state0)
     return rwkv6_plain(r, k, v, logw, u, state0)
 
 
-def rwkv6_plain(r, k, v, logw, u, state0=None):
-    """`rwkv6` through the plain chunked version (`ref.rwkv6_chunked_ref`)
-    on whatever device the tensors lie on: the CPU path of `rwkv6`, and
-    what chip_smoke.py holds the kernel against on the card."""
+class _RWKV6(torch.autograd.Function):
+    """`rwkv6` with a gradient. The forward runs without a graph (the
+    kernel on the card) and saves its six inputs; the backward recomputes
+    the chunked form (`ref.rwkv6_chunked_parallel`, CHUNK = 16, all
+    chunks at once) with a graph and differentiates it. The reference has
+    no backward kernel either: its gradient is the autodiff of its jnp
+    chunked scan. The same code runs on both devices."""
+
+    @staticmethod
+    def forward(r, k, v, logw, u, state0):
+        return _rwkv6_forward(r, k, v, logw, u, state0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, g_o, g_state):
+        inputs = ctx.saved_tensors
+        want = [i for i, t in enumerate(inputs)
+                if t is not None and ctx.needs_input_grad[i]]
+        grads = [None] * len(inputs)
+        outs = [(i, g) for i, g in enumerate((g_o, g_state))
+                if g is not None]
+        if not want or not outs:
+            return tuple(grads)
+        with torch.enable_grad(), \
+                torch.profiler.record_function("rwkv6.recompute"):
+            leaves = [t.detach().requires_grad_(i in want) if t is not None
+                      else None for i, t in enumerate(inputs)]
+            out = rwkv6_plain(*leaves, fn=ref.rwkv6_chunked_parallel)
+            got = torch.autograd.grad([out[i] for i, _ in outs],
+                                      [leaves[i] for i in want],
+                                      [g for _, g in outs],
+                                      allow_unused=True)
+        for i, g in zip(want, got):
+            grads[i] = g
+        return tuple(grads)
+
+
+def rwkv6_plain(r, k, v, logw, u, state0=None, fn=ref.rwkv6_chunked_ref):
+    """`rwkv6` through the plain chunked version (`ref.rwkv6_chunked_ref`,
+    or `fn` of the same signature on (BH, S, D) rows) on whatever device
+    the tensors lie on: the CPU path of `rwkv6`, and what chip_smoke.py
+    holds the kernel against on the card. Differentiable by autograd."""
     b, h, s, d = _rwkv6_kernel.geometry(r)
     if r.dim() == 3:
-        return ref.rwkv6_chunked_ref(r, k, v, logw, u, state0)
+        return fn(r, k, v, logw, u, state0)
 
     def rows(t):
         return t.transpose(1, 2).reshape(b * h, s, d)
 
     u_rows = u.float().expand(h, d).repeat(b, 1)
     st0 = None if state0 is None else state0.reshape(b * h, d, d)
-    o, st = ref.rwkv6_chunked_ref(rows(r), rows(k), rows(v), rows(logw),
-                                  u_rows, st0)
+    o, st = fn(rows(r), rows(k), rows(v), rows(logw), u_rows, st0)
     return (o.reshape(b, h, s, d).transpose(1, 2).contiguous(),
             st.reshape(b, h, d, d))

@@ -8,7 +8,9 @@ runs them (only because its tensors lie on the CPU), and chip_smoke.py
 holds each kernel against them on the card. For RWKV6 there are two:
 `rwkv6_ref`, the reference's token-by-token oracle, and
 `rwkv6_chunked_ref`, the chunked form the kernel computes (the
-reference layer's `chunk_body`), which is the plain version.
+reference layer's `chunk_body`), which is the plain version. A third,
+`rwkv6_chunked_parallel`, computes the chunked form with every chunk at
+once: the backward of `ops.rwkv6` differentiates it.
 """
 from __future__ import annotations
 
@@ -164,3 +166,74 @@ def rwkv6_chunked_ref(r, k, v, logw, u, state0=None, chunk: int = RWKV_CHUNK):
                                                           vc)
         outs.append(o)
     return torch.cat(outs, 1)[:, :s], st
+
+
+def chunk_carry(log_decay, inc, state0):
+    """The states after each step of S_c = diag(exp(log_decay_c)) S_{c-1}
+    + inc_c from S_0 = state0, all steps at once.
+
+    log_decay (BH, n, D) <= 0, inc (BH, n, D, E), state0 (BH, D, E) ->
+    (BH, n, D, E). The steps go in groups of RWKV_CHUNK: within a group,
+    step c takes sum_{j <= c} exp(lam_c - lam_j) inc_j (lam the group's
+    prefix sum of log_decay; each exponent taken after the subtraction,
+    so <= 0) plus exp(lam_c) times the state the group starts from, and
+    the groups' own states come from the same rule one level up (a
+    recursion of depth log_16(n)). Sums in another order than a
+    step-by-step loop, to float32 rounding."""
+    bh, n, d = log_decay.shape
+    e = inc.shape[-1]
+    g = min(RWKV_CHUNK, n)
+    pad = (-n) % g
+    if pad:   # no decay and no increment past the end
+        log_decay = torch.nn.functional.pad(log_decay, (0, 0, 0, pad))
+        inc = torch.nn.functional.pad(inc, (0, 0, 0, 0, 0, pad))
+    nb = (n + pad) // g
+    lam = torch.cumsum(log_decay.reshape(bh, nb, g, d), dim=2)
+    tri = torch.tril(torch.ones((g, g), dtype=torch.bool,
+                                device=lam.device))[..., None]
+    diff = torch.where(tri, lam[:, :, :, None] - lam[:, :, None], 0.0)
+    w = torch.where(tri, torch.exp(diff), 0.0)          # (BH, nb, g, g, D)
+    # local_c = sum_j w_cj * inc_j, one (g, g) @ (g, E) product per D row
+    local = torch.matmul(w.permute(0, 1, 4, 2, 3),
+                         inc.reshape(bh, nb, g, d, e).transpose(2, 3))
+    local = local.transpose(2, 3)                       # (BH, nb, g, D, E)
+    if nb == 1:
+        start = state0[:, None]
+    else:
+        ends = chunk_carry(lam[:, :, -1], local[:, :, -1], state0)
+        start = torch.cat([state0[:, None], ends[:, :-1]], 1)
+    states = torch.exp(lam)[..., None] * start[:, :, None] + local
+    return states.reshape(bh, nb * g, d, e)[:, :n]
+
+
+def rwkv6_chunked_parallel(r, k, v, logw, u, state0=None):
+    """`rwkv6_chunked_ref` with every chunk at once: the same terms in a
+    (BH, n_chunks, C, ...) layout, and the state entering each chunk from
+    `chunk_carry` in place of a loop over the chunks. A few hundred
+    operations for any S, where the loop takes about ten a chunk; equal
+    to `rwkv6_chunked_ref` to float32 rounding. The backward of
+    `ops.rwkv6` differentiates it."""
+    r, k, v, logw, u, st = _rwkv_inputs(r, k, v, logw, u, state0)
+    bh, s, d = r.shape
+    chunk = RWKV_CHUNK
+    pad = (-s) % chunk
+    if pad:
+        r, k, v, logw = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                         for t in (r, k, v, logw))
+    n = (s + pad) // chunk
+    rc, kc, vc, lw = (t.reshape(bh, n, chunk, d) for t in (r, k, v, logw))
+    cum = torch.cumsum(lw, dim=2)
+    cum_prev = cum - lw
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)[..., None]
+    diff = torch.where(tri, cum_prev[:, :, :, None] - cum[:, :, None], 0.0)
+    dec = torch.where(tri, torch.exp(diff), 0.0)       # (BH, n, C, C, D)
+    scores = (rc[:, :, :, None] * kc[:, :, None] * dec).sum(-1)
+    o = torch.matmul(scores, vc)
+    o = o + (rc * u[:, None, None] * kc).sum(-1, keepdim=True) * vc
+    total = cum[:, :, -1]                               # (BH, n, D)
+    kdec = kc * torch.exp(total[:, :, None] - cum)
+    after = chunk_carry(total, torch.matmul(kdec.transpose(2, 3), vc), st)
+    before = torch.cat([st[:, None], after[:, :-1]], 1)
+    o = o + torch.matmul(rc * torch.exp(cum_prev), before)
+    return o.reshape(bh, n * chunk, d)[:, :s], after[:, -1]

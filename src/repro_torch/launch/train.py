@@ -1,0 +1,204 @@
+"""Training driver — counterpart of `repro.launch.train` (`run_sim`,
+`main`).
+
+Two modes, as the reference's:
+
+``--mode mesh`` (default) — the zoo's federated train step
+(`launch.steps.make_train_step`: the blur-weighted LM loss or the
+token-view DT objective) on one card. The reference builds a TPU mesh
+here; the port runs on the device the params lie on. ``--reduced`` is
+the reference's CPU run: the ``-smoke`` config in float32, 4 sequences
+of 64 tokens a step (its ``InputShape("cpu", 64, 4, "train")``).
+Without it the full-width config runs real steps on the card with
+bfloat16 parameters and momentum at ``--batch`` sequences of
+``--seq-len`` tokens in ``--n-micro`` micro-batches (the reference's
+``train_4k``, 256 x 4096, is a multi-pod shape). Weights are random,
+from ``--seed``; tokens and blur come from CPU generators, the blur
+through `MobilityModel`.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 2 --objective lm
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+        --batch 8 --seq-len 4096 --steps 3                 # on the card
+
+``--mode sim`` — the host-level FL simulation, a `Scenario` driven
+through `run_round`, with whole-`FLState` checkpoints and resume:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --mode sim \\
+        --topology multi --rounds 4 --vehicles 8 --ckpt-dir ckpt --resume
+
+Each step or round prints its loss and seconds and fails on a loss that
+is not finite; on the card the run ends with its peak device memory.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import time
+
+import torch
+
+from repro_torch.configs.base import InputShape, get_config
+from repro_torch.core.mobility import MobilityModel
+from repro_torch.launch import steps as st
+from repro_torch.launch.decode import init_model
+from repro_torch.runtime import resolve_device, set_parity_mode
+
+REDUCED_SHAPE = InputShape("cpu", 64, 4, "train")
+MESH_ITEM = ("ROADMAP.md Queue A, item 12 (mesh lowering: dryrun.py and "
+             "sharding.py)")
+
+
+def run_sim(a) -> None:
+    """Scenario-driven FL simulation with FLState checkpointing."""
+    from repro_torch.checkpoint.store import latest, restore_state, save_state
+    from repro_torch.core.scenario import Scenario, run_round
+
+    sc = Scenario(topology=a.topology, aggregator=a.aggregation,
+                  client=a.client, partitioner=a.partitioner,
+                  n_per_class=a.n_per_class,
+                  n_vehicles=a.vehicles, vehicles_per_round=a.per_round,
+                  batch_size=a.batch, rounds=a.rounds, lr=a.sim_lr,
+                  device=a.device)
+    state = None
+    if a.resume and a.ckpt_dir:
+        found = latest(a.ckpt_dir)
+        if found:
+            state = restore_state(found[0], scenario=sc)
+            print(f"resumed FLState from {found[0]} (round {state.round})")
+    if state is None:
+        state = sc.init_state()
+    print(f"sim {sc.topology.name} agg={sc.cfg.aggregator} "
+          f"client={sc.cfg.client} vehicles={sc.cfg.n_vehicles} "
+          f"rounds={sc.cfg.rounds}")
+    while state.round < sc.cfg.rounds:
+        t0 = time.time()
+        state, rec = run_round(state, sc)
+        print(f"round {rec['round']}: loss={rec['loss']:.4f} "
+              f"({time.time() - t0:.2f}s)")
+        if not math.isfinite(rec["loss"]):
+            raise SystemExit(f"round {rec['round']}: loss is not finite")
+        if a.ckpt_dir:
+            save_state(os.path.join(a.ckpt_dir, f"ckpt_{state.round}.npz"),
+                       state, scenario=sc)
+
+
+def make_batch(cfg, shape: InputShape, step: int, seed: int, device,
+               objective: str, mob: MobilityModel | None = None) -> dict:
+    """Step `step`'s batch: tokens (B, S) in [1, vocab_size) and blur (B,)
+    (`MobilityModel` velocities through Eq. 2), from a CPU generator
+    seeded with (seed, step); for ``dt`` also the two views' drop masks.
+    Everything is drawn first, then moved to `device`."""
+    gen = torch.Generator().manual_seed(seed * 1_000_003 + step)
+    b, s = shape.global_batch, shape.seq_len
+    mob = mob or MobilityModel()
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (b, s),
+                                     generator=gen),
+             "blur": mob.blur_level(mob.sample(gen, b))}
+    if objective == "dt":
+        batch["drops"] = st.draw_drop_masks((b, s), gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_steps(step_fn, params, mom, batches, device):
+    """Apply `step_fn` to each batch in turn. Returns (params, mom,
+    [(loss, seconds)]), each step timed on the host clock, synchronised."""
+    out = []
+    for batch in batches:
+        _sync(device)
+        t0 = time.perf_counter()
+        params, mom, metrics = step_fn(params, mom, batch)
+        loss = float(metrics["loss"])
+        out.append((loss, time.perf_counter() - t0))
+    return params, mom, out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="mesh", choices=["mesh", "sim"])
+    ap.add_argument("--arch", default="rwkv6-1.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--objective", default="lm", choices=["lm", "dt"])
+    ap.add_argument("--aggregation", default="flsimco",
+                    choices=["flsimco", "fedavg", "discard"])
+    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="tokens a sequence (default: 64 reduced, 4096)")
+    ap.add_argument("--n-micro", type=int, default=None,
+                    help="micro-batches a step (default: the reference's "
+                         "pick_n_micro reduced; one sequence each at full "
+                         "width, since the port keeps every layer's "
+                         "activations where the reference remats them)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    # --mode sim knobs (Scenario fields); --batch is also mesh's batch
+    ap.add_argument("--topology", default="single",
+                    choices=["single", "multi", "handover"])
+    ap.add_argument("--client", default="dtssl", choices=["dtssl", "fedco"])
+    ap.add_argument("--partitioner", default="iid",
+                    choices=["iid", "dirichlet"])
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--vehicles", type=int, default=6)
+    ap.add_argument("--per-round", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sim: images a client batch (default 16); mesh: "
+                         "sequences a step (default: 4 reduced, 8)")
+    ap.add_argument("--n-per-class", type=int, default=40)
+    ap.add_argument("--sim-lr", type=float, default=0.5)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--resume", action="store_true")
+    a = ap.parse_args(argv)
+
+    if a.mode == "sim":
+        a.batch = a.batch or 16
+        run_sim(a)
+        return
+    if a.multi_pod:
+        raise NotImplementedError(
+            f"--multi-pod lowers for a multi-pod TPU mesh, which the "
+            f"one-card port has no counterpart of; see {MESH_ITEM}")
+    device = resolve_device(a.device)
+    set_parity_mode()
+    cfg = get_config(a.arch)
+    if a.reduced:
+        cfg = cfg.reduced()
+        dtype = torch.float32
+        shape = InputShape("cpu", a.seq_len or REDUCED_SHAPE.seq_len,
+                           a.batch or REDUCED_SHAPE.global_batch, "train")
+    else:
+        dtype = torch.bfloat16
+        shape = InputShape("card", a.seq_len or 4096, a.batch or 8, "train")
+    n_micro = a.n_micro or (None if a.reduced else shape.global_batch)
+    fn, nm = st.make_train_step(cfg, shape, objective=a.objective, lr=a.lr,
+                                aggregation=a.aggregation, n_micro=n_micro)
+    print(f"train {cfg.name} on {device}: {shape.global_batch} x "
+          f"{shape.seq_len} tokens a step, micro={nm} "
+          f"objective={a.objective} agg={a.aggregation}")
+    params = init_model(cfg, a.seed, dtype, device)
+    mom = st.init_momentum(params)
+    mob = MobilityModel()
+    tokens = shape.global_batch * shape.seq_len
+    for i in range(a.steps):
+        batch = make_batch(cfg, shape, i, a.seed, device, a.objective, mob)
+        params, mom, [(loss, secs)] = run_steps(fn, params, mom, [batch],
+                                                device)
+        print(f"step {i}: loss={loss:.4f} ({secs:.2f}s, "
+              f"{tokens / secs:.0f} tok/s)")
+        if not math.isfinite(loss):
+            raise SystemExit(f"step {i}: loss is not finite")
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"peak memory {peak:.2f} GiB "
+              f"({torch.cuda.get_device_name(device)})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """Model assembly of the zoo, ``ssm`` family (RWKV6) — counterpart of
 `repro.models.transformer` (`_init_rwkv_block`, `init_params`,
-`init_cache`, `_embed`, `_head`, `_forward_hidden`, `forward`).
+`init_cache`, `_embed`, `_head`, `_forward_hidden`, `forward`,
+`forward_features`).
 
 Blocks keep the reference's stacked layout: every leaf of
 ``params["blocks"]`` and of the cache has a leading layer axis. The
@@ -151,3 +152,15 @@ def forward(cfg, p, tokens, *, mode: str = "train", cache=None,
     it. aux_losses is 0 (the family has no auxiliary loss)."""
     x, new_cache = _forward_hidden(cfg, p, tokens, mode=mode, cache=cache)
     return _head(cfg, p, x), new_cache, torch.zeros((), device=x.device)
+
+
+def forward_features(cfg, p, tokens):
+    """Mean-pooled, L2-normalised final hidden state (B, d_model) float32
+    — the representation the dual-temperature loss takes for token
+    architectures — and aux_losses (0 for this family)."""
+    x, _ = _forward_hidden(cfg, p, tokens, mode="train", cache=None)
+    x = L.apply_norm(cfg, p["final_norm"], x)
+    f = x.mean(dim=1).float()
+    f = f / torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True),
+                        min=1e-8)
+    return f, torch.zeros((), device=x.device)

@@ -464,3 +464,81 @@ def test_rwkv6_kernel_fits_one_wave(cuda):
     assert attrs["local_bytes"] == 0 and attrs["blocks_per_sm"] >= 4, attrs
     assert attrs["steps_per_slab"] == RWKV6_SLAB and attrs["threads"] == 64
     assert rwkv6_kernel.kernel_attributes(32)["local_bytes"] == 0
+
+
+# --------------------------------------------------------------------------
+# the differentiable rwkv6 and the DT kernel's wide form (the zoo's train
+# step; their CPU parity tests live in tests/test_torch_train.py)
+# --------------------------------------------------------------------------
+
+def _leaf_rel(a, b) -> float:
+    """max |a - b| over max |b|, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+# the Function's gradients against autograd through the plain chunk loop:
+# the chunk states summed all at once against one by one (float32)
+RWKV6_GRAD_REL = 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,with_state", [(8, 300, True),
+                                             (32, 512, False)])
+def test_rwkv6_function_on_card_matches_plain_gradients(cuda, BH, S,
+                                                        with_state):
+    """`ops.rwkv6` with inputs that require gradients: the forward
+    launches the kernel once, and the gradients of r, k, v, logw, u (and
+    state0) match autograd through `rwkv6_plain` on the card."""
+    rs = np.random.RandomState(BH + S)
+    D = 64
+    r, k, v, lw = _rwkv6_inputs(rs, (BH, S, D), cuda)
+    leaves = [r, k, v, lw,
+              torch.from_numpy((rs.randn(BH, D) * 0.3).astype(np.float32))
+              .to(cuda)]
+    if with_state:
+        leaves.append(torch.from_numpy(
+            (rs.randn(BH, D, D) * 0.3).astype(np.float32)).to(cuda))
+    leaves = [t.requires_grad_() for t in leaves]
+    go = torch.from_numpy(rs.randn(BH, S, D).astype(np.float32)).to(cuda)
+    gs = torch.from_numpy(rs.randn(BH, D, D).astype(np.float32)).to(cuda)
+
+    def grads(fn):
+        o, st = fn(*leaves, *([None] * (6 - len(leaves))))
+        return torch.autograd.grad((o * go).sum() + (st * gs).sum(), leaves)
+
+    before = rwkv6_kernel.LAUNCHES
+    got = grads(ops.rwkv6)
+    assert rwkv6_kernel.LAUNCHES == before + 1
+    want = grads(ops.rwkv6_plain)
+    assert rwkv6_kernel.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert _leaf_rel(g, w) <= RWKV6_GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 2048), (2, 8, 2048), (512, 2048),
+                                   (37, 260), (3, 17, 1024)])
+def test_dt_loss_wide_kernel_matches_plain_on_card(cuda, shape):
+    """The wide form (256 < D <= 2048) against the plain version on unit
+    rows: one launch of it and none of the narrow kernel, two calls
+    bitwise equal; D % 4 != 0 and D above 2048 refused."""
+    rs = np.random.RandomState(sum(shape))
+    q = torch.from_numpy(_unit(rs, shape)).to(cuda)
+    k = torch.from_numpy(_unit(rs, shape)).to(cuda)
+    narrow, wide = dt_kernel.LAUNCHES, dt_kernel.WIDE_LAUNCHES
+    got = ops.dt_loss_fwd(q, k, 0.1, 1.0)
+    assert (dt_kernel.LAUNCHES, dt_kernel.WIDE_LAUNCHES) == (narrow,
+                                                             wide + 1)
+    plain = (ref.dt_loss_fwd_cohort_ref if q.dim() == 3
+             else ref.dt_loss_fwd_ref)(q, k, 0.1, 1.0)
+    for a, b in zip(got, plain):
+        torch.testing.assert_close(a, b, atol=DT_FWD_TOL, rtol=0)
+    again = ops.dt_loss_fwd(q, k, 0.1, 1.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError):
+        ops.dt_loss_fwd(q[..., :-2].contiguous(), k[..., :-2].contiguous(),
+                        0.1, 1.0)
+    big = torch.zeros((*shape[:-1], 2052), device=cuda)
+    with pytest.raises(ValueError, match="dt_loss kernel takes D"):
+        ops.dt_loss_fwd(big, big, 0.1, 1.0)

@@ -359,7 +359,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.hierarchical, repro_torch.core.federation\n"
         "import repro_torch.eval.probe, repro_torch.trace_round\n"
         "import repro_torch.checkpoint, repro_torch.checkpoint.store\n"
-        "import repro_torch.core.engine\n"
+        "import repro_torch.core.engine, repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
