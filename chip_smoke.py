@@ -101,6 +101,20 @@ the JAX package `repro`. Phases, each of which must pass:
      launches equal its encodes, one per group;
    * ``[multi]``: 2 rounds of MultiRSU(n_rsus=2): rsu_sizes [3, 2],
      dt_loss 4 (one chunk a group), wagg 2 x (2 groups + 1 region) = 6;
+   * ``[mesh]``: sharded cohorts over NCCL at world size 1 (one card,
+     one rank; `launch/mesh.py` makes the one-rank group, gloo for CPU
+     tensors beside NCCL, and a CPU mesh on it sums bitwise): at full width
+     (P = 11,506,624, 5 rows) `sharded_cohort_sum` ("gather", "split")
+     and `sharded_hierarchical` ("exact") bitwise their host forms,
+     "psum" within WAGG_TOL, `sharded_aggregate` bitwise for all five
+     schemes in both reductions; the forms' and the collectives' ms;
+     MultiRSU(n_rsus=1, mesh_aggregate=True) at Table 1, 2 rounds
+     through `run` (launches counted: wagg 2 and dt_loss 2 a round) and
+     2 through `run_campaign` (the graph, one rank), each round's global
+     row within CROSS_MAX_ABS and CROSS_REL_UPDATE of the
+     mesh_aggregate=False round from the same state; MultiRSU(n_rsus=2,
+     mesh_aggregate=True) raises its actionable ValueError before any
+     training;
    * ``[handover]``: 5 rounds of HandoverMultiRSU at the reference's
      defaults (2 RSUs of 1 km, 20 s rounds, stale discount 0.5, sync
      every 5) with ``codec="delta_int8"``, then one `region_view`:
@@ -211,8 +225,8 @@ The ``kernels`` JSON line lists wagg, dt_loss, q8_encode, q8_decode,
 rwkv6 and dt_loss_wide (the DT kernel's wide form, launched by the train
 path), each with its launches on the path that runs it (``paths``: its
 launches on every path: main, comms, batched, resume, engine (its
-graph campaigns), multi, handover, fedco, zoo, train (the timed steps of
-both objectives)),
+graph campaigns), multi, mesh, handover, fedco, zoo, train (the timed
+steps of both objectives)),
 ``ms`` and ``device_ms``. The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
 "device": {...}}``. On any
@@ -1106,6 +1120,192 @@ def multi_path(dev, data):
     if launches != want:
         raise AssertionError(f"[multi] launches {launches} != {want}")
     return launches
+
+
+def mesh_path(dev, data):
+    """[mesh]: the sharded cohort forms over NCCL at world size 1, at full
+    width (P = 11,506,624, a 5-row cohort): gather, split and exact
+    bitwise their host forms, psum within WAGG_TOL, the five schemes of
+    `sharded_aggregate`; then MultiRSU(n_rsus=1, mesh_aggregate=True) at
+    the Table-1 setting, 2 rounds through `run` (launches counted) and 2
+    through `run_campaign`, each round's global row against the
+    mesh_aggregate=False round from the same state; MultiRSU(n_rsus=2,
+    mesh_aggregate=True) raises before any training. Returns the
+    launches of the `run` rounds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.convert import flat_spec, ravel
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import collectives as C
+    from repro_torch.core import engine
+    from repro_torch.core import hierarchical as H
+    from repro_torch.core.cohort import CohortBatch
+    from repro_torch.core.scenario import Scenario, run, run_campaign
+    from repro_torch.core.state import FLConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.trace_round import TABLE1
+
+    mesh = M.cohort_mesh(1, 1, dev)
+    print(f"[mesh] {dist.get_backend()} group of {dist.get_world_size()} "
+          f"rank(s), mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}: one "
+          f"card, one rank; no speed is claimed for the sharding",
+          flush=True)
+    # the one group serves CPU tensors too (gloo beside NCCL), so a CPU
+    # scenario after a card one (or before it) finds its backend
+    cx = torch.arange(12.0).view(3, 4)
+    cc = CohortBatch(flat=cx, spec=flat_spec({"w": cx[0]}),
+                     losses=torch.zeros(3), mask=torch.ones(3), n=3)
+    cw = torch.full((3,), 0.25)
+    cpu_mesh = M.cohort_mesh(1, 1, "cpu")
+    if not torch.equal(H.sharded_cohort_row(cc, cw, cpu_mesh),
+                       agg.cohort_weighted_row(cc, cw)):
+        raise AssertionError("[mesh] the CPU mesh on the same group differs "
+                             "from the host sum")
+    g = torch.Generator(device=dev).manual_seed(3)
+    m = 5
+    x = torch.randn((m, WAGG_P), generator=g, device=dev)
+    # the reference's discard case: blur straddling blur_threshold
+    blur = torch.tensor([11.6, 17.4, 12.8, 19.0, 14.2], device=dev)
+    spec = flat_spec({"w": x[0]})
+    cohort = CohortBatch(flat=x, spec=spec, losses=torch.zeros(m, device=dev),
+                         mask=torch.ones(m, device=dev), n=m).with_stats(
+                             blur=blur)
+    w = agg.flsimco_weights(blur)
+    host = agg.cohort_weighted_row(cohort, w)
+    host_h = H.hierarchical_row([cohort])
+    forms = {
+        "gather": lambda: H.sharded_cohort_row(cohort, w, mesh),
+        "split": lambda: H.sharded_cohort_row(cohort, w, mesh,
+                                              reduction="split"),
+        "exact": lambda: H.sharded_hierarchical_row(cohort, mesh, 1),
+        "psum": lambda: H.sharded_hierarchical_row(cohort, mesh, 1,
+                                                   reduction="psum")}
+    got = {k: f() for k, f in forms.items()}
+    torch.cuda.synchronize()
+    for k in ("gather", "split"):
+        if not torch.equal(got[k], host):
+            raise AssertionError(f"[mesh] {k} is not bitwise the host sum")
+    if not torch.equal(got["exact"], host_h):
+        raise AssertionError("[mesh] exact is not bitwise the host hierarchy")
+    psum_err = _max_err(got["psum"], host_h)
+    if not psum_err <= WAGG_TOL:
+        raise AssertionError(f"[mesh] psum max abs err {psum_err} > "
+                             f"{WAGG_TOL}")
+    for name in sorted(agg.AGGREGATORS):
+        cfg = FLConfig(aggregator=name)
+        want = ravel(agg.AGGREGATORS[name](cohort, cfg))
+        for red in ("gather", "split"):
+            if not torch.equal(ravel(H.sharded_aggregate(
+                    cohort, cfg, mesh, reduction=red)), want):
+                raise AssertionError(f"[mesh] sharded_aggregate {name} "
+                                     f"{red} is not bitwise the host's")
+    ms = {k: _time_ms(f, iters=10) for k, f in forms.items()}
+    ms["host"] = _time_ms(lambda: agg.cohort_weighted_row(cohort, w),
+                          iters=10)
+    row = host.clone()
+    cols = torch.empty_like(x)
+    coll = {"all_gather (5, P)": lambda: C.all_gather_rows(x),
+            "all_reduce (P,)": lambda: dist.all_reduce(row),
+            "all_to_all (5, P)": lambda: dist.all_to_all_single(cols, x)}
+    coll_ms = {k: _time_ms(f, iters=10) for k, f in coll.items()}
+    print(f"[mesh] P={WAGG_P}, m={m}: gather, split, exact bitwise the "
+          f"host forms, psum max abs err {psum_err:.3e} (limit "
+          f"{WAGG_TOL}), the five schemes bitwise in both reductions; ms "
+          f"{ {k: round(v, 4) for k, v in ms.items()} }; collectives at "
+          f"world size 1, ms { {k: round(v, 4) for k, v in coll_ms.items()} }",
+          flush=True)
+    del x, cols, row, cohort, got
+    # MultiRSU at the Table-1 setting, one RSU a pod of one rank
+    kw = dict(TABLE1, topology="multi")
+    on = Scenario(device=dev, data=data, **dict(
+        kw, topology_kwargs={"n_rsus": 1, "mesh_aggregate": True}))
+    off = Scenario(device=dev, data=data, **dict(
+        kw, topology_kwargs={"n_rsus": 1, "mesh_aggregate": False}))
+    states, want, hist = [on.init_state()], {}, []
+    torch.cuda.synchronize()
+    _zero_counts()
+    for _ in range(2):
+        want = _add(want, _round_launches(on, _plan_of(on, states[-1])))
+        t = time.time()
+        st, (rec,) = run(on, states[-1], rounds=1)
+        torch.cuda.synchronize()
+        print(f"[mesh] MultiRSU(1, mesh_aggregate=True) round "
+              f"{rec['round']}: {time.time() - t:.3f} s, loss "
+              f"{rec['loss']:.6f}", flush=True)
+        _check_round("mesh", rec, st)
+        states.append(st)
+        hist.append(rec)
+    launches = _counts()
+    print(f"[mesh] launches {launches} (expected {want}: a round wagg 1 "
+          f"RSU + 1 region, dt_loss ceil(5 / CLIENTS_PER_CHUNK))",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"[mesh] launches {launches} != {want}")
+    trees = []
+    camp, camp_hist = run_campaign(
+        on, states[0], rounds=2, publish_every=1,
+        publish=lambda r, tree: trees.append(ravel(tree).clone()))
+    torch.cuda.synchronize()
+    mode = engine.resolve_mode("auto", dev,
+                               engine._campaign_mesh(on) is not None)
+    engine.reset_engine_caches()
+    if mode != "graph" or len(trees) != 2:
+        raise AssertionError(f"[mesh] campaign at one rank: mode {mode}, "
+                             f"{len(trees)} publishes")
+    if _sans_loss(camp_hist) != _sans_loss(hist):
+        raise AssertionError("[mesh] campaign schedule differs from run's")
+    for k in range(2):
+        # the host round from the state each mesh round started from
+        start = states[k]
+        host_st, (host_rec,) = run(off, start, rounds=1)
+        # the campaign's round k began from its own tree after round k - 1
+        # and the same random streams (its schedule is run's, bitwise)
+        camp_start = start if k == 0 else start.replace(
+            global_tree=_tree_of(trees[k - 1], start))
+        camp_st = start.replace(global_tree=_tree_of(trees[k], start))
+        host_c, _ = run(off, camp_start, rounds=1)
+        for tag, a, b, s0 in (("run", states[k + 1], host_st, start),
+                              ("campaign", camp_st, host_c, camp_start)):
+            d, rel = _rows_diff(a, b, s0)
+            print(f"[mesh] round {k} {tag} against mesh_aggregate=False "
+                  f"from the same state: max abs {d:.3e}, {rel:.3e} of "
+                  f"the update", flush=True)
+            if not (d <= CROSS_MAX_ABS and rel <= CROSS_REL_UPDATE):
+                raise AssertionError(f"[mesh] round {k} {tag}: {d} max "
+                                     f"abs, {rel} of the update")
+        if abs(host_rec["loss"] - hist[k]["loss"]) > CROSS_LOSS_TOL:
+            raise AssertionError(f"[mesh] round {k} loss "
+                                 f"{hist[k]['loss']} vs {host_rec['loss']}")
+    print(f"[mesh] run_campaign ({mode} mode at one rank) 2 rounds: "
+          f"schedule bitwise run's", flush=True)
+    # 2 RSUs need 2 ranks (and 5 vehicles do not split over 2): raised
+    # while the scenario is built, before any training
+    _zero_counts()
+    for vehicles, words in ((5, "not divisible"), (4, "needs 2 ranks")):
+        try:
+            Scenario(device=dev, data=data, **dict(
+                kw, vehicles_per_round=vehicles,
+                topology_kwargs={"n_rsus": 2, "mesh_aggregate": True}))
+        except ValueError as e:
+            if words not in str(e):
+                raise
+            print(f"[mesh] MultiRSU(2, mesh_aggregate=True), {vehicles} "
+                  f"vehicles a round: ValueError: {e}", flush=True)
+        else:
+            raise AssertionError("[mesh] MultiRSU(2, mesh_aggregate=True) "
+                                 "did not raise on one rank")
+    if any(_counts().values()):
+        raise AssertionError(f"[mesh] the refused scenarios launched "
+                             f"{_counts()}")
+    H.reset_sharded_caches()
+    dist.destroy_process_group()
+    return launches
+
+
+def _tree_of(row, state):
+    from repro_torch.convert import flat_spec, unravel
+    return unravel(row, flat_spec(state.global_tree))
 
 
 def handover_path(dev, data):
@@ -2788,6 +2988,7 @@ def run() -> int:
              "resume": resume_path(dev, main_sc.data),
              "engine": engine_path(dev, main_sc.data),
              "multi": multi_path(dev, main_sc.data),
+             "mesh": mesh_path(dev, main_sc.data),
              "handover": handover_path(dev, main_sc.data),
              "fedco": fedco_path(dev, main_sc.data)}
     probe_path(dev, main_sc, main_state)

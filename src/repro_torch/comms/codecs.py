@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.convert import (flat_spec, leaves_with_paths, ravel,
                                  tree_map, unravel)
+from repro_torch.core.collectives import all_gather_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.qdelta import BQ
 
@@ -209,6 +210,28 @@ def decode_snapshot(codec, payload, base):
 # the CohortBatch encode/decode stage
 # --------------------------------------------------------------------------
 
+def _roundtrip_shard(codec, cohort, b, comms, rows):
+    if cohort.size != cohort.n:
+        raise ValueError(f"a sharded cohort goes through the codec without "
+                         f"padding rows; got {cohort.n} valid of "
+                         f"{cohort.size}")
+    lo, hi = cohort.row0, cohort.row0 + cohort.flat.shape[0]
+    ef = None
+    if codec.stateful:
+        full_ef = comms["ef"]
+        slots = (torch.arange(cohort.n, device=full_ef.device) if rows is None
+                 else torch.as_tensor(rows, dtype=torch.long,
+                                      device=full_ef.device))
+        ef = full_ef[slots[lo:hi]]
+    payload, new_ef = codec.encode(cohort.flat, b, ef)
+    cohort = dataclasses.replace(cohort, flat=codec.decode(payload, b))
+    if codec.stateful:
+        full_ef = full_ef.clone()
+        full_ef[slots] = all_gather_rows(new_ef)
+        comms = {"ef": full_ef}
+    return cohort, comms
+
+
 def roundtrip_cohort(cfg, cohort, base, comms, rows=None,
                      stacked_base=False):
     """Encode -> decode the cohort's VALID rows against the model tree
@@ -221,10 +244,17 @@ def roundtrip_cohort(cfg, cohort, base, comms, rows=None,
     buffer; padding rows (m > n) repeat the last decoded row, as in the
     reference (they are masked out of every aggregation). The input
     cohort and ``comms`` are not modified, so a round stays pure.
+
+    A sharded cohort (`CohortBatch.shard`; no padding rows) is encoded and
+    decoded block by block, each rank its own rows with the slots
+    ``rows[row0:row0 + b]``; the new error-feedback rows are all-gathered,
+    so every rank holds the whole residual.
     """
     if cfg.codec == "identity":
         return cohort, comms
     codec = CODECS[cfg.codec]
+    if cohort.mesh is not None:
+        return _roundtrip_shard(codec, cohort, ravel(base), comms, rows)
     n = cohort.n
     ef = full_ef = None
     if codec.stateful:

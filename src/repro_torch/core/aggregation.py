@@ -16,13 +16,19 @@ entry has the dispatch signature
 Every weighted sum goes through `kernels.ops.wagg_flat` — the CUDA
 kernel on the card, its plain version on the CPU. There is no tree-map
 backend switch.
+
+The collective forms (`weighted_psum_tree`, `normalized_weight_on_axis`)
+take a process group (a cohort mesh dim, core/collectives.py) where the
+reference takes mesh axis names, and reduce with a float32 `all_reduce`
+SUM; every rank of the group gets the same result.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.convert import (flat_spec, leaves_with_paths, ravel_into,
-                                 unravel)
+                                 tree_map, unravel)
+from repro_torch.core.collectives import psum
 from repro_torch.kernels import ops
 
 
@@ -145,3 +151,31 @@ def _make_dispatch(weight_fn):
 
 
 AGGREGATORS = {name: _make_dispatch(fn) for name, fn in SCHEME_WEIGHTS.items()}
+
+
+# --------------------------------------------------------------------------
+# collective form
+# --------------------------------------------------------------------------
+
+def weighted_psum_tree(tree, weight, group=None):
+    """Eq. 11 as one collective: every leaf <- sum over the group's ranks
+    of weight * leaf, `weight` this rank's normalized weight (the weights
+    sum to 1 over the group). A bare tensor is a one-leaf tree."""
+    return tree_map(lambda x: psum(x.float() * weight, group).to(x.dtype),
+                    tree)
+
+
+def normalized_weight_on_axis(blur_level, group=None,
+                              normalize: bool = True) -> torch.Tensor:
+    """This rank's Eq.-11 weight (sum L - L) / sum L over the group, from
+    its scalar blur level L, by scalar all-reduces (no model moves);
+    normalized over the group (uniform where the weights vanish)."""
+    L = torch.as_tensor(blur_level, dtype=torch.float32)
+    total = psum(L.clone(), group)
+    w = (total - L) / torch.clamp(total, min=1e-12)
+    if normalize:
+        wsum = psum(w.clone(), group)
+        n = psum(torch.ones_like(w), group)
+        w = torch.where(wsum > 1e-12, w / torch.clamp(wsum, min=1e-12),
+                        1.0 / n)
+    return w

@@ -9,7 +9,7 @@ client algorithm the same way:
   init_state(cfg, global_tree)          -> client_state (or None)
   run_cohort(cfg, tree, client_state,
              batches, draws, lr,
-             parallel, pad_to)           -> (CohortBatch, uploads)
+             parallel, pad_to[, mesh])   -> (CohortBatch, uploads)
   finalize(cfg, client_state,
            aggregated_tree, uploads)     -> new client_state
 
@@ -32,6 +32,14 @@ DT-SSL trains the cohort in one of two ways, as the reference does:
   port's own oracle for the batched step.
 FedCo is sequential either way, as the reference's is.
 
+With a cohort mesh of more than one rank (``mesh``, launch/mesh.py;
+`collectives.is_sharded`),
+DT-SSL's batched step shards the cohort: each rank trains its block of
+rows (`train_sharded`) and returns the cohort sharded (core/cohort.py),
+the losses gathered. A block batches fewer clients than the whole
+cohort, so this is float-close, not bitwise, against the unsharded step,
+as in the reference.
+
 DT-SSL's loss is the fused DT kernel (`kernels.ops.dt_loss`); the
 reference's client differentiates the jnp `dt_loss_matrix`, which
 computes the same function. FedCo's InfoNCE is plain torch, as the
@@ -45,6 +53,8 @@ from repro_torch.convert import (flat_spec, leaves_with_paths, tree_map,
                                  unflatten)
 from repro_torch.core import ssl
 from repro_torch.core.cohort import CohortBatch
+from repro_torch.core.collectives import (all_gather_rows, axis_size,
+                                          is_sharded)
 from repro_torch.core.dt_loss import info_nce_loss
 from repro_torch.core.state import FLConfig
 from repro_torch.kernels import ops
@@ -154,6 +164,24 @@ def train_chunks(cfg: FLConfig, tree: dict, images: torch.Tensor,
         cohort.write_rows(i0, trees, losses)
 
 
+def train_sharded(cfg: FLConfig, tree: dict, images: torch.Tensor,
+                  draws: list, lr, mesh, n: int) -> CohortBatch:
+    """This rank's block of a cohort sharded over `mesh` through the
+    batched step: images (b, B, H, W, C) and the draws stacked over the
+    block's b clients, rows [r b, (r + 1) b) of a cohort of b x ranks
+    rows, the first n valid. Returns the sharded cohort (its `flat` the
+    block), the losses all-gathered."""
+    b = images.shape[0]
+    block = CohortBatch.empty(flat_spec(tree), b, device=images.device)
+    train_chunks(cfg, tree, images, draws, lr, block)
+    losses = all_gather_rows(block.losses)
+    m = losses.shape[0]
+    return CohortBatch(flat=block.flat, spec=block.spec, losses=losses,
+                       mask=(torch.arange(m, device=losses.device) < n)
+                       .float(), n=n, mesh=mesh,
+                       row0=CohortBatch.sharding_spec(mesh, m).start)
+
+
 def _stack_draws(draws: list) -> list:
     """Clients' per-iteration (pi1, pi2) draw pairs -> one pair a
     iteration, each draw tensor stacked along a leading client axis."""
@@ -220,12 +248,13 @@ class DTSSLClient:
 
     def run_cohort(self, cfg: FLConfig, tree: dict, client_state,
                    batches: list, draws: list, lr: float,
-                   parallel: bool = True, pad_to=None):
+                   parallel: bool = True, pad_to=None, mesh=None):
         """Train each client from `tree` on its batch with its draws;
         returns (the cohort with client i's tree in row i, None).
         `parallel` vmaps the step over chunks of CLIENTS_PER_CHUNK
-        clients, and only then does `pad_to` pad the cohort (see the
-        module docstring), as in the reference."""
+        clients, and only then do `pad_to` pad the cohort and `mesh`
+        shard it (see the module docstring), as in the reference; with a
+        mesh the cohort is padded on to a multiple of its ranks."""
         if not parallel:
             cohort = _empty_cohort(tree, batches)
             for i, (images, client_draws) in enumerate(zip(batches, draws)):
@@ -233,6 +262,14 @@ class DTSSLClient:
                 cohort.write(i, t, loss)
             return cohort, None
         n = len(batches)
+        if is_sharded(mesh):
+            ext = axis_size(mesh)
+            m = -(-(pad_to or n) // ext) * ext
+            batches, draws = _pad_inputs(batches, draws, m)
+            blk = CohortBatch.sharding_spec(mesh, m)
+            return train_sharded(cfg, tree, torch.stack(batches[blk]),
+                                 _stack_draws(draws[blk]), lr, mesh,
+                                 n), None
         batches, draws = _pad_inputs(batches, draws, pad_to)
         cohort = _empty_cohort(tree, batches, n)
         train_chunks(cfg, tree, torch.stack(batches), _stack_draws(draws),

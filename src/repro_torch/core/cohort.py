@@ -2,7 +2,7 @@
 
 Counterpart of `repro.core.cohort` (`bucket_size`; `CohortBatch`:
 `empty`, `write`, `concat`, `take`, `with_stats`, `padded_weights`,
-`pad_to`). The reference stacks
+`pad_to`, `sharding_spec`, `shard`, `gather`). The reference stacks
 each leaf of the client trees along a leading cohort axis and ravels the
 stack into an (m, P) matrix at the aggregation boundary
 (`ops.wagg_stacked`). The port keeps the cohort in that matrix from the
@@ -17,6 +17,10 @@ trained as one batch), so aggregation reads the buffer as it is.
   n           count of valid clients; valid rows are the prefix [0, n)
   velocities  (m,) per-client velocities (attached by the topology)
   blur        (m,) Eq.-2 blur levels (attached by the topology)
+  mesh, row0  a SHARDED cohort (`shard`): the cohort mesh, and the first
+              row of this rank's block; `flat` then holds only that block
+              of the (m, P) rows, while losses, mask, n and the stats stay
+              the whole cohort's (small, the same on every rank)
 
 Padding rows (m > n) get weight 0 and mask 0, so the masked aggregation
 (fmaf(0, x, acc) == acc for finite x) is bitwise equal to the unpadded
@@ -29,11 +33,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.convert import FlatSpec, leaves_with_paths, ravel_into
+from repro_torch.core.collectives import (all_gather_rows, axis_size,
+                                          cohort_rank)
 
 
 def bucket_size(n: int) -> int:
@@ -56,6 +62,8 @@ class CohortBatch:
     n: int
     velocities: Optional[torch.Tensor] = None
     blur: Optional[torch.Tensor] = None
+    mesh: Any = None
+    row0: int = 0
 
     @classmethod
     def empty(cls, spec: FlatSpec, m: int, n: Optional[int] = None,
@@ -172,6 +180,35 @@ class CohortBatch:
             flat=ext(self.flat), spec=self.spec, losses=ext(self.losses),
             mask=(torch.arange(m, device=self.flat.device) < self.n).float(),
             n=self.n, velocities=ext(self.velocities), blur=ext(self.blur))
+
+    @staticmethod
+    def sharding_spec(mesh, size: int) -> slice:
+        """This rank's block of a cohort of `size` rows sharded over
+        `mesh`: the rows of the cohort padded to a multiple of the mesh's
+        ranks, split into equal contiguous blocks in rank order."""
+        ext = axis_size(mesh)
+        b = -(-size // ext)
+        r = cohort_rank(mesh)
+        return slice(r * b, (r + 1) * b)
+
+    def shard(self, mesh) -> "CohortBatch":
+        """This rank's block of the cohort on `mesh` (see the module
+        docstring). Pads to a multiple of the mesh's ranks first (the last
+        row repeated, masked out), so a cohort smaller than the mesh still
+        shards; some ranks then hold only padding rows."""
+        ext = axis_size(mesh)
+        c = self.pad_to(-(-self.size // ext) * ext)
+        blk = self.sharding_spec(mesh, c.size)
+        return dataclasses.replace(c, flat=c.flat[blk].clone(), mesh=mesh,
+                                   row0=blk.start)
+
+    def gather(self) -> "CohortBatch":
+        """Undo `shard`: every rank's block gathered back (an all_gather
+        over the mesh), the whole cohort on every rank."""
+        if self.mesh is None:
+            return self
+        return dataclasses.replace(self, flat=all_gather_rows(self.flat),
+                                   mesh=None, row0=0)
 
     def padded_weights(self, w_valid) -> torch.Tensor:
         """(n,) weights over the valid rows -> (m,) with zero padding."""

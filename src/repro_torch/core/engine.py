@@ -42,6 +42,17 @@ has no `lax.scan`: the reference scans so that XLA runs many rounds with
 no host in between, and one graph of one round already replays a whole
 round with none; a chunk is a loop of replays.
 
+Sharded cohorts. A MultiRSU scenario whose `resolve_mesh` gives a cohort
+mesh of more than one rank (launch/mesh.py) runs its round body sharded,
+through the eager sharded round's own `MultiRSU.sharded_step`: each rank
+trains its block of the RSU-major cohort, the codec runs on the block,
+and `sharded_hierarchical_row` merges; every rank ends each round with
+the same carry. That body runs eagerly: a CUDA graph over NCCL collectives
+across ranks cannot be checked on a one-card machine, so "auto" resolves
+to eager there and "graph" raises (ROADMAP.md, Later work: graph mode
+over a multi-rank mesh). At one rank the body and the graph are the host
+ones.
+
 Graph mode. A campaign's first round that finds no graph for its key and
 shapes runs the body on a side stream, through the static buffers: the
 warm-up, which loads every kernel library, sets dt_loss's attributes and
@@ -89,6 +100,7 @@ from repro_torch.convert import flat_spec, ravel, unravel
 from repro_torch.core import aggregation as agg
 from repro_torch.core.clients import _stack_draws, train_chunks
 from repro_torch.core.cohort import CohortBatch
+from repro_torch.core.collectives import is_sharded
 from repro_torch.core.hierarchical import hierarchical_row
 from repro_torch.core.mobility import apply_motion_blur
 from repro_torch.core.state import (FLState, generator_from, pack_host_rng,
@@ -106,8 +118,8 @@ _REFERENCE_NAMES = {"jit": "eager", "scan": "graph"}
 # --------------------------------------------------------------------------
 
 def check_campaign_supported(scenario) -> None:
-    """Fail fast, before any capture, on what the engine cannot express.
-    (The topologies' mesh options already raise at construction.)"""
+    """Fail fast, before any capture, on what the engine cannot express,
+    MultiRSU's mesh errors included."""
     cfg, topo = scenario.cfg, scenario.topology
     if cfg.client != "dtssl":
         raise ValueError(
@@ -116,6 +128,8 @@ def check_campaign_supported(scenario) -> None:
             f"client={cfg.client!r} is sequential (FedCo threads a MoCo "
             "key encoder and queue through the cohort). Use the eager "
             "run()/run_round() loop for it.")
+    if type(topo) is MultiRSU:
+        topo.resolve_mesh(cfg, scenario.device)
     if type(topo) not in (SingleRSU, MultiRSU, HandoverMultiRSU):
         raise ValueError(
             f"run_campaign supports the built-in topologies "
@@ -123,16 +137,32 @@ def check_campaign_supported(scenario) -> None:
             "Custom topologies run through the eager run() loop.")
 
 
-def resolve_mode(mode: str, device) -> str:
+def _campaign_mesh(scenario):
+    """The cohort mesh of more than one rank a MultiRSU campaign shards
+    over, else None."""
+    topo = scenario.topology
+    if type(topo) is not MultiRSU:
+        return None
+    mesh = topo.resolve_mesh(scenario.cfg, scenario.device)
+    return mesh if is_sharded(mesh) else None
+
+
+def resolve_mode(mode: str, device, sharded: bool = False) -> str:
     """"eager" or "graph" for a scenario on `device`: "auto" is eager on
     the CPU and graph on CUDA; the reference's "jit" is eager and "scan"
-    graph. A graph needs CUDA."""
+    graph. A graph needs CUDA and one rank: a `sharded` campaign (a mesh
+    of more than one rank) runs eagerly."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     mode = _REFERENCE_NAMES.get(mode, mode)
     on_cuda = torch.device(device).type == "cuda"
+    if mode == "graph" and sharded:
+        raise NotImplementedError(
+            "mode='graph' over a cohort mesh of more than one rank is not "
+            "ported; see ROADMAP.md, Later work (graph mode over a "
+            "multi-rank mesh). Use mode='eager'")
     if mode == "auto":
-        return "graph" if on_cuda else "eager"
+        return "graph" if on_cuda and not sharded else "eager"
     if mode == "graph" and not on_cuda:
         raise ValueError("mode='graph' captures a CUDA graph, and this "
                          "scenario runs on the CPU; use mode='eager'")
@@ -273,14 +303,45 @@ def _train(scenario, spec, tree, images, xs, tree_batched=False):
     return cohort
 
 
+def _build_sharded_body(scenario, mesh):
+    """Round body for MultiRSU over a mesh of more than one rank: carry as
+    `_build_cohort_body`'s. `MultiRSU.sharded_step` on this rank's block
+    of the RSU-major cohort ``perm``, from the planned xs; the losses
+    come back in cohort order."""
+    cfg, topo = scenario.cfg, scenario.topology
+    stateful = CODECS[cfg.codec].stateful
+    n = cfg.vehicles_per_round
+    perm = torch.from_numpy(np.concatenate(topo.rsu_groups(n))).to(
+        scenario.device)
+    blk = perm[CohortBatch.sharding_spec(mesh, n)]
+    inv = torch.argsort(perm)
+
+    def body(spec, dstack, carry, xs):
+        sub = {k: xs[k][blk] for k in ("ids", "idx", "velocities")}
+        draws = [tuple({k: v[blk] for k, v in d.items()} for d in pair)
+                 for pair in xs["draws"]]
+        row, comms, losses = topo.sharded_step(
+            cfg, unravel(carry[0], spec),
+            _client_images(dstack, sub, scenario), draws, xs["lr"],
+            xs["velocities"], xs["blur"],
+            {"ef": carry[1]} if stateful else None, perm, mesh)
+        return ((row, comms["ef"]) if stateful else (row,)), losses[inv]
+
+    return body
+
+
 def _build_cohort_body(scenario):
     """Round body for SingleRSU and MultiRSU: carry = (global row,) and
     the error feedback after it under a stateful codec. The cohort trains
     in order, in chunks of CLIENTS_PER_CHUNK from the shared tree; the
     codec runs over the whole cohort (error-feedback slot i = cohort
     position i, as the eager round's rows); SingleRSU aggregates with its
-    scheme's weights, MultiRSU through the round-robin groups."""
+    scheme's weights, MultiRSU through the round-robin groups (over a
+    mesh of more than one rank: `_build_sharded_body`)."""
     cfg, topo = scenario.cfg, scenario.topology
+    mesh = _campaign_mesh(scenario)
+    if mesh is not None:
+        return _build_sharded_body(scenario, mesh)
     stateful = CODECS[cfg.codec].stateful
     weights = agg.SCHEME_WEIGHTS[cfg.aggregator]
     groups = None
@@ -584,7 +645,8 @@ def run_campaign(scenario, state: Optional[FLState] = None,
                       0 publishes once per natural chunk
     """
     check_campaign_supported(scenario)
-    mode = resolve_mode(mode, scenario.device)
+    mode = resolve_mode(mode, scenario.device,
+                        sharded=_campaign_mesh(scenario) is not None)
     if checkpoint_every is not None:
         if checkpoint_every < 1:
             raise ValueError("checkpoint_every must be >= 1")

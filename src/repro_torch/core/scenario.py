@@ -16,8 +16,8 @@ CUDA is asked for and missing. Building a scenario turns on the float32
 parity mode (runtime.py). Every topology (``single``, ``multi``,
 ``handover``), client (``dtssl``, ``fedco``, and the legacy
 ``aggregator="fedco"`` spelling), aggregator and codec of the reference
-is accepted; the mesh options of the topologies raise
-NotImplementedError naming the ROADMAP.md entry that ports them.
+is accepted, the topologies' mesh options too (launch/mesh.py: with
+``torch.distributed`` ranks, each rank builds the same scenario).
 ``parallel=True`` (the default, as in the reference) trains each cohort
 or RSU group with the batched client step, ``parallel=False`` client by
 client (core/clients.py).
@@ -102,7 +102,7 @@ class Scenario:
         self._dataset = None
         self._global_tree = global_tree
         self._lr_fn = None
-        self.topology.validate(self.cfg)
+        self.topology.validate(self.cfg, self.device)
 
     # -- lazy builders -------------------------------------------------------
 

@@ -29,18 +29,6 @@ import torch
 from repro_torch.convert import tree_map
 from repro_torch.core.mobility import BLUR_KMH_100
 
-ROADMAP_FOR = {
-    "mesh_aggregate": "ROADMAP.md Queue A, item 9 (sharded cohorts)",
-    "mesh_shard": "ROADMAP.md Queue A, item 9 (sharded cohorts)",
-}
-
-
-def not_ported(what: str, value) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}={value!r} is not ported to repro_torch yet; see "
-        f"{ROADMAP_FOR[what]}")
-
-
 def resolve_fedco_alias(aggregator, client):
     """The legacy ``aggregator="fedco"`` spelling means client="fedco"
     aggregated with "fedavg"; returns (aggregator, client), unchanged

@@ -38,8 +38,10 @@ Each cohort or RSU group trains through the client's `run_cohort`:
 batched client step over chunks of clients, ``parallel=False`` trains
 client by client (core/clients.py); the handover pads each download
 group to its power-of-two bucket when ``parallel and bucketed``, as the
-reference does. The mesh paths (`MultiRSU(mesh_aggregate=True)`,
-`HandoverMultiRSU(mesh_shard=True)`) are ROADMAP.md Queue A, item 9.
+reference does. The mesh paths (`MultiRSU(mesh_aggregate=...)`,
+`HandoverMultiRSU(mesh_shard=True)`) shard a cohort over a cohort mesh
+of `torch.distributed` ranks (launch/mesh.py): every rank runs the same
+round and ends it with the same state, bitwise.
 
 The phases are marked with `torch.profiler.record_function` ranges
 (``round.plan``, ``round.batches``, ``round.clients``, ``round.comms``,
@@ -56,16 +58,19 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.comms.codecs import roundtrip_cohort
-from repro_torch.convert import ravel, tree_map, unravel
+from repro_torch.convert import flat_spec, ravel, tree_map, unravel
 from repro_torch.core import aggregation as agg
 from repro_torch.core import ssl
-from repro_torch.core.clients import CLIENT_UPDATES
+from repro_torch.core.clients import (CLIENT_UPDATES, _stack_draws,
+                                      train_sharded)
 from repro_torch.core.cohort import CohortBatch, bucket_size
-from repro_torch.core.hierarchical import aggregate_hierarchical
+from repro_torch.core.collectives import is_sharded
+from repro_torch.core.hierarchical import (aggregate_hierarchical,
+                                           sharded_hierarchical,
+                                           sharded_hierarchical_row)
 from repro_torch.core.mobility import apply_motion_blur
 from repro_torch.core.state import (FLConfig, FLState, generator_from,
-                                    not_ported, pack_host_rng,
-                                    unpack_host_rng)
+                                    pack_host_rng, unpack_host_rng)
 
 
 # --------------------------------------------------------------------------
@@ -172,7 +177,7 @@ def _require_flsimco(cfg: FLConfig, name: str) -> None:
 class Topology:
     """Strategy object: the structure of one federated round.
 
-    validate(cfg)                       fail fast on unsupported configs
+    validate(cfg, device)               fail fast on unsupported configs
     signature()                         static parameters, JSON-able
     init_state(cfg, mobility,
                global_tree, gen)        -> the round-0 `FLState.topo`
@@ -181,7 +186,7 @@ class Topology:
 
     name = "base"
 
-    def validate(self, cfg: FLConfig) -> None:
+    def validate(self, cfg: FLConfig, device=None) -> None:
         pass
 
     def signature(self) -> dict:
@@ -260,9 +265,20 @@ class MultiRSU(SingleRSU):
     step a group under ``parallel=True``), the codec
     stage runs per group with the cohort indices as error-feedback slots,
     and `aggregate_hierarchical` merges the groups. FedCo uploads are
-    kept in group order. `mesh_aggregate=None` or False runs this host
-    path; True (the reference's sharded mesh path) raises. `mesh_reduction`
-    is validated and kept in `signature`.
+    kept in group order.
+
+    The mesh (`resolve_mesh`): ``mesh_aggregate=None`` (the default)
+    promotes the round to a (pod=n_rsus, data=d) cohort mesh whenever
+    the process group has 2 ranks or more and the cohort splits evenly;
+    True forces the mesh (actionable errors when it cannot be built);
+    False pins the host path. With a mesh of more than one rank, a
+    DT-SSL round under ``parallel=True`` shards whole: each rank trains
+    its block of the RSU-major cohort, runs the codec on it (slots
+    ``rows=perm``) and the two levels reduce through
+    `sharded_hierarchical` with `mesh_reduction` ("exact": bitwise the
+    host merge of the same rows; "psum": float-close). Otherwise every
+    rank trains the groups on the host path and, on a mesh (one rank
+    included), merges them through `sharded_hierarchical`.
     """
 
     name = "multi"
@@ -275,8 +291,6 @@ class MultiRSU(SingleRSU):
         if mesh_reduction not in ("exact", "psum"):
             raise ValueError(f"mesh_reduction {mesh_reduction!r} not in "
                              f"('exact', 'psum')")
-        if mesh_aggregate:
-            raise not_ported("mesh_aggregate", mesh_aggregate)
         self.n_rsus = n_rsus
         self.count_scaled = count_scaled
         self.mesh_aggregate = mesh_aggregate
@@ -288,8 +302,34 @@ class MultiRSU(SingleRSU):
                 "mesh_aggregate": self.mesh_aggregate,
                 "mesh_reduction": self.mesh_reduction}
 
-    def validate(self, cfg: FLConfig) -> None:
+    def resolve_mesh(self, cfg: FLConfig, device=None):
+        """The cohort mesh this topology's rounds run on (on `device`'s
+        type, None meaning CUDA), or None for the host path. Explicit
+        True raises the actionable errors (ranks needed against ranks
+        there, an uneven cohort) instead of falling back."""
+        from repro_torch.launch.mesh import (cohort_axis_divisor,
+                                             cohort_mesh, maybe_cohort_mesh)
+        if self.mesh_aggregate is False:
+            return None
+        n = cfg.vehicles_per_round
+        if n % self.n_rsus:
+            if self.mesh_aggregate:
+                raise ValueError(
+                    f"mesh_aggregate needs equal per-RSU cohorts: "
+                    f"vehicles_per_round={n} not divisible by "
+                    f"n_rsus={self.n_rsus} — pick n_rsus dividing the "
+                    f"cohort, or mesh_aggregate=None to auto-fall-back")
+            return None
+        s = n // self.n_rsus
+        if self.mesh_aggregate:
+            return cohort_mesh(self.n_rsus,
+                               cohort_axis_divisor(s, self.n_rsus), device)
+        return maybe_cohort_mesh(self.n_rsus, s, device)
+
+    def validate(self, cfg: FLConfig, device=None) -> None:
         _require_flsimco(cfg, "MultiRSU")
+        # fail before any training, not after the cohort has run
+        self.resolve_mesh(cfg, device)
 
     def rsu_groups(self, n: int) -> list:
         """The non-empty round-robin groups of a cohort of n: one array of
@@ -306,6 +346,10 @@ class MultiRSU(SingleRSU):
         batches, draws, v = self._batches(scenario, plan)
         blur = mob.blur_level(v)
         sels = self.rsu_groups(len(plan.ids))
+        mesh = self.resolve_mesh(cfg, scenario.device)
+        if is_sharded(mesh) and parallel and cfg.client == "dtssl":
+            return self._sharded_round(state, scenario, plan, tree, batches,
+                                       draws, v, blur, sels, mesh)
         comms, cohorts, uploads = state.comms, [], []
         for sel in sels:
             rows = torch.from_numpy(sel).to(v.device)
@@ -323,17 +367,77 @@ class MultiRSU(SingleRSU):
             cohorts.append(cohort)
             uploads.extend(ups or [])
         with record_function("round.aggregate"):
-            new_tree = aggregate_hierarchical(cohorts,
-                                              count_scaled=self.count_scaled)
+            if mesh is None:
+                new_tree = aggregate_hierarchical(
+                    cohorts, count_scaled=self.count_scaled)
+            else:
+                new_tree = self._mesh_aggregate(cohorts, mesh)
         new_cs = client.finalize(cfg, state.client_state, new_tree,
                                  uploads or None)
-        losses = _host_losses(torch.cat([c.valid_losses for c in cohorts]))
-        rec = {"round": state.round, "loss": float(np.mean(losses)),
+        losses = torch.cat([c.valid_losses for c in cohorts])
+        return self._finish(state, plan, sels, new_tree, new_cs, comms,
+                            losses)
+
+    def _finish(self, state, plan, sels, new_tree, new_cs, comms, losses):
+        rec = {"round": state.round,
+               "loss": float(np.mean(_host_losses(losses))),
                "velocities": plan.velocities.tolist(), "lr": plan.lr,
                "topology": self.name,
                "rsu_sizes": [int(s.size) for s in sels]}
         return state.replace(global_tree=new_tree, round=state.round + 1,
                              client_state=new_cs, comms=comms), rec
+
+    def _sharded_round(self, state, scenario, plan, tree, batches, draws, v,
+                       blur, sels, mesh):
+        """The round sharded whole over `mesh` (`sharded_step`), from the
+        plan's per-client batches and draws; the losses come back
+        RSU-major, as the host path's."""
+        perm = torch.from_numpy(np.concatenate(sels)).to(v.device)
+        blk = perm[CohortBatch.sharding_spec(mesh, perm.numel())].tolist()
+        row, comms, losses = self.sharded_step(
+            scenario.cfg, tree, torch.stack([batches[i] for i in blk]),
+            _stack_draws([draws[i] for i in blk]), plan.lr, v, blur,
+            state.comms, perm, mesh)
+        return self._finish(state, plan, sels, unravel(row, flat_spec(tree)),
+                            None, comms, losses)
+
+    def sharded_step(self, cfg, tree, images, draws, lr, velocities, blur,
+                     comms, perm, mesh):
+        """A DT-SSL round's work over a mesh of more than one rank, for
+        `execute` and the campaign engine's round body alike: this rank
+        trains its block of the RSU-major cohort ``perm`` (a (n,) device
+        index tensor) from `tree` (images (b, B, H, W, C) and the draws
+        stacked over the block's b clients, as `clients.train_sharded`
+        takes them); the cohort takes ``velocities`` and ``blur`` (cohort
+        order) at ``perm``; the codec runs on the block (error-feedback
+        slot = cohort index) and `sharded_hierarchical_row` merges.
+        Returns (the (P,) global row, comms, the (n,) losses RSU-major),
+        the same on every rank."""
+        with record_function("round.clients"):
+            cohort = train_sharded(cfg, tree, images, draws, lr, mesh,
+                                   perm.numel())
+            cohort = cohort.with_stats(velocities=velocities[perm],
+                                       blur=blur[perm])
+        with record_function("round.comms"):
+            cohort, comms = roundtrip_cohort(cfg, cohort, tree, comms,
+                                             rows=perm)
+        with record_function("round.aggregate"):
+            row = sharded_hierarchical_row(
+                cohort, mesh, self.n_rsus, count_scaled=self.count_scaled,
+                reduction=self.mesh_reduction)
+        return row, comms, cohort.valid_losses
+
+    def _mesh_aggregate(self, cohorts, mesh) -> dict:
+        """The host-trained groups merged over the cohort mesh, as one
+        RSU-major cohort of their valid rows."""
+        sizes = sorted(c.n for c in cohorts)
+        if len(set(sizes)) != 1:
+            raise ValueError(f"mesh_aggregate needs equal per-RSU cohorts; "
+                             f"got sizes {sizes}")
+        return sharded_hierarchical(CohortBatch.concat(cohorts), mesh,
+                                    len(cohorts),
+                                    count_scaled=self.count_scaled,
+                                    reduction=self.mesh_reduction)
 
 
 @dataclass(frozen=True)
@@ -414,8 +518,13 @@ class HandoverMultiRSU(Topology):
     as in the reference. `bucketed=False` runs each group at its exact
     size; ``parallel=False`` trains client by client and never pads. As
     in the reference, `bucketed` is not part of `signature` (it changes
-    no result beyond rounding). `mesh_shard=True` raises (ROADMAP.md
-    Queue A, item 9).
+    no result beyond rounding). `mesh_shard=True` (opt-in) shards each
+    download group's client work over ``maybe_cohort_mesh(1,
+    bucket_size(vehicles_per_round))`` under ``parallel=True`` where the
+    process group has 2 ranks or more: each rank trains its block of the
+    group (float-close against the unsharded step), and the group is
+    gathered back before its codec stage, so the regrouping, uploads and
+    sync run as on the host path, the same on every rank.
     """
 
     name = "handover"
@@ -430,8 +539,6 @@ class HandoverMultiRSU(Topology):
             raise ValueError("stale_discount must be in [0, 1]")
         if sync_every < 1:
             raise ValueError("sync_every must be >= 1")
-        if mesh_shard:
-            raise not_ported("mesh_shard", mesh_shard)
         self.n_rsus = n_rsus
         self.rsu_range = rsu_range
         self.road_length = n_rsus * rsu_range
@@ -451,7 +558,7 @@ class HandoverMultiRSU(Topology):
                 "count_scaled": self.count_scaled,
                 "mesh_shard": self.mesh_shard}
 
-    def validate(self, cfg: FLConfig) -> None:
+    def validate(self, cfg: FLConfig, device=None) -> None:
         _require_flsimco(cfg, "HandoverMultiRSU")
         if cfg.client != "dtssl":
             raise ValueError(
@@ -579,6 +686,11 @@ class HandoverMultiRSU(Topology):
         client = CLIENT_UPDATES[cfg.client]
         rsu_models = [tree_map(lambda t: t.to(device), model)
                       for model in state.topo["rsu_models"]]
+        mesh = None
+        if self.mesh_shard and parallel:
+            from repro_torch.launch.mesh import maybe_cohort_mesh
+            mesh = maybe_cohort_mesh(1, bucket_size(cfg.vehicles_per_round),
+                                     device)
         comms, group_sel, group_cohorts = state.comms, [], []
         # Step 2: each download group trains from its RSU's model; the
         # delta base of a client is its download RSU's model and its
@@ -593,7 +705,9 @@ class HandoverMultiRSU(Topology):
                 cohort, _ = client.run_cohort(
                     cfg, rsu_models[rsu], state.client_state, batches,
                     draws, plan.lr, parallel=parallel,
-                    pad_to=self.pad_to(sel.size) if parallel else None)
+                    pad_to=self.pad_to(sel.size) if parallel else None,
+                    mesh=mesh)
+                cohort = cohort.gather()
             with record_function("round.comms"):
                 cohort, comms = roundtrip_cohort(cfg, cohort,
                                                  rsu_models[rsu], comms,

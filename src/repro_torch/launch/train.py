@@ -27,6 +27,14 @@ through `run_round`, with whole-`FLState` checkpoints and resume:
     PYTHONPATH=src python -m repro_torch.launch.train --mode sim \\
         --topology multi --rounds 4 --vehicles 8 --ckpt-dir ckpt --resume
 
+Under ``torchrun --nproc-per-node N`` every rank runs the same rounds,
+MultiRSU over its cohort mesh (launch/mesh.py; gloo ranks with
+``--device cpu``, one card a rank on CUDA), and rank 0 prints and
+writes the checkpoints:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --mode sim --topology multi --per-round 4 --device cpu
+
 Each step or round prints its loss and seconds and fails on a loss that
 is not finite; on the card the run ends with its peak device memory.
 """
@@ -38,6 +46,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import InputShape, get_config
 from repro_torch.core.mobility import MobilityModel
@@ -54,13 +63,16 @@ def run_sim(a) -> None:
     """Scenario-driven FL simulation with FLState checkpointing."""
     from repro_torch.checkpoint.store import latest, restore_state, save_state
     from repro_torch.core.scenario import Scenario, run_round
+    from repro_torch.launch.mesh import init_from_launcher
 
+    device = init_from_launcher(a.device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     sc = Scenario(topology=a.topology, aggregator=a.aggregation,
                   client=a.client, partitioner=a.partitioner,
                   n_per_class=a.n_per_class,
                   n_vehicles=a.vehicles, vehicles_per_round=a.per_round,
                   batch_size=a.batch, rounds=a.rounds, lr=a.sim_lr,
-                  device=a.device)
+                  device=device)
     state = None
     if a.resume and a.ckpt_dir:
         found = latest(a.ckpt_dir)
@@ -69,17 +81,20 @@ def run_sim(a) -> None:
             print(f"resumed FLState from {found[0]} (round {state.round})")
     if state is None:
         state = sc.init_state()
-    print(f"sim {sc.topology.name} agg={sc.cfg.aggregator} "
-          f"client={sc.cfg.client} vehicles={sc.cfg.n_vehicles} "
-          f"rounds={sc.cfg.rounds}")
+    if lead:
+        ranks = dist.get_world_size() if dist.is_initialized() else 1
+        print(f"sim {sc.topology.name} agg={sc.cfg.aggregator} "
+              f"client={sc.cfg.client} vehicles={sc.cfg.n_vehicles} "
+              f"rounds={sc.cfg.rounds} ranks={ranks}")
     while state.round < sc.cfg.rounds:
         t0 = time.time()
         state, rec = run_round(state, sc)
-        print(f"round {rec['round']}: loss={rec['loss']:.4f} "
-              f"({time.time() - t0:.2f}s)")
+        if lead:
+            print(f"round {rec['round']}: loss={rec['loss']:.4f} "
+                  f"({time.time() - t0:.2f}s)")
         if not math.isfinite(rec["loss"]):
             raise SystemExit(f"round {rec['round']}: loss is not finite")
-        if a.ckpt_dir:
+        if a.ckpt_dir and lead:
             save_state(os.path.join(a.ckpt_dir, f"ckpt_{state.round}.npz"),
                        state, scenario=sc)
 

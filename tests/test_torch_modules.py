@@ -360,6 +360,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.eval.probe, repro_torch.trace_round\n"
         "import repro_torch.checkpoint, repro_torch.checkpoint.store\n"
         "import repro_torch.core.engine, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.core.collectives\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -383,14 +384,20 @@ def test_default_device_is_cuda():
     dict(client="fedco"),
     dict(aggregator="fedco")])
 def test_unported_choices_raise_not_implemented(kw):
-    """The mesh options stay unported and raise, naming ROADMAP item 9;
-    both FedCo spellings resolve as the reference's FLConfig does."""
+    """The mesh options are ported (tests/test_torch_sharded.py) and raise
+    no NotImplementedError: MultiRSU(mesh_aggregate=True) raises its
+    actionable error on one rank (2 RSUs of the default 5 vehicles do
+    not split evenly), the handover's opt-in mesh_shard runs the host
+    path there; both FedCo spellings resolve as the reference's FLConfig
+    does."""
     from repro.core.state import FLConfig as JFLConfig
 
-    if "topology_kwargs" in kw:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md Queue A, item 9"):
+    if kw.get("topology") == "multi":
+        with pytest.raises(ValueError, match="mesh_aggregate needs equal"):
             Scenario(device="cpu", **kw)
+        return
+    if "topology_kwargs" in kw:
+        assert Scenario(device="cpu", **kw).topology.mesh_shard
         return
     cfg = Scenario(device="cpu", **kw).cfg
     want = JFLConfig(**kw)
