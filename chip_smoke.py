@@ -41,6 +41,14 @@ the JAX package `repro`. Phases, each of which must pass:
    kernel's own device time (``device_ms``) is the self device time of
    its launches under torch.profiler over their count (`_device_ms`); a
    trace without it fails the run.
+   Then ``[analysis]``, the port's analysis layer (repro_torch.analysis):
+   inside `guards.no_implicit_transfers` an ``.item()`` and a ``.cpu()``
+   of a CUDA tensor each raise, and the sync debug mode is back to its
+   previous value after each block (whether a ``torch.cuda.synchronize()``
+   raises there is printed, not held); the kernel builds `track_compiles`
+   counted around the first `build.build_all()`, and 0 around a second;
+   `contracts.check_all()` over fake CPU tensors finds nothing; the
+   port's lint over src/repro_torch finds nothing beyond its baseline.
 3. Cross-check: one small round on the card and the same round with
    ``device="cpu"``, compared with allclose (tolerances below).
 4. Main path: 3 rounds of the paper's Table-1 setting (95 vehicles,
@@ -85,9 +93,15 @@ the JAX package `repro`. Phases, each of which must pass:
      the trees within CROSS_MAX_ABS chunk by chunk, launches wagg 1 and
      dt_loss 2 a round from the replays; 5 handover rounds (delta_int8,
      the sync at round 4) graph against eager; 2 MultiRSU rounds graph
-     against `run`. Prints seconds a round, host ms a round, the
-     device's idle share, the peak memory, the graph pool and the
-     capture's seconds for each mode;
+     against `run`. Every ``compile_counts`` goes through
+     `guards.assert_compile_bounds` and equals ``ENGINE_COMPILE_BOUNDS``;
+     the Table-1 graph chunks, the guarded replays, the handover's and
+     MultiRSU's graph campaigns each run inside `guards.track_compiles`,
+     whose captures must equal the growth of ``compile_counts`` over the
+     block, 0 captures and 0 kernel builds over the guarded replays.
+     Prints seconds a round, host ms a round, the device's idle share,
+     the peak memory, the graph pool and the capture's seconds for each
+     mode;
    * ``[topo]``: small rounds of MultiRSU(n_rsus=2), the handover (two
      rounds with a handover and the region sync) and FedCo, each from
      one state on the card and with ``device="cpu"``; loss, global tree,
@@ -1803,6 +1817,9 @@ def engine_path(dev, data):
     import numpy as np
     import torch
 
+    from repro_torch.analysis.guards import (ENGINE_COMPILE_BOUNDS,
+                                             assert_compile_bounds,
+                                             track_compiles)
     from repro_torch.checkpoint.store import restore_state
     from repro_torch.comms.codecs import CODECS, decode_snapshot
     from repro_torch.convert import ravel
@@ -1814,7 +1831,22 @@ def engine_path(dev, data):
     gc.collect()
     torch.cuda.empty_cache()
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_engine")
-    total = {}
+    total, tracked_blocks = {}, {}
+
+    def tracked(tag, sc, work):
+        """`work()` inside `track_compiles`: the captures it counts must
+        be the growth of `compile_counts(sc)` over the block."""
+        before = engine.compile_counts(sc)["graph"]
+        with track_compiles() as tracker:
+            out = work()
+        grown = engine.compile_counts(sc)["graph"] - before
+        if tracker.graph_captures != grown:
+            raise AssertionError(f"[engine] {tag}: track_compiles saw "
+                                 f"{tracker.graph_captures} captures, "
+                                 f"compile_counts grew by {grown}")
+        tracked_blocks[tag] = (tracker.graph_captures,
+                               tracker.kernel_builds)
+        return out
 
     def campaign(tag, sc, state, rounds, **kw):
         """One counted campaign: (state, history, peak GiB, the seconds
@@ -1894,12 +1926,13 @@ def engine_path(dev, data):
             s1 = campaign(tag, sc, sc.init_state(), 1, mode="graph")[0]
             st_g, h_g = campaign(tag, sc, s1, 1, mode="graph")[:2]
             counts = engine.compile_counts(sc)
+            assert_compile_bounds(counts, what=f"[engine] {tag}")
             st_e, h_e = campaign(tag, sc, s1, 1, mode="eager")[:2]
             step = 0.0 if s1.comms is None else 2 * max(
                 float(st.comms["ef"].abs().max()) for st in (st_g, st_e))
             worst[f"{topo} {codec}"] = held(tag, st_g, h_g, st_e, h_e, s1,
                                             step)[0]
-            if counts != {"graph": 1}:
+            if counts != ENGINE_COMPILE_BOUNDS:
                 raise AssertionError(f"[engine] {tag}: compile_counts "
                                      f"{counts}")
             engine.reset_engine_caches()
@@ -1910,9 +1943,10 @@ def engine_path(dev, data):
     # -- Table 1 ---------------------------------------------------------
     sc = Scenario(device=dev, data=data, **TABLE1)
     store = ModelStore()
-    st_g, h_g, starts, line = graph_chunks("Table-1 graph", sc,
-                                           sc.init_state(), 4, 2,
-                                           publish=store.publish)
+    st_g, h_g, starts, line = tracked(
+        "Table-1 graph", sc, lambda: graph_chunks(
+            "Table-1 graph", sc, sc.init_state(), 4, 2,
+            publish=store.publish))
     # where the graph campaign ended each chunk: the next one's start
     ends = [s for _, s in starts[1:]] + [st_g]
     snap = decode_snapshot(CODECS[store.codec], store.get(4).delta_payload,
@@ -1924,9 +1958,13 @@ def engine_path(dev, data):
                                  ravel(st_g.global_tree))
                  and torch.equal(ravel(snap), ravel(st_g.global_tree)))
     counts = engine.compile_counts(sc)
-    st_w, _, _, t_g = campaign("Table-1 graph, guarded", sc, st_g, 3,
-                               mode="graph", transfer_guard=True,
-                               publish_every=1)
+    st_w, _, _, t_g = tracked(
+        "Table-1 guarded", sc, lambda: campaign(
+            "Table-1 graph, guarded", sc, st_g, 3, mode="graph",
+            transfer_guard=True, publish_every=1))
+    if tracked_blocks["Table-1 guarded"] != (0, 0):
+        raise AssertionError(f"[engine] the guarded replays captured or "
+                             f"built: {tracked_blocks['Table-1 guarded']}")
     prof_g = _engine_profile(lambda: run_campaign(sc, st_w, 1, mode="graph"))
     counts_after = engine.compile_counts(sc)
     engine.reset_engine_caches()
@@ -1975,7 +2013,10 @@ def engine_path(dev, data):
     elif seen != {k: one[k] for k in seen}:
         raise AssertionError(f"[engine] kernels in one profiled replay "
                              f"{seen} != {one}")
-    if not (published and counts == counts_after == {"graph": 1}):
+    assert_compile_bounds(counts, what="[engine] Table-1 campaign")
+    assert_compile_bounds(counts_after, what="[engine] Table-1 warm")
+    if not (published
+            and counts == counts_after == ENGINE_COMPILE_BOUNDS):
         raise AssertionError(f"[engine] Table-1: published {published}, "
                              f"compile_counts {counts} {counts_after}")
     del st_g, st_w, st_e, st_r, starts, ends, store, snap
@@ -1984,8 +2025,9 @@ def engine_path(dev, data):
     # -- the handover, delta_int8 ----------------------------------------
     sc = Scenario(device=dev, data=data, **dict(
         TABLE1, topology="handover", topology_kwargs={}, codec="delta_int8"))
-    st_g, h_g, starts, line = graph_chunks("handover graph", sc,
-                                           sc.init_state(), 5, 2)
+    st_g, h_g, starts, line = tracked(
+        "handover graph", sc, lambda: graph_chunks(
+            "handover graph", sc, sc.init_state(), 5, 2))
     shutil.rmtree(ckpt_dir)
     ends = [s for _, s in starts[1:]] + [st_g]
     st_w, _, _, t_g = campaign("handover graph, warm", sc, st_g, 2,
@@ -2035,8 +2077,9 @@ def engine_path(dev, data):
     sc = Scenario(device=dev, data=data, **dict(
         TABLE1, topology="multi", topology_kwargs={"n_rsus": 2}))
     start = sc.init_state()
-    st_g, h_g, peak_g, _ = campaign("multi graph", sc, start, 2,
-                                    mode="graph")
+    st_g, h_g, peak_g, _ = tracked(
+        "multi graph", sc, lambda: campaign("multi graph", sc, start, 2,
+                                            mode="graph"))
     stats = engine.graph_stats(sc)
     engine.reset_engine_caches()
     st_r, h_r = run(sc, start, rounds=2)
@@ -2047,6 +2090,9 @@ def engine_path(dev, data):
           f"{[r['rsu_sizes'] for r in h_g]}, trees max abs {worst[0]:.3e} "
           f"(relative {worst[1]:.3e}); graph launches of the phase {total}",
           flush=True)
+    print(f"[engine] track_compiles (graph captures, kernel builds) by "
+          f"block, captures equal to compile_counts' growth: "
+          f"{tracked_blocks}", flush=True)
     engine.reset_engine_caches()
     return total
 
@@ -2954,6 +3000,73 @@ def train_full_width(dev):
     return _add(lm, dt)
 
 
+def analysis_path(dev, first_build) -> None:
+    """[analysis]: the guards live on the card, the registries' contracts
+    and the port's lint clean. `first_build` is the tracker around the
+    script's first `build.build_all()`."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.analysis import contracts, lint
+    from repro_torch.analysis.guards import (no_implicit_transfers,
+                                             track_compiles)
+    from repro_torch.kernels import build
+
+    x = torch.arange(4.0, device=dev)
+    torch.cuda.synchronize()
+
+    def guarded(fn) -> str:
+        """The error `fn()` raises inside the guard ('' when none); the
+        sync debug mode must be back to its value after the block."""
+        prev = torch.cuda.get_sync_debug_mode()
+        err = ""
+        with no_implicit_transfers():
+            try:
+                fn()
+            except RuntimeError as e:
+                err = str(e).splitlines()[0]
+        if torch.cuda.get_sync_debug_mode() != prev:
+            raise AssertionError(f"[analysis] sync debug mode "
+                                 f"{torch.cuda.get_sync_debug_mode()} after "
+                                 f"the guard, {prev} before")
+        return err
+
+    caught = {"item": guarded(lambda: x.sum().item()),
+              "cpu": guarded(lambda: x.cpu()),
+              "synchronize": guarded(torch.cuda.synchronize)}
+    if not (caught["item"] and caught["cpu"]):
+        raise AssertionError(f"[analysis] no_implicit_transfers let a "
+                             f"fetch through: {caught}")
+    with track_compiles() as again:
+        build.build_all()
+    if again.kernel_builds:
+        raise AssertionError(f"[analysis] a second build_all built "
+                             f"{again.kernel_builds} libraries")
+    t = time.perf_counter()
+    violations = contracts.check_all()
+    t_contracts = time.perf_counter() - t
+    if violations:
+        raise AssertionError("[analysis] contracts: "
+                             + "; ".join(map(str, violations)))
+    t = time.perf_counter()
+    with contextlib.chdir(ROOT):
+        findings = lint.apply_baseline(
+            lint.lint_paths([os.path.join("src", "repro_torch")]),
+            lint.load_baseline(lint.DEFAULT_BASELINE))
+    t_lint = time.perf_counter() - t
+    if findings:
+        raise AssertionError("[analysis] lint: "
+                             + "; ".join(f.format() for f in findings))
+    print(f"[analysis] no_implicit_transfers raises on .item(): "
+          f"{caught['item']!r}; on .cpu(): {caught['cpu']!r}; on "
+          f"torch.cuda.synchronize(): {caught['synchronize'] or 'no'}; "
+          f"kernel builds around the first build_all "
+          f"{first_build.kernel_builds}, around a second 0; contracts "
+          f"0 violations in {t_contracts:.2f} s; lint 0 findings in "
+          f"{t_lint:.2f} s", flush=True)
+
+
 def run() -> int:
     import torch
 
@@ -2966,6 +3079,7 @@ def run() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from repro_torch.analysis.guards import track_compiles
     from repro_torch.kernels import build
     from repro_torch.runtime import set_parity_mode
 
@@ -2973,12 +3087,14 @@ def run() -> int:
     print(f"[card] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t = time.time()
-    libs = build.build_all()
+    with track_compiles() as first_build:
+        libs = build.build_all()
     print(f"[build] {len(libs)} kernels in {time.time() - t:.2f} s: "
           f"{[os.path.basename(p) for p in libs]}", flush=True)
     set_parity_mode()
     dev = torch.device("cuda", 0)
     rows = kernel_phase(dev) + q8_kernels(dev)
+    analysis_path(dev, first_build)
     cross_check(dev)
     launches, main_sc, main_state = main_path(dev)
     comms_launches, sc, state, store = comms_path(dev, main_sc, main_state)

@@ -260,6 +260,8 @@ def roundtrip_cohort(cfg, cohort, base, comms, rows=None,
     if codec.stateful:
         full_ef = comms["ef"]
         if rows is not None:
+            # analysis: allow=retrace-fresh-array -- the round's slot
+            # indices; no copy when they come as a device tensor (engine)
             rows = torch.as_tensor(rows, dtype=torch.long,
                                    device=full_ef.device)
         ef = full_ef[:n] if rows is None else full_ef[rows]

@@ -38,6 +38,8 @@ def _weighted_stacked_sum(flat: torch.Tensor, spec, weights,
     the model tree (leaves are views of the one (P,) result). `weights`
     already float32 on the buffer's device are used as they are, with no
     copy (the campaign engine's captured round)."""
+    # analysis: allow=retrace-fresh-array -- the call's weights, no copy
+    # when already float32 on the buffer's device
     w = torch.as_tensor(weights, dtype=torch.float32, device=flat.device)
     return unravel(ops.wagg_flat(flat, w, mask), spec)
 
@@ -60,8 +62,10 @@ def aggregate_fedavg(trees, data_sizes=None) -> dict:
     """Baseline1 over a list of trees: uniform, or weighted by local
     dataset size."""
     if data_sizes is None:
+        # analysis: allow=retrace-fresh-array -- the call's n host weights
         w = torch.full((len(trees),), 1.0 / len(trees), dtype=torch.float32)
     else:
+        # analysis: allow=retrace-fresh-array -- the call's n host weights
         s = torch.as_tensor(data_sizes, dtype=torch.float32)
         w = s / s.sum()
     return _weighted_tree_sum(trees, w)

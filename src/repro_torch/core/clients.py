@@ -176,6 +176,8 @@ def train_sharded(cfg: FLConfig, tree: dict, images: torch.Tensor,
     train_chunks(cfg, tree, images, draws, lr, block)
     losses = all_gather_rows(block.losses)
     m = losses.shape[0]
+    # analysis: allow=retrace-fresh-array -- the (m,) validity mask, made
+    # on the card (no upload)
     return CohortBatch(flat=block.flat, spec=block.spec, losses=losses,
                        mask=(torch.arange(m, device=losses.device) < n)
                        .float(), n=n, mesh=mesh,

@@ -107,11 +107,15 @@ def two_stage_weighted_psum(rows: torch.Tensor, blur_level, *,
     a rank on the wire (float-close against the host forms: the row sum
     is reassociated). With `accum_dtype` (torch.float64) both levels
     accumulate in that dtype, cast back to float32 after level 2."""
+    # analysis: allow=retrace-fresh-array -- the call's blur levels, no
+    # copy when already float32 on the rows' device
     L = torch.as_tensor(blur_level, dtype=torch.float32, device=rows.device)
     blocked = L.dim() > 0
     ad = accum_dtype
     # level 1: vehicles within the RSU
     tot1 = psum(L.sum() if blocked else L.clone(), rsu_group)
+    # analysis: allow=retrace-fresh-array -- the 0-d count the all-reduce
+    # sums, filled on the rows' device (no upload)
     n1 = psum(torch.full((), L.numel(), dtype=torch.float32,
                                device=rows.device), rsu_group)
     w1 = (tot1 - L) / torch.clamp(tot1, min=1e-12)

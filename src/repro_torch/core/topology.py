@@ -125,6 +125,8 @@ def _cohort_plan(rng: np.random.RandomState, gen: torch.Generator, rnd: int,
 
 def _client_images(scenario, cid: int, idx, velocity, device) -> torch.Tensor:
     """One client's batch, motion-blurred by its velocity (no RNG)."""
+    # analysis: allow=retrace-fresh-array -- the client's batch, uploaded
+    # once a round by design
     images = torch.from_numpy(scenario.data[cid][idx]).to(device)
     if scenario.blur_images:
         images = apply_motion_blur(images, velocity,
@@ -612,15 +614,19 @@ class HandoverMultiRSU(Topology):
         weights, the accumulators' successors. Pure."""
         mob = scenario.mobility
         ids = draws.ids
+        # analysis: allow=retrace-fresh-array -- CPU plan tensor
         velocities = draws.fleet_v[torch.from_numpy(ids)]
         down = self.rsu_index(positions[ids])
         down_groups = [(rsu, np.where(down == rsu)[0])
                        for rsu in range(self.n_rsus) if (down == rsu).any()]
+        # analysis: allow=host-sync-fetch,retrace-fresh-array -- CPU plan
+        # tensor
         positions = mob.advance_positions(
             torch.tensor(positions, dtype=torch.float32), draws.fleet_v,
             self.round_duration, self.road_length).numpy()
         up = self.rsu_index(positions[ids])
         stale = up != down
+        # analysis: allow=host-sync-fetch -- CPU plan tensor
         blur = mob.blur_level(velocities).numpy()
         # this round's uploads to each RSU, added to the accumulators
         # below (new arrays: the inputs are left as they were)
@@ -634,6 +640,8 @@ class HandoverMultiRSU(Topology):
             # float32 Eq.-11 weights times a float64 discount, normalized
             # in float64, as the reference does; rounded to float32 only
             # at the weighted sum
+            # analysis: allow=host-sync-fetch,retrace-fresh-array -- CPU
+            # plan tensor
             w = agg.flsimco_weights(torch.from_numpy(blur[sel])).numpy()
             w = w * np.where(stale[sel], self.stale_discount, 1.0)
             s = w.sum()

@@ -12,7 +12,9 @@ and an unchanged one is loaded as built. `build_all()` starts one nvcc
 per source at once and waits for all of them. The sources have a plain C
 interface (no PyTorch headers), which keeps a build to seconds; each
 entry point takes pointers and the stream as ``void*`` and returns
-``cudaGetLastError()``, which the wrappers turn into an exception.
+``cudaGetLastError()``, which the wrappers turn into an exception. Each
+library built by nvcc and each loaded with ctypes counts as a kernel build
+in `analysis.guards.track_compiles`.
 Nothing here runs at import: this module is imported on machines with
 no nvcc and no card.
 """
@@ -25,6 +27,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from repro_torch.analysis.guards import record_compile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -80,6 +84,7 @@ def _finish(name: str, proc, tmp: Path, target: Path) -> None:
         raise RuntimeError(f"nvcc failed on {name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, target)   # atomic: concurrent builders agree
+    record_compile("kernel_builds")
 
 
 def build_all() -> list[Path]:
@@ -98,8 +103,11 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             proc, tmp, target = _start(name)
             _finish(name, proc, tmp, target)
+            # analysis: allow=retrace-ctor -- loaded once a library, cached
+            # in _LIBS
             lib = ctypes.CDLL(str(target))
             _LIBS[name] = lib
+            record_compile("kernel_builds")
         return lib
 
 

@@ -60,6 +60,8 @@ def wagg_ref(stacked: torch.Tensor, w: torch.Tensor,
     masked call with zero-weight padding rows is bitwise equal to the
     unpadded call (each padding row adds an exact +0.0)."""
     w = w.float() if mask is None else w.float() * mask.float()
+    # analysis: allow=retrace-fresh-array -- the output's accumulator,
+    # made on the input's device
     acc = torch.zeros(stacked.shape[1], dtype=torch.float32,
                       device=stacked.device)
     for n in range(stacked.shape[0]):

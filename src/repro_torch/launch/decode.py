@@ -76,6 +76,8 @@ def run_decode(cfg, params, last, cache, start: int, n_tokens: int):
     _sync(tok.device)
     t0 = time.perf_counter()
     for i in range(n_tokens):
+        # analysis: allow=retrace-fresh-array -- the step's positions,
+        # filled on the device (no upload)
         pos = torch.full((b,), start + i, dtype=torch.int64, device=tok.device)
         logits, cache = decode(params, {"tokens": tok, "positions": pos,
                                         "cache": cache})

@@ -110,6 +110,8 @@ def cohort_mesh(pods: int, data: int, device=None):
     if mesh is None:
         from torch.distributed.device_mesh import init_device_mesh
         _ensure_group(device)
+        # analysis: allow=retrace-ctor -- cached in _MESHES on (pods, data,
+        # device type)
         mesh = init_device_mesh(device.type, (pods, data),
                                 mesh_dim_names=COHORT_AXES)
         _MESHES[key] = mesh

@@ -54,6 +54,7 @@ import torch.utils._pytree as pytree
 from repro.core import hierarchical as jhier
 from repro.core.scenario import Scenario as JScenario
 from repro.core.scenario import run_campaign as j_run_campaign
+from repro_torch.analysis.guards import ENGINE_COMPILE_BOUNDS
 from repro_torch.checkpoint.store import restore_state
 from repro_torch.comms import codecs as tcodecs
 from repro_torch.convert import flat_spec, ravel
@@ -67,6 +68,8 @@ from test_torch_round import (LOSS_TOL, TREE_MAX_ABS, TREE_REL_UPDATE,
                               torch_threads)  # noqa: F401 (autouse)
 from test_torch_topology import _assert_plans_equal, _replayed_handover
 
+# an eager campaign captures nothing: every bounded counter reads 0
+NO_CAPTURES = dict.fromkeys(ENGINE_COMPILE_BOUNDS, 0)
 _RS = np.random.RandomState(0)
 DATA = [_RS.rand(6, 4, 4, 3).astype(np.float32) for _ in range(8)]
 ENGINE_TINY = dict(data=DATA, n_vehicles=8, vehicles_per_round=3,
@@ -354,7 +357,7 @@ def test_checkpoint_and_chunk_splits_bitwise(case, tmp_path):
     st_b, hist_b = run_campaign(sc, restored, rounds=3, mode="eager")
     _assert_states_bitwise(st6, st_b)
     assert hist_ck[:3] + hist_b == hist6
-    assert engine.compile_counts(sc) == {"graph": 0}
+    assert engine.compile_counts(sc) == NO_CAPTURES
 
 
 @functools.lru_cache(maxsize=None)
@@ -461,12 +464,12 @@ def test_compile_counts_and_reset():
     body) is dropped by reset_engine_caches."""
     sc = _scenario("single")
     run_campaign(sc, rounds=1, mode="eager")
-    assert engine.compile_counts(sc) == {"graph": 0}
+    assert engine.compile_counts(sc) == NO_CAPTURES
     assert engine.graph_stats(sc) is None
     assert engine._campaign_key(sc) in engine._CALLABLE_CACHE
     engine.reset_engine_caches()
     assert not engine._CALLABLE_CACHE
-    assert engine.compile_counts(sc) == {"graph": 0}
+    assert engine.compile_counts(sc) == NO_CAPTURES
 
 
 def test_data_stack_pads_to_the_longest_vehicle():

@@ -361,6 +361,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.checkpoint, repro_torch.checkpoint.store\n"
         "import repro_torch.core.engine, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh, repro_torch.core.collectives\n"
+        "import repro_torch.analysis.lint, repro_torch.analysis.guards\n"
+        "import repro_torch.analysis.contracts\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
