@@ -203,10 +203,12 @@ the JAX package `repro`. Phases, each of which must pass:
      against autograd through the plain chunk loop on the card, at (32,
      4096, 64) (one full-width sequence) and at a ragged S with a state,
      one kernel launch each, within RWKV6_GRAD_REL of each leaf's max.
-   * The DT kernel's wide form (256 < D <= 2048, the zoo's features)
-     against `ref.dt_loss_fwd_ref` at (8, 2048), (2, 8, 2048) and (512,
-     2048), DT_FWD_TOL, one launch of it and none of the narrow kernel,
-     two calls bitwise equal; timed at (8, 2048), a DT micro-batch.
+   * The DT kernel's wide form (256 < D <= 8192, the zoo's features)
+     against `ref.dt_loss_fwd_ref` at (8, 2048), (2, 8, 2048), (512,
+     2048), (8, 4608), (8, 8192), (2, 8, 8192) and (512, 8192),
+     DT_FWD_TOL, one launch of it and none of the narrow kernel, two
+     calls bitwise equal, D = 8196 and 8190 refused; timed at (8, 2048),
+     a DT micro-batch.
    * Cross-check: ``rwkv6-1.6b-smoke`` in float32, one ``lm`` step (2
      micro-batches) and one ``dt`` step (S = 37, the last chunk ragged)
      on the card and with ``device="cpu"``: loss, every gradient leaf,
@@ -225,6 +227,35 @@ the JAX package `repro`. Phases, each of which must pass:
      step under torch.profiler with the device time of the
      ``rwkv6.recompute`` range (the plain backward) and the idle share.
 
+10. Dense path (``[dense]``): the zoo's dense family, after [train]'s
+   tensors are freed. The DT kernel's wide form is checked in [train]
+   at D = 2048, 4608 and 8192 (`dt_wide_check`).
+   * Cross-check: ``tinyllama-1.1b-smoke``, ``qwen2-0.5b-smoke`` and
+     ``gemma2-27b-smoke`` in float32 on the card and with
+     ``device="cpu"``: a prefill of 40 positions (past the smoke window
+     of 32) and 4 decode steps with the float32 and with the int8 cache;
+     one ``lm`` step in 2 micro-batches (S = 2048 for tinyllama: the
+     flash Function and its backward) and one ``dt`` step, held as
+     [train]'s cross-check holds its steps, but for the ``dt`` loss: it
+     is held at the batch's limit from the DT kernel's specified lse_a
+     and lse_b errors and the float32 rounding of w_a (DT_EXP_ULPS).
+   * Full width: ``tinyllama-1.1b`` (22 layers) and ``qwen2-0.5b`` (24
+     layers), random bfloat16 weights from seed 0, bfloat16 cache, 16
+     prompts x 3008 tokens prefilled on the flash path into 3072 slots,
+     64 greedy decode steps; no kernel launches; peak at most PEAK_GIB;
+     each step's logits against a full forward at the same positions
+     within DENSE_FLOOR_X times the divergence one bfloat16 step of the
+     attention outputs causes in the same run; the prefill and 4 decode
+     steps profiled. tinyllama's ``lm`` (flsimco, sgdm) at 8 x 4096 in 4
+     micro-batches and ``dt`` at 8 x 512 (the wide DT form at D = 2048,
+     one launch a step): seconds a step, tok/s, peak GiB, launches, one
+     profiled step.
+   * ``gemma2-27b`` and ``deepseek-67b`` at every published width with
+     2 layers (gemma2: one local, one global): a 2 x 6080 prefill into
+     6144 slots (past gemma2's 4096 window) and 64 decode steps, held as
+     above, then one ``dt`` step at 8 x 512 (the wide DT form at D =
+     4608 and 8192).
+
 The q8 kernels are held against their plain versions in phase 2, at
 (5, Ppad), (3, Ppad), (2, Ppad) and (1, Ppad), Ppad = 11,506,688 (the
 cohort, the groups of MultiRSU and the handover, a snapshot): codes,
@@ -240,8 +271,10 @@ rwkv6 and dt_loss_wide (the DT kernel's wide form, launched by the train
 path), each with its launches on the path that runs it (``paths``: its
 launches on every path: main, comms, batched, resume, engine (its
 graph campaigns), multi, mesh, handover, fedco, zoo, train (the timed
-steps of both objectives)),
-``ms`` and ``device_ms``. The last three lines of standard output are the
+steps of both objectives), dense (the timed dense steps and serving
+runs)),
+``ms`` and ``device_ms``. A ``[time]`` line gives the script's seconds.
+The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
 "device": {...}}``. On any
 failure, or without a CUDA card, or outside a checkout, it exits non-zero
@@ -345,6 +378,59 @@ FEDCO_KVEC_TOL = 1e-5
 # card (torch.cuda.max_memory_allocated); the chunk of the batched cohort
 # step (core/clients.py CLIENTS_PER_CHUNK) is sized for it
 PEAK_GIB = 64.0
+# [dense]: the dense family. Card vs CPU, float32 smoke configs: logits
+# and caches at ZOO_CROSS_TOL; with the int8 cache a code may land one
+# step apart where its float32 value sits at a rounding boundary, which
+# moves one k or v element by its row's absmax / 127, so logits there at
+# DENSE_INT8_TOL (tests/test_torch_dense.py's INT8_LOGIT_TOL).
+DENSE_SMOKE = ("tinyllama-1.1b", "qwen2-0.5b", "gemma2-27b")
+DENSE_CROSS_S = 40          # prefill past the smoke configs' window of 32
+# The dense smoke configs' dt step card vs CPU: a row's loss is
+# -(w_b / w_a) log p_a, w_a = 1 - exp(log p_a), evaluated in float32 on
+# each side. Where the positive takes nearly all of the softmax at tau_a,
+# exp(log p_a) lies just below 1, and its rounding (two exps, each
+# within 2 ulp: CUDA's expf; the CPU's float32 exp within 1; DT_EXP_ULPS
+# of 2^-24 in all) moves w_a, and the row's loss, by DT_EXP_ULPS * 2^-24
+# / w_a relative. The
+# kernel's lse_a and lse_b are held to DT_FWD_TOL of the plain version's
+# on the card's features: lse_a moves the loss by at most DT_FWD_TOL
+# relative (loss = w_b r(x), x = -log p_a, r(x) = x / (1 - e^-x), slope
+# at most 1, r at least 1), lse_b by DT_FWD_TOL (1 - w_b) / w_b. So a row
+# is held at TRAIN_LOSS_REL plus those, and the mean loss at their mean
+# weighted by the rows' losses (`_dt_kernel_spread`). [train]'s rwkv6 dt
+# step keeps TRAIN_LOSS_REL.
+DT_EXP_ULPS = 4
+DENSE_INT8_TOL = 1e-2
+# Full width: 16 prompts of 3008 tokens and 64 decode steps, a cache of
+# 3072 slots (a multiple of the flash path's key chunk, so the prefill
+# takes the flash path; at 2048 + 64 the direct path would hold (16, 32,
+# 2048, 2112) float32 scores, 8.9 GB a layer). The decode steps' logits
+# are held against a full forward at DENSE_FLOOR_X times the divergence
+# a DENSE_BF16_EPS perturbation of its attention outputs causes, in the
+# same run, as ZOO_BF16_FLOOR_X holds the rwkv6 prefill. The decode
+# steps take the direct path, which rounds its probabilities to bfloat16
+# before the product with v; the forward's flash path keeps them in
+# float32. So an attention output may move by up to one bfloat16 step
+# (relative 2^-8 to 2^-7) between the two: the perturbation scales each
+# bfloat16 output by (1 +- 2^-8), a seeded random sign an element, which
+# moves the elements it reaches by one step and flips the roundings that
+# follow, layer after layer.
+DENSE_FULL = ("tinyllama-1.1b", "qwen2-0.5b")
+DENSE_SERVE = (16, 3008, 64)
+DENSE_BF16_EPS = 2.0 ** -8
+DENSE_FLOOR_X = 2.0
+# tinyllama-1.1b train steps: lm at train_4k's length, the batch cut to
+# 8, two sequences a micro-batch (pick_n_micro's 4e9 budget would give
+# one micro-batch of 8 x 4096, which does not fit); dt as [train]'s
+DENSE_LM, DENSE_LM_STEPS = (8, 4096, 4), 1
+DENSE_DT, DENSE_DT_STEPS = (8, 512, 1), 1
+# gemma2-27b and deepseek-67b at every published width, n_layers cut to
+# 2 (about 2.31e9 and 3.06e9 parameters, 4.6 and 6.1 GB in bfloat16):
+# 2 prompts of 6080 tokens + 64 decode steps (6144 slots, past gemma2's
+# 4096 window, so its local layer masks)
+DENSE_CUT_ARCHS = ("gemma2-27b", "deepseek-67b")
+DENSE_CUT_LAYERS = 2
+DENSE_CUT = (2, 6080, 64)
 
 
 def _smi() -> str:
@@ -2700,20 +2786,25 @@ def rwkv6_grad_check(dev):
 
 
 def dt_wide_check(dev):
-    """The DT kernel's wide form (256 < D <= 2048) against
+    """The DT kernel's wide form (256 < D <= 8192) against
     `ref.dt_loss_fwd_ref` on unit rows at (8, 2048) (a DT micro-batch of
-    the full-width model), (2, 8, 2048) (the cohort form) and (512,
-    2048); one launch each, none of the narrow kernel; two calls bitwise
-    equal. Timed at (8, 2048); device time and bound at (512, 2048) too.
-    Returns its kernels-line row."""
+    rwkv6-1.6b and tinyllama-1.1b), (2, 8, 2048) (the cohort form), (512,
+    2048), and at the dense family's widest: (8, 4608) (gemma2-27b), (8,
+    8192), (2, 8, 8192) and (512, 8192) (deepseek-67b); one launch each,
+    none of the narrow kernel; two calls bitwise equal; D = 8196 and a D
+    not a multiple of 4 refused. Timed at (8, 2048); device time and
+    bound at (512, 2048), (8, 8192) and (512, 8192) too. Returns its
+    kernels-line row."""
     import torch
 
     from repro_torch.kernels import dt_loss as dt_kernel
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(6)
-    errs, d = [], TRAIN_D
-    for shape in ((TRAIN_DT[0], d), (2, TRAIN_DT[0], d), (512, d)):
+    errs, d, at = [], TRAIN_D, {}
+    m = TRAIN_DT[0]
+    for shape in ((m, d), (2, m, d), (512, d), (m, 4608), (m, 8192),
+                  (2, m, 8192), (512, 8192)):
         q, k = _unit_rows(g, dev, shape), _unit_rows(g, dev, shape)
         _zero_counts()
         got = ops.dt_loss_fwd(q, k, 0.1, 1.0)
@@ -2731,10 +2822,17 @@ def dt_wide_check(dev):
             raise AssertionError(f"dt_loss wide {shape}: err {err}, "
                                  f"launches {counts}, bitwise {same}")
         errs.append(err)
-        if shape == (512, d):
-            dev_512 = _device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
-                                 "dt_fwd_wide", iters=50)
-            bound_512 = _dt_bound(1, 512, d)
+        if shape in ((512, d), (m, 8192), (512, 8192)):
+            at[shape] = (_device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
+                                    "dt_fwd_wide", iters=50),
+                         _dt_bound(1, *shape))
+    for bad in (8196, 8190):
+        x = _unit_rows(g, dev, (m, bad))
+        try:
+            ops.dt_loss_fwd(x, x, 0.1, 1.0)
+        except ValueError:
+            continue
+        raise AssertionError(f"dt_loss wide: D = {bad} was not refused")
     q, k = (_unit_rows(g, dev, (TRAIN_DT[0], d)) for _ in range(2))
     ms = _time_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0), iters=200)
     dev_ms = _device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
@@ -2744,29 +2842,43 @@ def dt_wide_check(dev):
     bound_ms, bound_by = _dt_bound(1, TRAIN_DT[0], d)
     print(f"[train] dt_loss wide ({TRAIN_DT[0]}, {d}): kernel {ms:.4f} ms "
           f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}); at (512, {d}): device "
-          f"{dev_512:.4f} ms, bound {bound_512[0]:.4f} ms "
-          f"({bound_512[1]})", flush=True)
+          f"{bound_ms:.5f} ms ({bound_by}); "
+          + "; ".join(f"at {sh}: device {t:.4f} ms, bound {b[0]:.4f} ms "
+                      f"({b[1]})" for sh, (t, b) in at.items())
+          + "; D = 8196 and 8190 refused", flush=True)
     return {"name": "dt_loss_wide", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dt_loss.cu",
             "replaces": "src/repro/kernels/dt_loss.py:33",
             "shape": [TRAIN_DT[0], d], "max_abs_err": max(errs), "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "device_ms_512": dev_512, "bound_ms_512": bound_512[0]}
+            "device_ms_512": at[(512, d)][0],
+            "bound_ms_512": at[(512, d)][1][0],
+            "device_ms_8_8192": at[(m, 8192)][0],
+            "bound_ms_8_8192": at[(m, 8192)][1][0],
+            "device_ms_512_8192": at[(512, 8192)][0],
+            "bound_ms_512_8192": at[(512, 8192)][1][0]}
 
 
-def _dt_lse_widening(cfg, params, tokens, drops) -> tuple:
-    """How far the DT kernel's float32 difference may reach the DT
-    loss's gradient on this batch, by specification: the kernel's lse_a
-    is held to DT_FWD_TOL of the plain version's on the card's features
-    (asserted here), and the backward (`ops._DTLoss`) forms dL/dsim_ii
-    from p_a(pos) - 1 = -w_a with the kernel's lse_a, w_a = 1 - p_a(pos)
-    from the plain version. A row whose positive takes nearly all of the
-    softmax at tau_a turns an error e in lse_a into a relative one e /
-    w_a (the loss itself, w_b to first order, does not see it), so the
-    gradient may move by DT_FWD_TOL / min(w_a). Returns (that widening,
-    the measured max |lse_a (kernel) - lse_a (plain)|, min(w_a))."""
+def _dt_kernel_spread(cfg, params, tokens, drops) -> dict:
+    """How far the DT kernel's float32 difference from the plain version
+    may reach the DT step on this batch, by specification, with the
+    kernel held to it on the card's features (raises otherwise):
+
+    * ``amp``, the gradient's widening: the kernel's lse_a is held to
+      DT_FWD_TOL of the plain version's, and the backward (`ops._DTLoss`)
+      forms dL/dsim_ii from p_a(pos) - 1 = -w_a with the kernel's lse_a,
+      w_a = 1 - p_a(pos) from the plain version. A row whose positive
+      takes nearly all of the softmax at tau_a turns an error e in lse_a
+      into a relative one e / w_a (the loss itself, w_b to first order,
+      does not see it), so the gradient may move by DT_FWD_TOL / min(w_a).
+    * ``loss_tol``, the mean loss's relative limit of DENSE's comment
+      block at DT_EXP_ULPS: lse_b is held to DT_FWD_TOL as lse_a is, and
+      the kernel's mean loss to ``loss_tol`` of the plain version's.
+
+    Also returns the measured errors, min(w_a), and the plain version's
+    float32 mean loss against its float64 evaluation on the same
+    features (the formula's own rounding)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -2776,25 +2888,45 @@ def _dt_lse_widening(cfg, params, tokens, drops) -> tuple:
     with torch.no_grad():
         q, k = (T.forward_features(cfg, params, torch.where(
             d, steps.MASK_TOKEN, tokens))[0] for d in drops)
-        _, lse_k, _, _ = ops.dt_loss_fwd(q, k, 0.1, 1.0)
-        _, lse_p, _, pos = ref.dt_loss_fwd_ref(q, k, 0.1, 1.0)
-    lse_err = float((lse_k - lse_p).abs().max())
-    w_min = float((1.0 - torch.exp(pos / 0.1 - lse_p)).min())
-    if not lse_err <= DT_FWD_TOL:
-        raise AssertionError(f"[train] dt_loss lse_a on the card's "
-                             f"features: {lse_err} > {DT_FWD_TOL}")
-    return DT_FWD_TOL / w_min, lse_err, w_min
+        loss_k, la_k, lb_k, _ = ops.dt_loss_fwd(q, k, 0.1, 1.0)
+        loss_p, la_p, lb_p, pos = ref.dt_loss_fwd_ref(q, k, 0.1, 1.0)
+        loss_64 = ref.dt_loss_from_sim(q.double() @ k.double().T, 0.1,
+                                       1.0)[0]
+    pos, la, lb, loss = (t.double() for t in (pos, la_p, lb_p, loss_p))
+    w_a = 1.0 - torch.exp(pos / 0.1 - la)
+    w_b = 1.0 - torch.exp(pos - lb)
+    rho = (TRAIN_LOSS_REL + DT_FWD_TOL * (1.0 + (1.0 - w_b) / w_b)
+           + DT_EXP_ULPS * 2.0 ** -24 / w_a)
+    out = {"lse_a_err": float((la_k - la_p).abs().max()),
+           "lse_b_err": float((lb_k - lb_p).abs().max()),
+           "w_min": float(w_a.min()),
+           "loss_tol": float((loss * rho).sum() / loss.sum()),
+           "kernel_loss_rel": float(abs(loss_k.double().mean() - loss.mean())
+                                    / loss.mean()),
+           "f32_loss_rel": float(abs(loss.mean() - loss_64.mean())
+                                 / loss_64.mean())}
+    out["amp"] = DT_FWD_TOL / out["w_min"]
+    if not (out["lse_a_err"] <= DT_FWD_TOL and out["lse_b_err"] <= DT_FWD_TOL
+            and out["kernel_loss_rel"] <= out["loss_tol"]):
+        raise AssertionError(f"dt_loss on the card's features: {out}, "
+                             f"lse tol {DT_FWD_TOL}")
+    return out
 
 
-def train_cross_check(dev):
-    """``rwkv6-1.6b-smoke`` in float32: one ``lm`` step (flsimco, sgdm,
-    2 micro-batches) and one ``dt`` step from the same params and batch
-    on the card and on the CPU: the loss, every gradient leaf, and the
+def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
+                                                      ("dt", 1, 4, 37)),
+                      tag="[train]", dt_loss_spec=False):
+    """``<arch>-smoke`` in float32: for each (objective, micro-batches,
+    B, S) of `cases` (default: one ``lm`` step (flsimco, sgdm) in 2
+    micro-batches and one ``dt`` step, B = 4, S = 37) the step from the
+    same params and batch on the card and on the CPU: the loss (within
+    TRAIN_LOSS_REL; with `dt_loss_spec` the ``dt`` loss within the
+    batch's `_dt_kernel_spread` limit), every gradient leaf, and the
     params and momentum after the step. The ``dt`` leaves are held at
     TRAIN_LEAF_REL plus DT_FWD_TOL / min(w_a), the most the DT kernel's
     specified float32 difference in lse_a can reach the gradient
-    (`_dt_lse_widening`, which also holds the kernel's lse_a to
-    DT_FWD_TOL on the card's features)."""
+    (`_dt_kernel_spread`, which also holds the kernel's lse_a and lse_b
+    to DT_FWD_TOL on the card's features)."""
     import numpy as np
     import torch
 
@@ -2804,18 +2936,17 @@ def train_cross_check(dev):
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
 
-    cfg = get_config("rwkv6-1.6b-smoke")
-    b, s = 4, 37
-    shape = InputShape("cross", s, b, "train")
+    cfg = get_config(arch + "-smoke")
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
-    rs = np.random.RandomState(0)
-    batch = {"tokens": torch.from_numpy(rs.randint(1, cfg.vocab_size,
-                                                   (b, s))),
-             "blur": torch.from_numpy(rs.uniform(9.0, 25.0, b).astype(
-                 np.float32)),
-             "drops": steps.draw_drop_masks((b, s),
-                                            torch.Generator().manual_seed(1))}
-    for objective, nm in (("lm", 2), ("dt", 1)):
+    for objective, nm, b, s in cases:
+        shape = InputShape("cross", s, b, "train")
+        rs = np.random.RandomState(0)
+        batch = {"tokens": torch.from_numpy(rs.randint(1, cfg.vocab_size,
+                                                       (b, s))),
+                 "blur": torch.from_numpy(rs.uniform(9.0, 25.0, b).astype(
+                     np.float32)),
+                 "drops": steps.draw_drop_masks(
+                     (b, s), torch.Generator().manual_seed(1))}
         outs = []
         for d in (dev, torch.device("cpu")):
             p = tree_map(lambda t: t.to(d), params)
@@ -2827,27 +2958,35 @@ def train_cross_check(dev):
             new_p, new_m, _ = fn(p, steps.init_momentum(p), bt)
             outs.append((float(loss), grads, new_p, new_m))
         (lc, gc, pc, mc), (lh, gh, ph, mh) = outs
-        amp, lse_err, w_min = 0.0, 0.0, 1.0
+        amp, loss_tol, note = 0.0, TRAIN_LOSS_REL, ")"
         if objective == "dt":
-            amp, lse_err, w_min = _dt_lse_widening(
+            sp = _dt_kernel_spread(
                 cfg, tree_map(lambda t: t.to(dev), params),
                 batch["tokens"].to(dev), batch["drops"].to(dev))
+            amp = sp["amp"]
+            if dt_loss_spec:
+                loss_tol = sp["loss_tol"]
+            note = (f" = {TRAIN_LEAF_REL} + DT_FWD_TOL / min(w_a), min(w_a) "
+                    f"{sp['w_min']:.3e}); on the card's features the DT "
+                    f"kernel's lse_a within {sp['lse_a_err']:.2e} and lse_b "
+                    f"within {sp['lse_b_err']:.2e} of the plain version's "
+                    f"(tol {DT_FWD_TOL}), its loss within "
+                    f"{sp['kernel_loss_rel']:.2e} (the specified limit "
+                    f"{sp['loss_tol']:.2e}); the plain float32 loss against "
+                    f"float64 {sp['f32_loss_rel']:.2e}")
         leaf_tol = TRAIN_LEAF_REL + amp
         loss_rel = abs(lc - lh) / abs(lh)
         grad_rel = max(_leaf_rel(a.cpu(), b_) for a, b_ in zip(gc, gh))
         tree_rel = max(_tree_rel(pc, ph), _tree_rel(mc, mh))
-        print(f"[train] {cfg.name} float32 {objective} step (B={b}, S={s}, "
+        print(f"{tag} {cfg.name} float32 {objective} step (B={b}, S={s}, "
               f"{nm} micro): card vs cpu loss {lc:.7f} vs {lh:.7f} "
-              f"(relative {loss_rel:.2e}, tol {TRAIN_LOSS_REL}); gradient "
+              f"(relative {loss_rel:.2e}, tol {loss_tol:.2e}); gradient "
               f"leaves {grad_rel:.2e}, params and momentum after the step "
               f"{tree_rel:.2e} of each leaf's max (tol {leaf_tol:.2e}"
-              + (f" = {TRAIN_LEAF_REL} + DT_FWD_TOL / min(w_a), min(w_a) "
-                 f"{w_min:.3e}; the DT kernel's lse_a on this batch within "
-                 f"{lse_err:.2e} of the plain version's, tol {DT_FWD_TOL})"
-                 if amp else ")"), flush=True)
-        if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= leaf_tol
+              + note, flush=True)
+        if not (loss_rel <= loss_tol and grad_rel <= leaf_tol
                 and tree_rel <= leaf_tol):
-            raise AssertionError(f"[train] {objective} card vs cpu: loss "
+            raise AssertionError(f"{tag} {objective} card vs cpu: loss "
                                  f"{loss_rel}, grads {grad_rel}, trees "
                                  f"{tree_rel}, tol {leaf_tol}")
 
@@ -2893,11 +3032,13 @@ def _norms_rel(a, b) -> float:
     return max(abs(x - y) / abs(y) for x, y in zip(a, b) if y)
 
 
-def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev):
+def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev,
+               ranges=(), tag="[train]"):
     """Full-width steps through `launch/train.py`'s functions: one
     warm-up step, then `steps_` timed steps with the counters zeroed just
-    before and the peak memory reset; one more step under the profiler.
-    Returns (params, per-step launches, profile)."""
+    before and the peak memory reset; one more step under the profiler
+    (with the device time of the record_function `ranges`). Returns
+    (params, the timed steps' launches)."""
     import torch
 
     from repro_torch.configs.base import InputShape
@@ -2924,22 +3065,23 @@ def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev):
     tokens = batch_ * seq
     secs = [t_ for _, t_ in timed]
     per = {k: v // steps_ for k, v in counts.items()}
-    print(f"[train] {cfg.name} {objective} bfloat16, {batch_} x {seq} "
+    print(f"{tag} {cfg.name} {objective} bfloat16, {batch_} x {seq} "
           f"tokens a step in {nm} micro-batches: warm-up step {warm:.2f} s "
           f"(loss {loss0:.4f}); {steps_} steps, seconds a step "
           f"{[round(x, 4) for x in secs]}, {tokens * steps_ / sum(secs):.0f} "
           f"tok/s; losses {[round(l_, 5) for l_, _ in timed]}; peak memory "
           f"{peak:.2f} GiB; launches a step {per}", flush=True)
     want = {k: 0 for k in counts}
-    want["rwkv6"] = cfg.n_layers * nm * (2 if objective == "dt" else 1)
+    if cfg.family == "ssm":    # one a layer and view; dense runs none
+        want["rwkv6"] = cfg.n_layers * nm * (2 if objective == "dt" else 1)
     want["dt_loss_wide"] = nm if objective == "dt" else 0
     if per != want or any(v % steps_ for v in counts.values()):
-        raise AssertionError(f"[train] {objective} launches {counts} over "
+        raise AssertionError(f"{tag} {objective} launches {counts} over "
                              f"{steps_} steps, want {want} a step")
     if not all(math.isfinite(l_) for l_, _ in timed + [(loss0, 0)]):
-        raise AssertionError(f"[train] {objective}: a loss is not finite")
+        raise AssertionError(f"{tag} {objective}: a loss is not finite")
     if not peak <= PEAK_GIB:
-        raise AssertionError(f"[train] {objective}: peak {peak:.2f} GiB > "
+        raise AssertionError(f"{tag} {objective}: peak {peak:.2f} GiB > "
                              f"{PEAK_GIB}")
 
     def work():
@@ -2948,9 +3090,9 @@ def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev):
         fn(params, mom, batches[-1])
         torch.cuda.synchronize()
         return time.perf_counter() - t0
-    prof = _profile(work, ranges=("rwkv6.recompute",))
-    print(f"[train] profiled {objective} step: {json.dumps(prof)}",
-          flush=True)
+    prof = _profile(work, ranges=ranges)
+    print(f"{tag} profiled {cfg.name} {objective} step: "
+          f"{json.dumps(prof)}", flush=True)
     return params, counts
 
 
@@ -2991,13 +3133,266 @@ def train_full_width(dev):
                              f"{ZOO_BF16_FLOOR_X} x floor {f_rel}")
     b, s, nm = TRAIN_LM
     params, lm = _train_run(cfg, params, "lm", b, s, nm, TRAIN_LM_STEPS,
-                            dev)
+                            dev, ("rwkv6.recompute",))
     del params
     torch.cuda.empty_cache()
     params = dec.init_model(cfg, 0, torch.bfloat16, dev)
     b, s, nm = TRAIN_DT
-    _, dt = _train_run(cfg, params, "dt", b, s, nm, TRAIN_DT_STEPS, dev)
+    _, dt = _train_run(cfg, params, "dt", b, s, nm, TRAIN_DT_STEPS, dev,
+                       ("rwkv6.recompute",))
     return _add(lm, dt)
+
+
+def dense_cross_check(dev):
+    """The dense smoke configs in float32 on the card and with
+    ``device="cpu"`` from the same params: a prefill of DENSE_CROSS_S
+    positions (past the smoke window of 32) then 4 decode steps, with the
+    float32 cache (`launch.steps`' prefill and decode) and the int8 cache
+    (`init_cache` and `forward`'s prefill, then the decode step; logits and the
+    caches: positions bitwise, float32 k and v at ZOO_CROSS_TOL, int8
+    codes within one step, logits then at DENSE_INT8_TOL); then one
+    ``lm`` step in 2 micro-batches (S = FLASH_MIN_SQ for tinyllama, so
+    the flash Function and its backward run) and one ``dt`` step,
+    through `train_cross_check`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    for arch in DENSE_SMOKE:
+        cfg = get_config(arch + "-smoke")
+        v, b, s, n = cfg.vocab_size, 2, DENSE_CROSS_S, 4
+        params = T.init_params(cfg, torch.Generator().manual_seed(0))
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            1, v, (b, s + n)))
+        shape = InputShape("cross", s + n, b, "prefill")
+        for cdt in (torch.float32, torch.int8):
+            outs = []
+            for d in (dev, cpu):
+                p = tree_map(lambda t: t.to(d), params)
+                tk = toks.to(d)
+                if cdt == torch.float32:
+                    last, cache = steps.make_prefill_step(
+                        cfg, shape, torch.float32)(p, {"tokens": tk[:, :s]})
+                else:
+                    with torch.no_grad():
+                        lg, cache, _ = T.forward(
+                            cfg, p, tk[:, :s], mode="prefill",
+                            cache=T.init_cache(cfg, b, s + n, dtype=cdt,
+                                               device=d))
+                    last = lg[:, -1]
+                logits = [last]
+                decode = steps.make_decode_step(cfg, shape)
+                for i in range(n):
+                    lg, cache = decode(p, {
+                        "tokens": tk[:, s + i:s + i + 1], "cache": cache,
+                        "positions": torch.full((b,), s + i, device=d)})
+                    logits.append(lg)
+                outs.append(([t[:, :v].cpu() for t in logits],
+                             {k: c.cpu() for k, c in cache["kv"].items()}))
+            (lc, cc), (lh, ch) = outs
+            err = max(_max_err(a, c) for a, c in zip(lc, lh))
+            if not torch.equal(cc["pos"], ch["pos"]):
+                raise AssertionError(f"[dense] {arch} cache positions differ")
+            if cdt == torch.int8:
+                cache_err = max(int((cc[k].int() - ch[k].int()).abs().max())
+                                for k in ("k", "v"))
+                ok = cache_err <= 1 and err <= DENSE_INT8_TOL
+            else:
+                cache_err = max(_max_err(cc[k], ch[k]) for k in ("k", "v"))
+                ok = cache_err <= ZOO_CROSS_TOL and err <= ZOO_CROSS_TOL
+            print(f"[dense] {cfg.name} {str(cdt)[6:]} cache, prefill {b}x{s} "
+                  f"+ {n} decode steps: card vs cpu logits max abs "
+                  f"{err:.3e}, cache k/v {cache_err:.3e}"
+                  + (" (codes)" if cdt == torch.int8 else ""), flush=True)
+            if not ok:
+                raise AssertionError(f"[dense] {arch} {cdt}: logits {err}, "
+                                     f"cache {cache_err}")
+        lm_s = L.FLASH_MIN_SQ if arch == DENSE_SMOKE[0] else s
+        train_cross_check(dev, arch, (("lm", 2, 2, lm_s), ("dt", 1, 4, s)),
+                          tag="[dense]", dt_loss_spec=True)
+
+
+def _dense_logits(cfg, params, tokens, start: int, eps: float = 0.0):
+    """Float32 logits over the real vocabulary of positions start.. of a
+    full forward (train mode, no cache) of `tokens`, the head on those
+    positions only; with eps > 0 every attention output is scaled by
+    (1 +- eps), a seeded random sign an element, and rounded back to its
+    dtype."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator(device=tokens.device).manual_seed(77)
+    core = L.attention_core
+
+    def perturbed(*args, **kw):
+        o = core(*args, **kw)
+        sign = torch.randint(0, 2, o.shape, generator=g,
+                             device=o.device) * 2.0 - 1.0
+        return (o.float() * (1.0 + eps * sign)).to(o.dtype)
+
+    if eps:
+        L.attention_core = perturbed
+    try:
+        with torch.no_grad():
+            x, _ = T._forward_hidden(cfg, params, tokens, mode="train",
+                                     cache=None)
+            return T._head(cfg, params, x[:, start:])[..., :cfg.vocab_size]
+    finally:
+        L.attention_core = core
+
+
+def dense_serve(dev, cfg, batch: int, prompt: int, n_dec: int) -> dict:
+    """A dense model with random bfloat16 weights from seed 0 through
+    launch/decode.py's functions: `batch` prompts of `prompt` tokens
+    prefilled on the flash path into a bfloat16 cache of `prompt` +
+    `n_dec` slots, then `n_dec` greedy decode steps, timed after
+    a warm-up, the counters zeroed before each; peak memory at most
+    PEAK_GIB. Each step's logits (and the prefill's last) against a full
+    forward of the prompts and the decoded tokens at the same positions,
+    held at DENSE_FLOOR_X times the divergence of that forward from
+    itself with its attention outputs perturbed by DENSE_BF16_EPS (up to
+    one bfloat16 step: the decode steps' direct path rounds its
+    probabilities to bfloat16, the forward's flash path does not),
+    measured in the same run. Profiles the prefill and 4 decode steps.
+    Returns the launches of the prefill and the decode."""
+    import torch
+
+    from repro_torch.convert import leaves_with_paths
+    from repro_torch.launch import decode as dec
+    from repro_torch.launch import steps
+    from repro_torch.models import layers as L
+
+    bf16, v = torch.bfloat16, cfg.vocab_size
+    total = prompt + n_dec
+    if prompt < L.FLASH_MIN_SQ or total % L.FLASH_CHUNK:
+        raise AssertionError(f"[dense] {cfg.name}: {prompt} + {n_dec} does "
+                             f"not prefill on the flash path")
+    t = time.time()
+    params = dec.init_model(cfg, 0, bf16, dev)
+    prompts = dec.random_prompts(cfg, batch, prompt, 0, dev)
+    last, cache, t_warm = dec.run_prefill(cfg, params, prompts, total, bf16)
+    dec.run_decode(cfg, params, last, cache, prompt, 2)
+    del last, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = time.time() - t
+    _zero_counts()
+    last, cache, t_pre = dec.run_prefill(cfg, params, prompts, total, bf16)
+    pre = _counts()
+    _zero_counts()
+    toks, _, t_dec = dec.run_decode(cfg, params, last, cache, prompt, n_dec)
+    dcd = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(x.numel() for _, x in leaves_with_paths(params))
+    print(f"[dense] {cfg.name} ({cfg.n_layers} layers, {n_params:,} "
+          f"parameters, bfloat16): set-up and warm-up {warm:.2f} s (first "
+          f"prefill {t_warm:.3f} s); prefill {batch}x{prompt} into {total} "
+          f"slots: {t_pre:.4f} s ({batch * prompt / t_pre:.0f} tok/s); "
+          f"{n_dec} decode steps x {batch}: {t_dec:.4f} s, "
+          f"{t_dec * 1e3 / n_dec:.3f} ms per step, "
+          f"{n_dec * batch / t_dec:.1f} tok/s; peak memory {peak:.2f} GiB; "
+          f"launches prefill {pre}, decode {dcd}", flush=True)
+    if any(pre.values()) or any(dcd.values()):
+        raise AssertionError(f"[dense] launches: prefill {pre}, decode {dcd} "
+                             f"(the dense serving path runs no kernel)")
+    if not peak <= PEAK_GIB:
+        raise AssertionError(f"[dense] {cfg.name}: peak {peak:.2f} GiB > "
+                             f"{PEAK_GIB}")
+    decode = steps.make_decode_step(cfg)
+    served, c = [last[:, :v]], cache
+    for i in range(n_dec):
+        lg, c = decode(params, {"tokens": toks[:, i:i + 1], "cache": c,
+                                "positions": torch.full((batch,), prompt + i,
+                                                        device=dev)})
+        served.append(lg[:, :v])
+    served = torch.stack(served, 1)
+    del c
+    seq = torch.cat([prompts, toks[:, :n_dec]], 1)
+    full = _dense_logits(cfg, params, seq, prompt - 1)
+    floor = _rel(_dense_logits(cfg, params, seq, prompt - 1, DENSE_BF16_EPS),
+                 full)
+    rel = _rel(served, full)
+    agree = float((served.argmax(-1) == full.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(served).all()) and bool(
+        ((toks >= 0) & (toks < v)).all())
+    print(f"[dense] {cfg.name} decode vs a full forward at the same "
+          f"{n_dec + 1} positions: logits relative L2 {rel:.4e} (floor "
+          f"{floor:.4e}: one bfloat16 step, held at {DENSE_FLOOR_X} x); "
+          f"greedy picks "
+          f"equal {agree:.4f}", flush=True)
+    if not (finite and rel <= DENSE_FLOOR_X * floor):
+        raise AssertionError(f"[dense] {cfg.name}: decode vs full {rel} > "
+                             f"{DENSE_FLOOR_X} x floor {floor}, finite "
+                             f"{finite}")
+    del served, full, seq
+    prof = _profile(lambda: dec.run_prefill(cfg, params, prompts, total,
+                                            bf16)[2])
+    print(f"[dense] profiled {cfg.name} prefill: {json.dumps(prof)}",
+          flush=True)
+    prof = _profile(lambda: dec.run_decode(cfg, params, last, cache, prompt,
+                                           4)[2])
+    print(f"[dense] profiled {cfg.name} 4 decode steps: {json.dumps(prof)}",
+          flush=True)
+    return _add(pre, dcd)
+
+
+def dense_full_width(dev) -> dict:
+    """tinyllama-1.1b and qwen2-0.5b at full width: serving
+    (`dense_serve` at DENSE_SERVE), then tinyllama's train steps through
+    `launch/train.py` (``lm``, flsimco, sgdm at DENSE_LM; ``dt`` at
+    DENSE_DT, the DT kernel's wide form at D = 2048). gemma2-27b and
+    deepseek-67b at every published width with n_layers cut to
+    DENSE_CUT_LAYERS (gemma2: one local and one global layer): serving at
+    DENSE_CUT (a prefill past gemma2's 4096 window) and one ``dt`` step
+    at DENSE_DT (the wide form at D = 4608 and 8192). Returns the
+    launches of the timed steps and the serving runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import decode as dec
+
+    total = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch in DENSE_FULL:
+        total = _add(total, dense_serve(dev, get_config(arch), *DENSE_SERVE))
+        free()
+    cfg = get_config(DENSE_FULL[0])
+    for objective, (b, s, nm), n in (("lm", DENSE_LM, DENSE_LM_STEPS),
+                                     ("dt", DENSE_DT, DENSE_DT_STEPS)):
+        params = dec.init_model(cfg, 0, torch.bfloat16, dev)
+        _, counts = _train_run(cfg, params, objective, b, s, nm, n, dev,
+                               tag="[dense]")
+        total = _add(total, counts)
+        del params
+        free()
+    for arch in DENSE_CUT_ARCHS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=DENSE_CUT_LAYERS)
+        total = _add(total, dense_serve(dev, cfg, *DENSE_CUT))
+        free()
+        b, s, nm = DENSE_DT
+        params = dec.init_model(cfg, 0, torch.bfloat16, dev)
+        _, counts = _train_run(cfg, params, "dt", b, s, nm, 1, dev,
+                               tag="[dense]")
+        total = _add(total, counts)
+        del params
+        free()
+    return total
 
 
 def analysis_path(dev, first_build) -> None:
@@ -3083,6 +3478,7 @@ def run() -> int:
     from repro_torch.kernels import build
     from repro_torch.runtime import set_parity_mode
 
+    t_start = time.time()
     smi = _smi()
     print(f"[card] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
@@ -3123,6 +3519,10 @@ def run() -> int:
     rows.append(dt_wide_check(dev))
     train_cross_check(dev)
     paths["train"] = train_launches = train_full_width(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_cross_check(dev)
+    paths["dense"] = dense_full_width(dev)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
                 else zoo_launches if r["name"] == "rwkv6"
@@ -3130,6 +3530,7 @@ def run() -> int:
                 else launches)
         r["launches"] = path[r["name"]]
         r["paths"] = {p: c[r["name"]] for p, c in paths.items()}
+    print(f"[time] {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Config registry — counterpart of `repro.configs.base` (`ModelConfig`,
-`pad_vocab`, `InputShape`, `get_config`).
+`pad_vocab`, `InputShape`, `INPUT_SHAPES`, `get_config`).
 
-The port keeps its own copy of the `ModelConfig` fields its models read
-and of `get_config`, with the reference's ``-smoke`` suffix for the
-`reduced()` variant. It registers the paper's backbone,
-``resnet18-cifar`` (configs/resnet18_cifar.py), and the zoo's one
-architecture that runs a TPU kernel, ``rwkv6-1.6b``
-(configs/rwkv6_1_6b.py). The reference's other architectures raise
+The port keeps its own copy of the `ModelConfig` fields its models read,
+of `INPUT_SHAPES` and of `get_config`, with the reference's ``-smoke``
+suffix for the `reduced()` variant. It registers the paper's backbone,
+``resnet18-cifar`` (configs/resnet18_cifar.py), the zoo's ``ssm``
+architecture ``rwkv6-1.6b`` (configs/rwkv6_1_6b.py) and its four
+``dense`` ones (``tinyllama-1.1b``, ``qwen2-0.5b``, ``gemma2-27b``,
+``deepseek-67b``). The reference's other architectures raise
 NotImplementedError naming the ROADMAP.md entry that ports them.
 """
 from __future__ import annotations
@@ -18,10 +19,9 @@ from dataclasses import dataclass
 VOCAB_PAD_MULTIPLE = 2048
 
 # The reference's registry (repro/configs/) beyond what the port runs.
-UNPORTED_ARCHS = ("deepseek-67b", "gemma2-27b", "hymba-1.5b",
-                  "kimi-k2-1t-a32b", "llama-3.2-vision-90b", "olmoe-1b-7b",
-                  "qwen2-0.5b", "seamless-m4t-large-v2", "tinyllama-1.1b")
-PORTED_FAMILIES = ("resnet", "ssm")
+UNPORTED_ARCHS = ("hymba-1.5b", "kimi-k2-1t-a32b", "llama-3.2-vision-90b",
+                  "olmoe-1b-7b", "seamless-m4t-large-v2")
+PORTED_FAMILIES = ("resnet", "ssm", "dense")
 ROADMAP_ZOO = "ROADMAP.md Queue A, item 12 (the other zoo families)"
 
 
@@ -38,26 +38,40 @@ def family_not_ported(family: str) -> NotImplementedError:
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters: the fields of the reference's
-    `ModelConfig` that the ResNet and ``ssm`` (RWKV6) families read, with
-    the reference's defaults."""
+    `ModelConfig` that the ResNet, ``ssm`` (RWKV6) and ``dense`` families
+    read, with the reference's defaults."""
 
     name: str
-    family: str      # resnet | ssm (the reference's others: not ported)
+    family: str      # resnet | ssm | dense (the reference's others: not ported)
     n_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0                   # 0 -> d_model // n_heads
     citation: str = ""
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False              # qwen2
+    sliding_window: int = 0             # 0 = full attention
+    local_global_period: int = 0        # gemma2: 2 -> alternate local/global
+    attn_logit_softcap: float = 0.0     # gemma2: 50.
+    final_logit_softcap: float = 0.0    # gemma2: 30.
+    attn_scale_override: float = 0.0    # 0 -> 1/sqrt(head_dim)
     rwkv_head_dim: int = 64
     act: str = "silu"
     gated_mlp: bool = True
     norm: str = "rmsnorm"
+    post_norm: bool = False             # gemma2: post-block norms too
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     embed_scale: bool = False
-    final_logit_softcap: float = 0.0
     long_context_mode: str = "sliding_window"
+    long_context_window: int = 8192
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
 
     @property
     def padded_vocab(self) -> int:
@@ -66,11 +80,19 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family and code path, tiny dims (the
         reference's rule: 2 layers, d_model <= 256, <= 4 heads of 64,
-        d_ff <= 512, vocab <= 1024)."""
-        return dataclasses.replace(
-            self, name=self.name + "-smoke", n_layers=2,
-            d_model=min(self.d_model, 256), n_heads=min(self.n_heads, 4),
-            d_ff=min(self.d_ff, 512), vocab_size=min(self.vocab_size, 1024))
+        <= 2 kv heads, d_ff <= 512, vocab <= 1024; a sliding window
+        becomes 32 and the long-context window 64)."""
+        kw = dict(name=self.name + "-smoke", n_layers=2,
+                  d_model=min(self.d_model, 256),
+                  n_heads=min(self.n_heads, 4),
+                  n_kv_heads=min(self.n_kv_heads, 2), head_dim=64,
+                  d_ff=min(self.d_ff, 512),
+                  vocab_size=min(self.vocab_size, 1024))
+        if self.sliding_window:
+            kw.update(sliding_window=32)
+        if self.long_context_window:
+            kw.update(long_context_window=64)
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)
@@ -81,6 +103,14 @@ class InputShape:
     seq_len: int
     global_batch: int
     kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY: dict[str, ModelConfig] = {}
@@ -94,7 +124,9 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     """The registered config `name`; ``<name>-smoke`` is its `reduced()`."""
     if not _REGISTRY:
-        from repro_torch.configs import resnet18_cifar, rwkv6_1_6b  # noqa: F401
+        from repro_torch.configs import (  # noqa: F401
+            deepseek_67b, gemma2_27b, qwen2_0_5b, resnet18_cifar, rwkv6_1_6b,
+            tinyllama_1_1b)
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
     if name in UNPORTED_ARCHS:

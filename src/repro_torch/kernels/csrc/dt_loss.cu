@@ -71,8 +71,10 @@
 // Requires D % 4 == 0 and D <= 256 (the wrapper checks).
 //
 // The wide form, dt_fwd_wide_kernel, takes the zoo's features (the final
-// hidden state of a token model, D = d_model = 2048 for rwkv6-1.6b) with
-// M = a micro-batch's rows (8 on the training path): 256 < D <= 2048,
+// hidden state of a token model, D = d_model: 2048 for rwkv6-1.6b and
+// tinyllama-1.1b, 896 for qwen2-0.5b, 4608 for gemma2-27b, 8192 for
+// deepseek-67b) with M = a micro-batch's rows (8 on the training path):
+// 256 < D <= 8192,
 // D % 4 == 0, the same four outputs, the same cohort layout. At
 // (8, 2048) it needs 0.26 MFLOP and 0.13 MB, a few microseconds of
 // latency whatever the design; at (512, 2048), 1.07 GFLOP, bound by
@@ -85,7 +87,11 @@
 // temperatures, and the warps' states are merged in shared memory in a
 // fixed order (no atomics: two calls are bitwise equal). Each CTA reads
 // all M keys from L2, so at M = 512 the reads, not the FMAs, set its
-// time.
+// time. The anchor rows live in dynamic shared memory sized to D
+// (kWideRows * D floats, 128 KB at kWideMaxD = 8192, the widest d_model
+// of the zoo: deepseek-67b), above the default 48 KB only after the
+// opt-in, made once a device at the first launch; at D = 8192 one CTA
+// fills an SM's shared memory, at D = 2048 (32 KB) several do.
 #include <cooperative_groups.h>
 #include <cuda.h>   // CUtensorMap and its encoder's types (no libcuda link)
 #include <cuda_runtime.h>
@@ -492,7 +498,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kWideMaxD = 2048;
+constexpr int kWideMaxD = 8192;
 constexpr int kWideRows = 4;       // anchor rows a CTA, in shared memory
 constexpr int kWideWarps = 8;
 constexpr int kWideThreads = 32 * kWideWarps;
@@ -504,7 +510,7 @@ __global__ void __launch_bounds__(kWideThreads)
                        float* __restrict__ lse_b_out,
                        float* __restrict__ pos_out, int m, int d, int n_valid,
                        float inv_a, float inv_b) {
-  __shared__ __align__(16) float qs[kWideRows][kWideMaxD];
+  extern __shared__ __align__(16) float qs[];   // kWideRows rows of d
   __shared__ float part[kWideWarps][kState][kWideRows];
   const int z = blockIdx.y;                // the client
   const int row0 = blockIdx.x * kWideRows;
@@ -514,7 +520,7 @@ __global__ void __launch_bounds__(kWideThreads)
   const int d4 = d / 4;
   for (int i = threadIdx.x; i < kWideRows * d4; i += kWideThreads) {
     const int r = i / d4, c = i - r * d4;
-    reinterpret_cast<float4*>(qs[r])[c] =
+    reinterpret_cast<float4*>(qs + r * d)[c] =
         row0 + r < m
             ? reinterpret_cast<const float4*>(q + size_t(row0 + r) * d)[c]
             : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -535,7 +541,7 @@ __global__ void __launch_bounds__(kWideThreads)
       const float4 kv = kj[c];
 #pragma unroll
       for (int r = 0; r < kWideRows; ++r) {
-        const float4 qv = reinterpret_cast<const float4*>(qs[r])[c];
+        const float4 qv = reinterpret_cast<const float4*>(qs + r * d)[c];
         acc[r] = fmaf(qv.x, kv.x, acc[r]);
         acc[r] = fmaf(qv.y, kv.y, acc[r]);
         acc[r] = fmaf(qv.z, kv.z, acc[r]);
@@ -691,7 +697,7 @@ extern "C" int dt_loss_attributes(int d, int* out) {
 }
 
 // The wide form: q, k (c, m, d) row-major f32, 16-byte aligned,
-// d % 4 == 0, 256 < d <= 2048; the same four (c, m) outputs, on `stream`.
+// d % 4 == 0, 256 < d <= 8192; the same four (c, m) outputs, on `stream`.
 extern "C" int dt_loss_fwd_wide_launch(const void* q, const void* k,
                                        void* loss, void* lse_a, void* lse_b,
                                        void* pos, int c, int m, int d,
@@ -700,8 +706,19 @@ extern "C" int dt_loss_fwd_wide_launch(const void* q, const void* k,
   if (c < 1 || c > 65535 || m < 1 || d <= kMaxD || d > kWideMaxD || d % 4 ||
       n_valid < 1 || n_valid > m)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the rows pass 48 KB above d = 3072: raise the limit once per device
+  static bool ready[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 64 || !ready[dev])) {
+    err = cudaFuncSetAttribute(
+        dt_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kWideRows * kWideMaxD * sizeof(float)));
+    if (err == cudaSuccess && dev < 64) ready[dev] = true;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + kWideRows - 1) / kWideRows, c);
-  dt_fwd_wide_kernel<<<grid, kWideThreads, 0,
+  dt_fwd_wide_kernel<<<grid, kWideThreads, kWideRows * d * sizeof(float),
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<float*>(loss), static_cast<float*>(lse_a),

@@ -6,7 +6,7 @@ CUDA kernel on CUDA tensors and nothing else: one (M, D) pair, or a
 cohort of C pairs (C, M, D) in one launch. Two hand-written kernels of
 the same file: the Hopper design for D <= MAX_D (the FL path's
 ResNet features, D = 128) and a simple wide form for MAX_D < D <=
-WIDE_MAX_D (the zoo's features, D = d_model = 2048); the wrapper picks
+WIDE_MAX_D (the zoo's features, D = d_model: 896 to 8192); the wrapper picks
 by D and raises above WIDE_MAX_D. The device dispatch, the plain version
 and the gradient live in `kernels.ops`. `kernel_attributes` reports the
 first kernel's registers, spills and CTAs per SM.
@@ -26,7 +26,7 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
 MAX_D = 256      # the widest D of the Hopper kernel (csrc kMaxD)
-WIDE_MAX_D = 2048  # the widest D of the wide form (csrc kWideMaxD)
+WIDE_MAX_D = 8192  # the widest D of the wide form (csrc kWideMaxD)
 ATTRIBUTES = ("regs", "local_bytes", "shared_bytes", "blocks_per_sm",
               "threads", "cluster")
 

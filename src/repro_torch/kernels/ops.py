@@ -10,7 +10,7 @@ a failed build or launch raises too.
 * ``wagg_flat(stacked (m, P), w (m,), mask=None)`` — Eq.-11 weighted sum.
 * ``dt_loss(q, k, tau_alpha, tau_beta)`` — mean DT loss, differentiable:
   a `torch.autograd.Function` whose forward is the DT kernel (its wide
-  form for 256 < D <= 2048, the zoo's features) and whose
+  form for 256 < D <= 8192, the zoo's features) and whose
   backward is the plain-torch port of the reference's `_dt_bwd` (the
   reference has no backward kernel either), with the Eq.-6 weight
   treated as a constant. It composes with `torch.func`: under

@@ -1,17 +1,24 @@
-"""Prefill + greedy recurrent decode of a zoo model — counterpart of
-`repro.launch.decode` (`main`), for the port's ``ssm`` family (RWKV6).
+"""Prefill + greedy decode of a zoo model — counterpart of
+`repro.launch.decode` (`main`), for the port's ``ssm`` family (RWKV6,
+a recurrent cache) and ``dense`` family (tinyllama-1.1b, qwen2-0.5b,
+gemma2-27b, deepseek-67b; a ring-buffer KV cache).
 
 The reference runs ``--reduced`` end to end on the CPU and, without it,
 only lowers and compiles the decode step for a TPU mesh. The port runs
 both: ``--reduced`` is the reference's run (the ``-smoke`` config, B = 2,
 S = 32, float32 parameters and cache); without it the full-width config
 runs on the card with bfloat16 parameters and cache (the reference's
-serve-step default) and a float32 recurrence, at ``--batch`` prompts of
-``--prompt-len`` random tokens. Weights are random, from ``--seed``.
+serve-step default), at ``--batch`` prompts of ``--prompt-len`` random
+tokens. Weights are random, from ``--seed``. The cache holds prompt plus
+decode tokens, as the reference's; a dense prefill takes the flash path
+where the prompt has 2048 tokens or more and that sum is a multiple of
+1024 (`layers.attention_core`), as 3008 + 64 below.
 
     PYTHONPATH=src python -m repro_torch.launch.decode --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.decode --arch rwkv6-1.6b \\
         --batch 16 --prompt-len 2048 --tokens 64       # on the card
+    PYTHONPATH=src python -m repro_torch.launch.decode --arch tinyllama-1.1b \\
+        --batch 16 --prompt-len 3008 --tokens 64       # on the card
 
 Prints the prefill time, the decode time per step and decode tok/s.
 """

@@ -214,35 +214,47 @@ def init_momentum(params, optimizer: str = "sgdm"):
 # --------------------------------------------------------------------------
 
 
+def _long_context(shape: InputShape) -> bool:
+    """The reference's steps serve ``long_500k`` with long_context (a
+    ring-buffer cache of the long-context window)."""
+    return shape.name == "long_500k"
+
+
 def make_prefill_step(cfg, shape: InputShape, param_dtype=torch.bfloat16):
     """prefill(params, {"tokens": (B, S)}) -> (logits of the last position
-    (B, V) float32, cache). The cache starts empty in `param_dtype`, as the
-    reference's. The head runs on the last position only: the reference
-    computes (B, S, V) logits and returns ``logits[:, -1]``, the same
-    values, and at full width (B = 16, S = 2048, V = 65536) the full
-    logits would take 8.6 GB of float32."""
+    (B, V) float32, cache). The cache starts empty, for positions below
+    ``shape.seq_len``, in `param_dtype`, as the reference's. The head
+    runs on the last position only: the reference computes (B, S, V)
+    logits and returns ``logits[:, -1]``, the same values, and at full
+    width (B = 16, S = 2048, V = 65536) the full logits would take 8.6 GB
+    of float32."""
+    long_ctx = _long_context(shape)
 
     @torch.no_grad()
     def prefill(params, batch):
         tokens = batch["tokens"]
         cache = T.init_cache(cfg, tokens.shape[0], shape.seq_len,
-                             dtype=param_dtype, device=tokens.device)
+                             dtype=param_dtype,
+                             device=tokens.device, long_context=long_ctx)
         x, cache = T._forward_hidden(cfg, params, tokens, mode="prefill",
-                                     cache=cache)
+                                     cache=cache, long_context=long_ctx)
         return T._head(cfg, params, x[:, -1]), cache
 
     return prefill
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, shape: InputShape | None = None):
     """decode(params, {"tokens": (B, 1), "positions": (B,), "cache"}) ->
-    (logits (B, V) float32, new cache)."""
+    (logits (B, V) float32, new cache); `shape` sets long_context, as
+    for the prefill."""
+    long_ctx = shape is not None and _long_context(shape)
 
     @torch.no_grad()
     def decode(params, batch):
         logits, cache, _ = T.forward(cfg, params, batch["tokens"],
                                      mode="decode", cache=batch["cache"],
-                                     positions=batch.get("positions"))
+                                     positions=batch.get("positions"),
+                                     long_context=long_ctx)
         return logits[:, 0], cache
 
     return decode

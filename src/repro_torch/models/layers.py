@@ -1,7 +1,11 @@
-"""Neural-net primitives of the zoo's ``ssm`` family (RWKV6 "Finch") —
-counterpart of `repro.models.layers` (`normal_init`, `fan_in_init`, the
-norms, `init_rwkv_tmix`, `_rwkv_project`, `rwkv_tmix_chunked`,
-`rwkv_tmix_step`, `init_rwkv_cmix`, `rwkv_cmix`).
+"""Neural-net primitives of the zoo's ``dense`` and ``ssm`` (RWKV6
+"Finch") families — counterpart of `repro.models.layers` (`normal_init`,
+`fan_in_init`, the norms, `act_fn`, `rope_freqs`, `apply_rope`,
+`_softcap`, `_build_mask`, `_attn_direct`, `flash_attention` with its
+custom VJP, `attention_core`, `init_attention`, `attention_block`,
+`make_cache`, `_quantize_kv`, `_dequantize_kv`, `init_mlp`, `mlp_block`,
+`init_rwkv_tmix`, `_rwkv_project`, `rwkv_tmix_chunked`, `rwkv_tmix_step`,
+`init_rwkv_cmix`, `rwkv_cmix`).
 
 Functional, like the reference: ``init_*`` builds a dict of tensors from
 an explicit `torch.Generator` (the tensors land on the generator's
@@ -12,6 +16,16 @@ leaves (``w0``, ``w_lora_b``, ``u``), norm statistics, token-shift mixes
 and the recurrence in float32, each projection's output in the input's
 dtype.
 
+Attention is plain torch and cuBLAS, as the reference's is jnp (no
+Pallas kernel): GQA with q viewed as (B, S, KH, G, D), so head h =
+kh * G + g reads kv head kh; scores, softmax and the probability-value
+products in float32, masked scores at the finite NEG_INF. The flash
+path is a `torch.autograd.Function` over key chunks whose backward
+recomputes the chunk tiles, so training at S = 4096 never keeps a
+(Sq, Sk) tile per layer. KV caches are ring buffers (position t in slot
+t % W) in the parameters' dtype, float32 or int8 with per-(slot, head)
+scales.
+
 The chunked time-mix runs the hand-written kernel through
 `kernels.ops.rwkv6` (the plain chunked version on the CPU): once per
 layer on the whole sequence, from the cache's state, reading the
@@ -21,6 +35,7 @@ torch, as the reference's is jnp.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
+BIG_WINDOW = 1 << 30  # "no sliding window"
 RWKV_DECAY_FLOOR = -4.0  # clamp of the per-step log-decay, as the reference
 
 
@@ -87,6 +103,317 @@ def init_norm(cfg, d=None, dtype=torch.float32, device=None):
 def apply_norm(cfg, p, x):
     fn = rmsnorm if "bias" not in p else layernorm
     return fn(p, x, cfg.norm_eps)
+
+
+# --------------------------------------------------------------------------
+# activations
+# --------------------------------------------------------------------------
+
+def act_fn(name: str):
+    """The MLP activations of the dense configs, as the reference's; its
+    gelu is the tanh approximation."""
+    return {"silu": F.silu,
+            "gelu": functools.partial(F.gelu, approximate="tanh")}[name]
+
+
+# --------------------------------------------------------------------------
+# rotary position embedding
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: broadcastable to (..., S). Rotates
+    the two halves of D (not interleaved pairs), in float32."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    ang = positions[..., None].float() * inv                  # (..., S, D/2)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention core — direct and kv-chunked (flash-style) paths
+# --------------------------------------------------------------------------
+
+def _softcap(s, cap):
+    return cap * torch.tanh(s / cap) if cap else s
+
+
+def _build_mask(q_pos, kv_pos, *, causal, window):
+    """(B, Sq, Sk) boolean visibility mask. q_pos: (B, Sq); kv_pos:
+    (B, Sk), where kv_pos < 0 marks an empty cache slot; BIG_WINDOW
+    disables the window."""
+    d = q_pos[..., :, None] - kv_pos[..., None, :]
+    mask = kv_pos[..., None, :] >= 0
+    if causal:
+        mask = mask & (d >= 0)
+    return mask & (d < window)
+
+
+def _attn_direct(q, k, v, mask, *, scale, softcap):
+    """q: (B,Sq,KH,G,D)  k,v: (B,Sk,KH,D)  mask: (B,Sq,Sk) ->
+    (B,Sq,KH,G,D) in q's dtype. Scores, softmax and both products in
+    float32; the probabilities rounded to v's dtype first, as the
+    reference's."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    s = _softcap(s * scale, softcap)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
+
+
+FLASH_MIN_SQ = 2048   # the flash path at and above this many queries
+FLASH_CHUNK = 1024    # keys a chunk of the flash path
+
+
+def _flash_rows(t):
+    """(B, S, KH, G, D) -> (B, KH, G * S, D) float32: a query tile's rows
+    in (g, s) order, so a chunk's scores are one batched product."""
+    b, s, kh, g, d = t.shape
+    return t.float().permute(0, 2, 3, 1, 4).reshape(b, kh, g * s, d)
+
+
+def _flash_chunk(k, q_pos, kv_pos, c0, chunk, causal, window):
+    """Key chunk [c0, c0 + chunk) as (B, KH, C, D) float32, and where its
+    (B, 1, 1, Sq, C) scores are masked."""
+    kc = k[:, c0:c0 + chunk].float().permute(0, 2, 1, 3)
+    mask = _build_mask(q_pos, kv_pos[:, c0:c0 + chunk], causal=causal,
+                       window=window)
+    return kc, ~mask[:, None, None]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`flash_attention` with its custom VJP (`_flash_fwd_scan`,
+    `_flash_fwd`, `_flash_bwd`): the forward walks FLASH_CHUNK-wide key
+    chunks in float32 with an online softmax and saves only (q, k, v, o,
+    lse); the backward recomputes each chunk's score tile (the softcap's
+    1 - tanh^2 factor included). A tile is (B, KH, G * Sq, C) float32,
+    updated in place, so the forward holds one and the backward at most
+    three at a time. Masked scores are NEG_INF and their probabilities
+    0, so a fully masked row comes out as zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, window, causal, scale, softcap,
+                chunk):
+        b, sq, kh, g, d = q.shape
+        qf = _flash_rows(q)
+        m = torch.full((b, kh, g * sq), NEG_INF, device=q.device)
+        l_ = torch.zeros((b, kh, g * sq), device=q.device)
+        acc = torch.zeros((b, kh, g * sq, d), device=q.device)
+        for c0 in range(0, k.shape[1], chunk):
+            kc, dead = _flash_chunk(k, q_pos, kv_pos, c0, chunk, causal,
+                                    window)
+            s = (qf @ kc.transpose(-1, -2)).mul_(scale)
+            if softcap:
+                s.div_(softcap).tanh_().mul_(softcap)
+            s5 = s.view(b, kh, g, sq, -1).masked_fill_(dead, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            s.sub_(m_new[..., None]).exp_()
+            s5.masked_fill_(dead, 0.0)                     # p
+            vc = v[:, c0:c0 + chunk].float().permute(0, 2, 1, 3)
+            l_ = l_ * alpha + s.sum(dim=-1)
+            acc = acc * alpha[..., None] + s @ vc
+            m = m_new
+            del s, s5
+        l_safe = torch.clamp(l_, min=1e-20)
+        o = acc / l_safe[..., None]                        # (B,KH,G*Sq,D)
+        lse = m + torch.log(l_safe)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, o, lse)
+        ctx.args = (window, causal, scale, softcap, chunk)
+        return o.view(b, kh, g, sq, d).permute(0, 3, 1, 2, 4).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v, q_pos, kv_pos, o, lse = ctx.saved_tensors
+        window, causal, scale, softcap, chunk = ctx.args
+        b, sq, kh, g, d = q.shape
+        qf = _flash_rows(q)
+        do = _flash_rows(g_out)
+        delta = (do * o).sum(dim=-1)
+        dq = torch.zeros_like(qf)
+        dk = torch.empty((b, k.shape[1], kh, d), device=q.device)
+        dv = torch.empty_like(dk)
+        for c0 in range(0, k.shape[1], chunk):
+            kc, dead = _flash_chunk(k, q_pos, kv_pos, c0, chunk, causal,
+                                    window)
+            vc = v[:, c0:c0 + chunk].float().permute(0, 2, 1, 3)
+            s = (qf @ kc.transpose(-1, -2)).mul_(scale)      # s_raw
+            t = None
+            if softcap:
+                t = s.div_(softcap).tanh_()                  # tanh(s_raw / cap)
+                s = t * softcap
+            p = s.sub_(lse[..., None]).exp_()
+            p.view(b, kh, g, sq, -1).masked_fill_(dead, 0.0)
+            dv[:, c0:c0 + chunk] = (p.transpose(-1, -2) @ do).transpose(1, 2)
+            ds = (do @ vc.transpose(-1, -2)).sub_(delta[..., None]).mul_(p)
+            del p, s
+            if softcap:
+                ds.mul_(t.square_().neg_().add_(1.0))
+                del t
+            ds.mul_(scale)
+            dq += ds @ kc
+            dk[:, c0:c0 + chunk] = (ds.transpose(-1, -2) @ qf).transpose(1, 2)
+            del ds
+        dq = dq.view(b, kh, g, sq, d).permute(0, 3, 1, 2, 4)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None, None, None)
+
+
+def flash_attention(qg, k, v, q_pos, kv_pos, window, causal, scale, softcap,
+                    chunk=FLASH_CHUNK):
+    """qg: (B,Sq,KH,G,D); k/v: (B,Sk,KH,D), Sk a multiple of `chunk`;
+    positions (B, Sq) and (B, Sk). Returns (B,Sq,KH,G,D) in qg's dtype,
+    differentiable in qg, k and v."""
+    return _FlashAttention.apply(qg, k, v, q_pos, kv_pos, window, causal,
+                                 scale, softcap, chunk)
+
+
+def attention_core(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
+                   scale=None, softcap=0.0):
+    """GQA attention. q: (B,Sq,H,D) -> (B,Sq,H,D); k/v: (B,Sk,KH,D); head
+    h reads kv head h // (H / KH). Sq >= FLASH_MIN_SQ with Sk a multiple
+    of FLASH_CHUNK takes the flash path, otherwise the direct one (decode
+    steps, short sequences), as the reference's."""
+    if window is None:
+        window = BIG_WINDOW
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, sq, kh, h // kh, d)
+    scale = scale if scale else 1.0 / math.sqrt(d)
+    if sq >= FLASH_MIN_SQ and k.shape[1] % FLASH_CHUNK == 0:
+        o = flash_attention(qg, k, v, q_pos, kv_pos, window, causal, scale,
+                            softcap)
+    else:
+        mask = _build_mask(q_pos, kv_pos, causal=causal, window=window)
+        o = _attn_direct(qg, k, v, mask, scale=scale, softcap=softcap)
+    return o.reshape(b, sq, h, d)
+
+
+# --------------------------------------------------------------------------
+# attention block (projections + rope + ring-buffer cache)
+# --------------------------------------------------------------------------
+
+def init_attention(cfg, gen: torch.Generator, dtype=torch.float32):
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    p = {"wq": fan_in_init(gen, (d, h * hd), dtype),
+         "wk": fan_in_init(gen, (d, kh * hd), dtype),
+         "wv": fan_in_init(gen, (d, kh * hd), dtype),
+         "wo": fan_in_init(gen, (h * hd, d), dtype)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h), ("bk", kh), ("bv", kh)):
+            p[name] = torch.zeros((n * hd,), dtype=dtype, device=gen.device)
+    return p
+
+
+def attention_block(cfg, p, x, q_pos, *, window=None, cache=None):
+    """Causal self-attention with RoPE and an optional ring-buffer cache.
+
+    x: (B, Sq, d); q_pos: (B, Sq) absolute positions, consecutive along a
+    row. cache: None, or ``{"k", "v": (B, W, KH, hd), "pos": (B, W)
+    int32}`` (plus ``"k_scale"``, ``"v_scale"`` (B, W, KH) float32 when
+    k and v are int8). Position t goes to slot t % W and the queries
+    attend over the updated buffer. A prefill longer than the ring
+    writes its last W positions only: the reference's scatter keeps the
+    latest of the positions that share a slot, and a scatter with
+    repeated indices on the card promises no order. Returns (out (B, Sq,
+    d), the new cache or None); the cache passed in is not changed."""
+    b, sq, _ = x.shape
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(q.reshape(b, sq, h, hd), q_pos, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, sq, kh, hd), q_pos, cfg.rope_theta)
+    v = v.reshape(b, sq, kh, hd)
+    kw = dict(window=window, scale=cfg.attn_scale_override or None,
+              softcap=cfg.attn_logit_softcap)
+    if cache is None:
+        o = attention_core(q, k, v, q_pos, q_pos, **kw)
+        new_cache = None
+    else:
+        w = cache["k"].shape[1]
+        pos_w, k_w, v_w = q_pos[:, -w:], k[:, -w:], v[:, -w:]
+        at = (torch.arange(b, device=x.device)[:, None], pos_w % w)
+        new_cache = {"pos": cache["pos"].index_put(
+            at, pos_w.to(cache["pos"].dtype))}
+        if cache["k"].dtype == torch.int8:
+            for name, t in (("k", k_w), ("v", v_w)):
+                codes, scale = _quantize_kv(t)
+                new_cache[name] = cache[name].index_put(at, codes)
+                new_cache[f"{name}_scale"] = cache[f"{name}_scale"].index_put(
+                    at, scale)
+            k_use = _dequantize_kv(new_cache["k"], new_cache["k_scale"],
+                                   k.dtype)
+            v_use = _dequantize_kv(new_cache["v"], new_cache["v_scale"],
+                                   v.dtype)
+        else:
+            for name, t in (("k", k_w), ("v", v_w)):
+                new_cache[name] = cache[name].index_put(
+                    at, t.to(cache[name].dtype))
+            k_use, v_use = new_cache["k"], new_cache["v"]
+        o = attention_core(q, k_use, v_use, q_pos, new_cache["pos"], **kw)
+    return o.reshape(b, sq, h * hd) @ p["wo"], new_cache
+
+
+def make_cache(cfg, batch: int, width: int, dtype=torch.bfloat16,
+               n_layers=None, device=None) -> dict:
+    """Empty ring-buffer cache for `n_layers` stacked layers (0: one
+    unstacked layer): k, v (L, B, W, KH, hd) in `dtype`, pos (L, B, W)
+    int32 at -1 (empty). ``torch.int8`` selects the quantized cache:
+    symmetric int8 with a float32 scale a (slot, head)."""
+    n = cfg.n_layers if n_layers is None else n_layers
+    shp = ((n,) if n else ()) + (batch, width, cfg.n_kv_heads,
+                                 cfg.head_dim_)
+    c = {"k": torch.zeros(shp, dtype=dtype, device=device),
+         "v": torch.zeros(shp, dtype=dtype, device=device),
+         "pos": torch.full(shp[:-2], -1, dtype=torch.int32, device=device)}
+    if dtype == torch.int8:
+        c["k_scale"] = torch.zeros(shp[:-1], device=device)
+        c["v_scale"] = torch.zeros(shp[:-1], device=device)
+    return c
+
+
+def _quantize_kv(x):
+    """x: (..., hd) -> (int8 codes, (...,) float32 absmax / 127 scale):
+    round half to even, clipped to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _dequantize_kv(codes, scale, dtype):
+    return (codes.float() * scale[..., None]).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP (gated and plain)
+# --------------------------------------------------------------------------
+
+def init_mlp(cfg, gen: torch.Generator, dtype=torch.float32):
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"w_up": fan_in_init(gen, (d, f), dtype),
+         "w_down": fan_in_init(gen, (f, d), dtype)}
+    if cfg.gated_mlp:
+        p["w_gate"] = fan_in_init(gen, (d, f), dtype)
+    return p
+
+
+def mlp_block(cfg, p, x):
+    a = act_fn(cfg.act)
+    h = x @ p["w_up"]
+    h = a(x @ p["w_gate"]) * h if "w_gate" in p else a(h)
+    return h @ p["w_down"]
 
 
 # --------------------------------------------------------------------------

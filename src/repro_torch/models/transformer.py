@@ -1,7 +1,8 @@
-"""Model assembly of the zoo, ``ssm`` family (RWKV6) — counterpart of
-`repro.models.transformer` (`_init_rwkv_block`, `init_params`,
-`init_cache`, `_embed`, `_head`, `_forward_hidden`, `forward`,
-`forward_features`).
+"""Model assembly of the zoo, ``dense`` and ``ssm`` (RWKV6) families —
+counterpart of `repro.models.transformer` (`_init_decoder_block`,
+`_decoder_block`, `_init_rwkv_block`, `init_params`, `layer_windows`,
+`cache_width`, `init_cache`, `_embed`, `_head`, `_forward_hidden`,
+`forward`, `forward_features`).
 
 Blocks keep the reference's stacked layout: every leaf of
 ``params["blocks"]`` and of the cache has a leading layer axis. The
@@ -9,13 +10,15 @@ reference runs the layers with `lax.scan`; the port loops over them in
 Python. Modes, as the reference's:
 
   train   — full-sequence teacher forcing -> logits
-  prefill — like train, from the cache's state, and returns the new cache
-  decode  — one new token against the recurrent cache (no KV cache)
+  prefill — like train, into the cache, and returns the new cache
+  decode  — one new token against the cache
 
-Cache: ``{"state": (L, B, H, D, D) float32, "x_last_t": (L, B, d),
-"x_last_c": (L, B, d)}`` (the last token seen by each layer's time-mix
-and channel-mix). The other families raise NotImplementedError naming
-ROADMAP.md.
+Caches: ``dense``: ``{"kv": {"k", "v": (L, B, W, KH, hd), "pos": (L, B,
+W) int32}}`` ring buffers of width `cache_width` (int8 k and v add
+``k_scale``, ``v_scale`` (L, B, W, KH)); ``ssm``: ``{"state": (L, B, H,
+D, D) float32, "x_last_t": (L, B, d), "x_last_c": (L, B, d)}`` (the last
+token seen by each layer's time-mix and channel-mix). The other
+families raise NotImplementedError naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -29,8 +32,34 @@ from repro_torch.models import layers as L
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "ssm":
+    if cfg.family not in ("dense", "ssm"):
         raise family_not_ported(cfg.family)
+
+
+def _init_decoder_block(cfg, gen, dtype):
+    p = {"ln1": L.init_norm(cfg, dtype=dtype, device=gen.device),
+         "attn": L.init_attention(cfg, gen, dtype),
+         "ln2": L.init_norm(cfg, dtype=dtype, device=gen.device),
+         "mlp": L.init_mlp(cfg, gen, dtype)}
+    if cfg.post_norm:
+        p["ln1_post"] = L.init_norm(cfg, dtype=dtype, device=gen.device)
+        p["ln2_post"] = L.init_norm(cfg, dtype=dtype, device=gen.device)
+    return p
+
+
+def _decoder_block(cfg, p, x, q_pos, *, window, cache=None):
+    """Pre-norm attention and MLP with residuals (gemma2: a norm after
+    each too). Returns (x, the layer's new cache or None)."""
+    h, new_cache = L.attention_block(cfg, p["attn"],
+                                     L.apply_norm(cfg, p["ln1"], x), q_pos,
+                                     window=window, cache=cache)
+    if cfg.post_norm:
+        h = L.apply_norm(cfg, p["ln1_post"], h)
+    x = x + h
+    h = L.mlp_block(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+    if cfg.post_norm:
+        h = L.apply_norm(cfg, p["ln2_post"], h)
+    return x + h, new_cache
 
 
 def _init_rwkv_block(cfg, gen, dtype):
@@ -54,9 +83,10 @@ def _stack(blocks: list) -> dict:
 def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
     """Random parameters on the generator's device: embed, final_norm,
     unembed (unless tied) and the stacked blocks, in the reference's
-    layouts and per-leaf dtypes (`dtype` except the float32 ``w0``,
-    ``w_lora_b`` and ``u``). The draws are the port's own: tests carry
-    the reference's weights across with `convert.zoo_params_from_numpy`."""
+    layouts and per-leaf dtypes (`dtype`, except the ``ssm`` family's
+    float32 ``w0``, ``w_lora_b`` and ``u``). The draws are the port's
+    own: tests carry the reference's weights across with
+    `convert.zoo_params_from_numpy`."""
     _check_family(cfg)
     v, d = cfg.padded_vocab, cfg.d_model
     p: dict = {
@@ -65,15 +95,45 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = L.normal_init(gen, (d, v), 1 / math.sqrt(d), dtype)
-    p["blocks"] = _stack([_init_rwkv_block(cfg, gen, dtype)
+    block = _init_decoder_block if cfg.family == "dense" else _init_rwkv_block
+    p["blocks"] = _stack([block(cfg, gen, dtype)
                           for _ in range(cfg.n_layers)])
     return p
 
 
+def layer_windows(cfg, n_layers: int, long_context: bool) -> list:
+    """Each layer's attention window (BIG_WINDOW = none): gemma2's even
+    layers the sliding window and odd ones global, else the config's
+    window for every layer; global means the long-context window under
+    `long_context`."""
+    glob = cfg.long_context_window if long_context else L.BIG_WINDOW
+    if cfg.local_global_period:
+        return [cfg.sliding_window if i % cfg.local_global_period == 0
+                else glob for i in range(n_layers)]
+    return [cfg.sliding_window or glob] * n_layers
+
+
+def cache_width(cfg, seq_len: int, long_context: bool) -> int:
+    """Ring-buffer width of the decode caches for positions < seq_len."""
+    if long_context:
+        if cfg.long_context_mode == "native" and cfg.sliding_window:
+            return min(seq_len, cfg.sliding_window)
+        return min(seq_len, cfg.long_context_window)
+    if cfg.sliding_window and not cfg.local_global_period:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
 def init_cache(cfg, batch: int, seq_len: int = 0, dtype=torch.bfloat16,
-               device=None) -> dict:
-    """Empty recurrent cache (its size does not depend on `seq_len`)."""
+               device=None, *, long_context: bool = False) -> dict:
+    """Empty decode cache for positions < `seq_len`: ``dense``, ring
+    buffers of `cache_width` slots in `dtype` (``torch.int8``: the
+    quantized cache); ``ssm``, the recurrent state (its size does not
+    depend on `seq_len`)."""
     _check_family(cfg)
+    if cfg.family == "dense":
+        width = cache_width(cfg, seq_len, long_context)
+        return {"kv": L.make_cache(cfg, batch, width, dtype, device=device)}
     d, hd = cfg.d_model, cfg.rwkv_head_dim
     h = d // hd
     n = cfg.n_layers
@@ -125,13 +185,40 @@ def _rwkv_block(cfg, blk, x, mode, st):
     return x + o2, {"state": s_new, "x_last_t": xl_t, "x_last_c": xl_c}
 
 
-def _forward_hidden(cfg, p, tokens, *, mode, cache):
+def _dense_layers(cfg, p, x, positions, cache, long_context):
+    """The decoder blocks over `x` at `positions` (B, S), each with its
+    window and its slice of the cache. Returns (x, new cache or None)."""
+    wins = layer_windows(cfg, cfg.n_layers, long_context)
+    outs = []
+    for i, win in enumerate(wins):
+        blk = tree_map(lambda t: t[i], p["blocks"])
+        kv = None if cache is None else {k: c[i]
+                                         for k, c in cache["kv"].items()}
+        x, new = _decoder_block(cfg, blk, x, positions, window=win,
+                                cache=kv)
+        outs.append(new)
+    return x, (None if cache is None else {"kv": _stack(outs)})
+
+
+def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
+                    long_context=False):
     """Backbone: embeddings -> blocks. Returns (hidden, new_cache); the
-    new cache is None in train mode without a cache, as the reference's."""
+    new cache is None in train mode without a cache, as the reference's.
+    ``dense``: `positions` None (0..S-1), (B,) (each row's first
+    position) or (B, S); a prefill without a cache returns None, as the
+    reference's."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     x = _embed(cfg, p, tokens)
+    if cfg.family == "dense":
+        b, s = tokens.shape
+        steps = torch.arange(s, device=tokens.device)
+        if positions is None:
+            positions = steps.expand(b, s)
+        elif positions.dim() == 1:
+            positions = positions[:, None] + steps[None]
+        return _dense_layers(cfg, p, x, positions, cache, long_context)
     outs = []
     for i in range(cfg.n_layers):
         blk = tree_map(lambda t: t[i], p["blocks"])
@@ -144,20 +231,23 @@ def _forward_hidden(cfg, p, tokens, *, mode, cache):
 
 
 def forward(cfg, p, tokens, *, mode: str = "train", cache=None,
-            positions=None):
+            positions=None, long_context: bool = False):
     """Unified forward. Returns (logits float32, new_cache, aux_losses).
 
-    tokens: (B, S) int64. decode: S == 1 against `cache`. `positions` is
-    accepted for the reference's signature; the recurrence does not read
-    it. aux_losses is 0 (the family has no auxiliary loss)."""
-    x, new_cache = _forward_hidden(cfg, p, tokens, mode=mode, cache=cache)
+    tokens: (B, S) int64. decode: S == 1 against `cache` and `positions`
+    (B,) absolute. The ``ssm`` recurrence reads neither `positions` nor
+    `long_context`. aux_losses is 0 (neither family has an auxiliary
+    loss)."""
+    x, new_cache = _forward_hidden(cfg, p, tokens, mode=mode, cache=cache,
+                                   positions=positions,
+                                   long_context=long_context)
     return _head(cfg, p, x), new_cache, torch.zeros((), device=x.device)
 
 
 def forward_features(cfg, p, tokens):
     """Mean-pooled, L2-normalised final hidden state (B, d_model) float32
     — the representation the dual-temperature loss takes for token
-    architectures — and aux_losses (0 for this family)."""
+    architectures — and aux_losses (0: neither family has one)."""
     x, _ = _forward_hidden(cfg, p, tokens, mode="train", cache=None)
     x = L.apply_norm(cfg, p["final_norm"], x)
     f = x.mean(dim=1).float()

@@ -518,11 +518,12 @@ def test_rwkv6_function_on_card_matches_plain_gradients(cuda, BH, S,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 2048), (2, 8, 2048), (512, 2048),
-                                   (37, 260), (3, 17, 1024)])
+                                   (37, 260), (3, 17, 1024), (8, 8192),
+                                   (3, 17, 4608)])
 def test_dt_loss_wide_kernel_matches_plain_on_card(cuda, shape):
-    """The wide form (256 < D <= 2048) against the plain version on unit
+    """The wide form (256 < D <= 8192) against the plain version on unit
     rows: one launch of it and none of the narrow kernel, two calls
-    bitwise equal; D % 4 != 0 and D above 2048 refused."""
+    bitwise equal; D % 4 != 0 and D above 8192 refused."""
     rs = np.random.RandomState(sum(shape))
     q = torch.from_numpy(_unit(rs, shape)).to(cuda)
     k = torch.from_numpy(_unit(rs, shape)).to(cuda)
@@ -539,6 +540,6 @@ def test_dt_loss_wide_kernel_matches_plain_on_card(cuda, shape):
     with pytest.raises(ValueError):
         ops.dt_loss_fwd(q[..., :-2].contiguous(), k[..., :-2].contiguous(),
                         0.1, 1.0)
-    big = torch.zeros((*shape[:-1], 2052), device=cuda)
+    big = torch.zeros((*shape[:-1], 8196), device=cuda)
     with pytest.raises(ValueError, match="dt_loss kernel takes D"):
         ops.dt_loss_fwd(big, big, 0.1, 1.0)

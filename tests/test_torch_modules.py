@@ -363,6 +363,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.launch.mesh, repro_torch.core.collectives\n"
         "import repro_torch.analysis.lint, repro_torch.analysis.guards\n"
         "import repro_torch.analysis.contracts\n"
+        "import repro_torch.configs.tinyllama_1_1b\n"
+        "import repro_torch.configs.qwen2_0_5b\n"
+        "import repro_torch.configs.gemma2_27b\n"
+        "import repro_torch.configs.deepseek_67b\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -406,8 +410,8 @@ def test_unported_choices_raise_not_implemented(kw):
     assert (cfg.aggregator, cfg.client) == (want.aggregator, want.client)
 
 
-@pytest.mark.parametrize("what", ["qwen2-0.5b", "hymba-1.5b-smoke",
-                                  "family:dense", "family:hybrid"])
+@pytest.mark.parametrize("what", ["olmoe-1b-7b", "hymba-1.5b-smoke",
+                                  "family:moe", "family:hybrid"])
 def test_unported_archs_and_families_raise_not_implemented(what):
     import dataclasses
 
