@@ -256,6 +256,31 @@ the JAX package `repro`. Phases, each of which must pass:
      above, then one ``dt`` step at 8 x 512 (the wide DT form at D =
      4608 and 8192).
 
+11. MoE path (``[moe]``): the zoo's MoE family, after [dense]'s tensors
+   are freed.
+   * Cross-check: ``olmoe-1b-7b-smoke`` and ``kimi-k2-1t-a32b-smoke``
+     (its dense first layer and shared expert) in float32 on the card and
+     with ``device="cpu"``: a prefill of 40 positions and 4 decode steps
+     through `T.forward`, logits, aux losses and caches at ZOO_CROSS_TOL,
+     every MoE call's top-k indices and drop masks equal; olmoe's ``lm``
+     step as [train]'s cross-check.
+   * One olmoe MoE layer at full width in float32: the routing of 16 x
+     3008 tokens card vs CPU, a token's top-k set differing only within
+     the float32 bound of the MoE comment block (the flips and the drops
+     printed); `moe_block` on 1,024 of them, the rows whose routing and
+     drops agree at ZOO_CROSS_TOL.
+   * ``olmoe-1b-7b`` at full width (16 layers of 64 experts), random
+     bfloat16 weights from seed 0: served as [dense] (16 x 3008 on the
+     flash path into 3072 slots, 64 decode steps; no kernel launches;
+     the dropped assignments of the prefill and of a decode step; one
+     decode step under `no_implicit_transfers`), its decode on 2
+     sequences at capacity factor E / k held against a full forward as
+     [dense] holds its decode; ``lm`` (8 x 4096 in 4 micro-batches) and
+     ``dt`` (8 x 512, one wide DT launch) with n_layers cut to 4.
+     ``kimi-k2-1t-a32b`` at every published width with n_layers cut to
+     2 (one dense, one MoE layer of 384 experts), served at 2 x 3008 +
+     64. Every cut is printed with its reason.
+
 The q8 kernels are held against their plain versions in phase 2, at
 (5, Ppad), (3, Ppad), (2, Ppad) and (1, Ppad), Ppad = 11,506,688 (the
 cohort, the groups of MultiRSU and the handover, a snapshot): codes,
@@ -272,7 +297,7 @@ path), each with its launches on the path that runs it (``paths``: its
 launches on every path: main, comms, batched, resume, engine (its
 graph campaigns), multi, mesh, handover, fedco, zoo, train (the timed
 steps of both objectives), dense (the timed dense steps and serving
-runs)),
+runs), moe (likewise)),
 ``ms`` and ``device_ms``. A ``[time]`` line gives the script's seconds.
 The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
@@ -282,6 +307,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -340,7 +366,7 @@ RWKV_H, RWKV_D = 32, 64
 # card's memory after the earlier phases; H100 80GB HBM3, 700 W); dt:
 # micro-batches of at least 8 rows (the loss's in-batch negatives) and
 # two forwards each, S cut to 512 to stay under PEAK_GIB.
-TRAIN_LM, TRAIN_LM_STEPS = (8, 4096, 8), 3
+TRAIN_LM, TRAIN_LM_STEPS = (8, 4096, 8), 2
 TRAIN_DT, TRAIN_DT_STEPS = (8, 512, 1), 2
 TRAIN_S, TRAIN_D = 4096, 2048
 # [train]: the rwkv6 Function's gradients against autograd through the
@@ -431,6 +457,44 @@ DENSE_DT, DENSE_DT_STEPS = (8, 512, 1), 1
 DENSE_CUT_ARCHS = ("gemma2-27b", "deepseek-67b")
 DENSE_CUT_LAYERS = 2
 DENSE_CUT = (2, 6080, 64)
+
+# [moe]: the MoE family. Card vs CPU, float32 smoke configs: logits, aux
+# losses and caches at ZOO_CROSS_TOL, the routing (top-k indices and drop
+# masks) of every MoE call equal. At full width, one olmoe MoE layer in
+# float32 (TF32 off) routes MOE_SERVE's 48,128 tokens on the card and on
+# the CPU from the same inputs: a token's top-k set may differ only where
+# the CPU's gap between its k-th and (k+1)-th logits lies within what the
+# two sides' float32 roundings can move: each logit is a dot product of
+# length d, within gamma_d * sum_i |x_i w_ie| of the exact value whatever
+# the summation order (gamma_d = d u / (1 - d u), u = 2^-24), on each
+# side, so a pair can swap at a gap of 4 gamma_d max_e sum_i |x_i w_ie|;
+# the softmax adds 16 u (1 + l_max - l_(k+1)) (the shift by the max and
+# the exp and division, a few u each, on each side). Outputs of the rows
+# whose routing and drops agree are held at ZOO_CROSS_TOL on MOE_OUT_T
+# tokens (the CPU's expert products take seconds a thousand tokens).
+MOE_ARCHS = ("olmoe-1b-7b", "kimi-k2-1t-a32b")
+MOE_OUT_T = 1024
+# olmoe-1b-7b at full width, served as DENSE_SERVE (16 x 3008 into 3072
+# slots, 64 decode steps); its decode held against a full forward on
+# MOE_CHECK_B sequences at capacity factor E / k (C = T: nothing drops,
+# as the reference's own test raises the factor), at DENSE_FLOOR_X times
+# a one-bfloat16-step floor, as [dense].
+MOE_SERVE = (16, 3008, 64)
+MOE_CHECK_B = 2
+# olmoe training, n_layers cut from 16 to MOE_TRAIN_LAYERS: at 16 layers
+# the step holds bf16 params and momentum, float32 accumulators and a
+# micro-batch's bf16 gradients of 6.9e9 parameters, about 69 GB before
+# activations; lm and dt as tinyllama's in [dense]
+MOE_TRAIN_LAYERS = 4
+MOE_LM, MOE_LM_STEPS = (8, 4096, 4), 1
+MOE_DT, MOE_DT_STEPS = (8, 512, 1), 1
+# kimi-k2-1t-a32b at every published width, n_layers cut from 61 to 2
+# (the dense first layer and one MoE layer of 384 experts: 1.96e10
+# parameters, 39 GB in bfloat16; each further MoE layer adds 33.8 GB);
+# served only (a training step's state would not fit)
+MOE_CUT_ARCH = "kimi-k2-1t-a32b"
+MOE_CUT_LAYERS = 2
+MOE_CUT = (2, 3008, 64)
 
 
 def _smi() -> str:
@@ -3243,38 +3307,35 @@ def _dense_logits(cfg, params, tokens, start: int, eps: float = 0.0):
         L.attention_core = perturbed
     try:
         with torch.no_grad():
-            x, _ = T._forward_hidden(cfg, params, tokens, mode="train",
-                                     cache=None)
+            x, _, _ = T._forward_hidden(cfg, params, tokens,
+                                        mode="train", cache=None)
             return T._head(cfg, params, x[:, start:])[..., :cfg.vocab_size]
     finally:
         L.attention_core = core
 
 
-def dense_serve(dev, cfg, batch: int, prompt: int, n_dec: int) -> dict:
-    """A dense model with random bfloat16 weights from seed 0 through
+def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str):
+    """A zoo model with random bfloat16 weights from seed 0 through
     launch/decode.py's functions: `batch` prompts of `prompt` tokens
     prefilled on the flash path into a bfloat16 cache of `prompt` +
-    `n_dec` slots, then `n_dec` greedy decode steps, timed after
-    a warm-up, the counters zeroed before each; peak memory at most
-    PEAK_GIB. Each step's logits (and the prefill's last) against a full
-    forward of the prompts and the decoded tokens at the same positions,
-    held at DENSE_FLOOR_X times the divergence of that forward from
-    itself with its attention outputs perturbed by DENSE_BF16_EPS (up to
-    one bfloat16 step: the decode steps' direct path rounds its
-    probabilities to bfloat16, the forward's flash path does not),
-    measured in the same run. Profiles the prefill and 4 decode steps.
-    Returns the launches of the prefill and the decode."""
+    `n_dec` slots, then `n_dec` greedy decode steps, timed after a
+    warm-up, the counters zeroed before each; no kernel launch (the
+    attention families' serving path runs none) and peak memory at most
+    PEAK_GIB. Prints the times; returns a namespace of params, prompts,
+    the timed prefill's last logits and cache, the decoded tokens and
+    the launches."""
+    import types
+
     import torch
 
     from repro_torch.convert import leaves_with_paths
     from repro_torch.launch import decode as dec
-    from repro_torch.launch import steps
     from repro_torch.models import layers as L
 
-    bf16, v = torch.bfloat16, cfg.vocab_size
+    bf16 = torch.bfloat16
     total = prompt + n_dec
     if prompt < L.FLASH_MIN_SQ or total % L.FLASH_CHUNK:
-        raise AssertionError(f"[dense] {cfg.name}: {prompt} + {n_dec} does "
+        raise AssertionError(f"{tag} {cfg.name}: {prompt} + {n_dec} does "
                              f"not prefill on the flash path")
     t = time.time()
     params = dec.init_model(cfg, 0, bf16, dev)
@@ -3293,7 +3354,7 @@ def dense_serve(dev, cfg, batch: int, prompt: int, n_dec: int) -> dict:
     dcd = _counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(x.numel() for _, x in leaves_with_paths(params))
-    print(f"[dense] {cfg.name} ({cfg.n_layers} layers, {n_params:,} "
+    print(f"{tag} {cfg.name} ({cfg.n_layers} layers, {n_params:,} "
           f"parameters, bfloat16): set-up and warm-up {warm:.2f} s (first "
           f"prefill {t_warm:.3f} s); prefill {batch}x{prompt} into {total} "
           f"slots: {t_pre:.4f} s ({batch * prompt / t_pre:.0f} tok/s); "
@@ -3302,47 +3363,96 @@ def dense_serve(dev, cfg, batch: int, prompt: int, n_dec: int) -> dict:
           f"{n_dec * batch / t_dec:.1f} tok/s; peak memory {peak:.2f} GiB; "
           f"launches prefill {pre}, decode {dcd}", flush=True)
     if any(pre.values()) or any(dcd.values()):
-        raise AssertionError(f"[dense] launches: prefill {pre}, decode {dcd} "
-                             f"(the dense serving path runs no kernel)")
+        raise AssertionError(f"{tag} launches: prefill {pre}, decode {dcd} "
+                             f"(the serving path runs no kernel)")
     if not peak <= PEAK_GIB:
-        raise AssertionError(f"[dense] {cfg.name}: peak {peak:.2f} GiB > "
+        raise AssertionError(f"{tag} {cfg.name}: peak {peak:.2f} GiB > "
                              f"{PEAK_GIB}")
+    return types.SimpleNamespace(params=params, prompts=prompts, last=last,
+                                 cache=cache, toks=toks, total=total,
+                                 launches=_add(pre, dcd))
+
+
+def _served_logits(cfg, params, last, cache, toks, start: int):
+    """(B, n + 1, vocab) float32: the prefill's `last` logits and those of
+    each decode step from `cache`, fed the decoded `toks` (B, n + 1) at
+    positions start, start + 1, .."""
+    import torch
+
+    from repro_torch.launch import steps
+
+    v, b, n = cfg.vocab_size, toks.shape[0], toks.shape[1] - 1
     decode = steps.make_decode_step(cfg)
     served, c = [last[:, :v]], cache
-    for i in range(n_dec):
+    for i in range(n):
         lg, c = decode(params, {"tokens": toks[:, i:i + 1], "cache": c,
-                                "positions": torch.full((batch,), prompt + i,
-                                                        device=dev)})
+                                "positions": torch.full(
+                                    (b,), start + i, device=toks.device)})
         served.append(lg[:, :v])
-    served = torch.stack(served, 1)
-    del c
-    seq = torch.cat([prompts, toks[:, :n_dec]], 1)
+    return torch.stack(served, 1)
+
+
+def _decode_vs_full(tag, cfg, params, prompts, last, cache, toks,
+                    note: str = "") -> None:
+    """Each decode step's logits (and the prefill's last) against a full
+    forward of the prompts and the decoded tokens at the same positions,
+    held at DENSE_FLOOR_X times the divergence of that forward from
+    itself with its attention outputs perturbed by DENSE_BF16_EPS (up to
+    one bfloat16 step: the decode steps' direct path rounds its
+    probabilities to bfloat16, the forward's flash path does not),
+    measured in the same run."""
+    import torch
+
+    prompt, n = prompts.shape[1], toks.shape[1] - 1
+    served = _served_logits(cfg, params, last, cache, toks, prompt)
+    seq = torch.cat([prompts, toks[:, :n]], 1)
     full = _dense_logits(cfg, params, seq, prompt - 1)
-    floor = _rel(_dense_logits(cfg, params, seq, prompt - 1, DENSE_BF16_EPS),
-                 full)
+    floor = _rel(_dense_logits(cfg, params, seq, prompt - 1,
+                               DENSE_BF16_EPS), full)
     rel = _rel(served, full)
     agree = float((served.argmax(-1) == full.argmax(-1)).float().mean())
     finite = bool(torch.isfinite(served).all()) and bool(
-        ((toks >= 0) & (toks < v)).all())
-    print(f"[dense] {cfg.name} decode vs a full forward at the same "
-          f"{n_dec + 1} positions: logits relative L2 {rel:.4e} (floor "
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    print(f"{tag} {cfg.name} decode{note} vs a full forward at the same "
+          f"{n + 1} positions: logits relative L2 {rel:.4e} (floor "
           f"{floor:.4e}: one bfloat16 step, held at {DENSE_FLOOR_X} x); "
-          f"greedy picks "
-          f"equal {agree:.4f}", flush=True)
+          f"greedy picks equal {agree:.4f}", flush=True)
     if not (finite and rel <= DENSE_FLOOR_X * floor):
-        raise AssertionError(f"[dense] {cfg.name}: decode vs full {rel} > "
+        raise AssertionError(f"{tag} {cfg.name}: decode vs full {rel} > "
                              f"{DENSE_FLOOR_X} x floor {floor}, finite "
                              f"{finite}")
-    del served, full, seq
-    prof = _profile(lambda: dec.run_prefill(cfg, params, prompts, total,
-                                            bf16)[2])
-    print(f"[dense] profiled {cfg.name} prefill: {json.dumps(prof)}",
+
+
+def _serve_profiles(tag, cfg, run) -> None:
+    """The prefill and 4 decode steps of `run` (a `_serve_run`) under the
+    profiler."""
+    import torch
+
+    from repro_torch.launch import decode as dec
+
+    prof = _profile(lambda: dec.run_prefill(cfg, run.params, run.prompts,
+                                            run.total, torch.bfloat16)[2])
+    print(f"{tag} profiled {cfg.name} prefill: {json.dumps(prof)}",
           flush=True)
-    prof = _profile(lambda: dec.run_decode(cfg, params, last, cache, prompt,
+    prof = _profile(lambda: dec.run_decode(cfg, run.params, run.last,
+                                           run.cache, run.prompts.shape[1],
                                            4)[2])
-    print(f"[dense] profiled {cfg.name} 4 decode steps: {json.dumps(prof)}",
+    print(f"{tag} profiled {cfg.name} 4 decode steps: {json.dumps(prof)}",
           flush=True)
-    return _add(pre, dcd)
+    print(f"{tag} {cfg.name} decode: {prof['kernel_launches'] / 4:.0f} "
+          f"kernel launches a step, device idle {prof['idle_share']:.4f} of "
+          f"the profiled steps", flush=True)
+
+
+def dense_serve(dev, cfg, batch: int, prompt: int, n_dec: int) -> dict:
+    """A dense model served by `_serve_run`, its decode held against a
+    full forward (`_decode_vs_full`), its prefill and 4 decode steps
+    profiled. Returns the launches of the prefill and the decode."""
+    run = _serve_run(dev, cfg, batch, prompt, n_dec, "[dense]")
+    _decode_vs_full("[dense]", cfg, run.params, run.prompts, run.last,
+                    run.cache, run.toks)
+    _serve_profiles("[dense]", cfg, run)
+    return run.launches
 
 
 def dense_full_width(dev) -> dict:
@@ -3395,12 +3505,329 @@ def dense_full_width(dev) -> dict:
     return total
 
 
+@contextlib.contextmanager
+def _recorded_routes(store: list):
+    """Every `layers.moe_slots` call in the block appends (idx (T, k),
+    keep (T, k) bool, in token order) to `store`, as device tensors (no
+    host sync)."""
+    from repro_torch.models import layers as L
+
+    slots = L.moe_slots
+
+    def recording(cfg, idx, c):
+        order, slot_e, slot_c, valid = slots(cfg, idx, c)
+        keep = valid.new_zeros(valid.shape).index_put((order,), valid)
+        store.append((idx, keep.reshape(idx.shape)))
+        return order, slot_e, slot_c, valid
+
+    L.moe_slots = recording
+    try:
+        yield store
+    finally:
+        L.moe_slots = slots
+
+
+def _drops(routes) -> tuple:
+    """(dropped assignments, assignments) over recorded routes."""
+    import torch
+
+    if not routes:
+        return 0, 0
+    dropped = torch.stack([(~keep).sum() for _, keep in routes]).sum()
+    return int(dropped), sum(keep.numel() for _, keep in routes)
+
+
+def moe_cross_check(dev):
+    """The MoE smoke configs in float32 on the card and with
+    ``device="cpu"`` from the same params: a prefill of DENSE_CROSS_S
+    positions then 4 decode steps through `T.forward` (olmoe: MoE layers
+    only; kimi: its dense first layer, the shared expert), logits, aux
+    losses and every cache leaf at ZOO_CROSS_TOL, positions bitwise, and
+    every MoE call's top-k indices and drop mask equal; then olmoe's
+    ``lm`` step in 2 micro-batches through `train_cross_check`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_map
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch + "-smoke")
+        v, b, s, n = cfg.vocab_size, 2, DENSE_CROSS_S, 4
+        params = T.init_params(cfg, torch.Generator().manual_seed(0))
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            1, v, (b, s + n)))
+        outs = []
+        for d in (dev, cpu):
+            p = tree_map(lambda t: t.to(d), params)
+            tk = toks.to(d)
+            with _recorded_routes([]) as routes, torch.no_grad():
+                lg, cache, aux = T.forward(
+                    cfg, p, tk[:, :s], mode="prefill",
+                    cache=T.init_cache(cfg, b, s + n, dtype=torch.float32,
+                                       device=d))
+                logits, auxes = [lg[:, -1]], [aux]
+                for i in range(n):
+                    lg, cache, aux = T.forward(
+                        cfg, p, tk[:, s + i:s + i + 1], mode="decode",
+                        cache=cache,
+                        positions=torch.full((b,), s + i, device=d))
+                    logits.append(lg[:, 0])
+                    auxes.append(aux)
+            outs.append(([t[:, :v].cpu() for t in logits],
+                         torch.stack(auxes).cpu(),
+                         tree_map(lambda t: t.cpu(), cache),
+                         [(i.cpu(), k.cpu()) for i, k in routes]))
+        (lc, ac, cc, rc), (lh, ah, ch, rh) = outs
+        err = max(_max_err(a, c) for a, c in zip(lc, lh))
+        aux_err = _max_err(ac, ah)
+        cache_err = max(_max_err(cc[key][name], ch[key][name])
+                        for key in ch for name in ("k", "v"))
+        same_pos = all(torch.equal(cc[key]["pos"], ch[key]["pos"])
+                       for key in ch)
+        flips = sum(int((a.sort(-1).values != c.sort(-1).values).any(-1)
+                        .sum()) for (a, _), (c, _) in zip(rc, rh))
+        same_routes = len(rc) == len(rh) and all(
+            torch.equal(a, c) and torch.equal(ka, kc)
+            for (a, ka), (c, kc) in zip(rc, rh))
+        dropped, assigned = _drops(rh)
+        print(f"[moe] {cfg.name} float32, prefill {b}x{s} + {n} decode "
+              f"steps: card vs cpu logits max abs {err:.3e}, aux {aux_err:.3e} "
+              f"(aux {float(ah[0]):.6f} at the prefill), cache k/v "
+              f"{cache_err:.3e} over {sorted(ch)}; {len(rh)} MoE calls, "
+              f"routing equal {same_routes} ({flips} tokens' top-k sets "
+              f"differ), {dropped} of {assigned} assignments dropped",
+              flush=True)
+        if not (err <= ZOO_CROSS_TOL and aux_err <= ZOO_CROSS_TOL
+                and cache_err <= ZOO_CROSS_TOL and same_pos
+                and same_routes):
+            raise AssertionError(f"[moe] {arch}: logits {err}, aux "
+                                 f"{aux_err}, cache {cache_err}, positions "
+                                 f"{same_pos}, routing {same_routes}")
+    train_cross_check(dev, MOE_ARCHS[0], (("lm", 2, 2, DENSE_CROSS_S),),
+                      tag="[moe]")
+
+
+def _flips(cfg, x, router, logits, idx_card, idx_cpu) -> tuple:
+    """Tokens whose top-k sets differ between the card (`idx_card`) and
+    the CPU (`idx_cpu`, from the CPU's float32 `logits` of the CPU
+    tensors `x` and `router`), and whether each lies within the bound of
+    the MoE comment block. Returns (flipped (T,) bool, the largest
+    gap / bound over them (0 without), tokens within their bound)."""
+    k, d = cfg.n_experts_active, x.shape[-1]
+    flipped = (idx_card.sort(-1).values != idx_cpu.sort(-1).values).any(-1)
+    top = logits.double().sort(-1, descending=True).values
+    gap = top[:, k - 1] - top[:, k]
+    u = 2.0 ** -24
+    gamma = d * u / (1 - d * u)
+    s_abs = x.double().abs() @ router.double().abs()
+    bound = (4 * gamma * s_abs.max(-1).values
+             + 16 * u * (1 + top[:, 0] - top[:, k]))
+    ratio = gap[flipped] / bound[flipped]
+    worst = float(ratio.max()) if bool(flipped.any()) else 0.0
+    return flipped, worst, int((gap <= bound).sum())
+
+
+def moe_block_check(dev):
+    """One olmoe-1b-7b MoE layer at full width (64 experts, top-8, d 2048,
+    d_ff 1024) in float32 with TF32 off, random weights and inputs drawn
+    on the card and copied to the CPU: the routing of MOE_SERVE's 16 x
+    3008 tokens card vs CPU (top-k sets, flips only within the bound of
+    the MoE comment block, the drops of each side), then `moe_block` on
+    MOE_OUT_T of them: the same flip rule, the outputs of the rows whose
+    routing and drops agree, and the aux loss, at ZOO_CROSS_TOL; without
+    a flip every row's drops agree."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_map
+    from repro_torch.models import layers as L
+
+    cfg = get_config(MOE_ARCHS[0])
+    k = cfg.n_experts_active
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = L.init_moe(cfg, g)
+    p_cpu = tree_map(lambda t: t.cpu(), p)
+    t = MOE_SERVE[0] * MOE_SERVE[1]
+    x = torch.randn((t, cfg.d_model), generator=g, device=dev)
+    x_cpu = x.cpu()
+    c = L.moe_capacity(cfg, t)
+    routes = []
+    t0 = time.perf_counter()
+    for xd, router in ((x, p["router"]), (x_cpu, p_cpu["router"])):
+        logits = xd @ router
+        _, _, idx = L.moe_route(cfg, logits)
+        _, _, _, valid = L.moe_slots(cfg, idx, c)
+        routes.append((logits.cpu(), idx.cpu(), int((~valid).sum())))
+    t_route = time.perf_counter() - t0
+    (_, ic, dc), (lh, ih, dh) = routes
+    flipped, worst, within = _flips(cfg, x_cpu, p_cpu["router"], lh, ic, ih)
+    n_flip = int(flipped.sum())
+    print(f"[moe] {cfg.name} router at full width, {t:,} tokens x "
+          f"{cfg.n_experts} experts, float32: card vs cpu top-{k} sets "
+          f"differ on {n_flip} tokens, their CPU k-th/(k+1)-th logit gaps "
+          f"at most {worst:.3e} of their float32 bound ({within:,} tokens "
+          f"lie within theirs); capacity {c}, dropped assignments card "
+          f"{dc:,} and cpu {dh:,} of {t * k:,} (both routes {t_route:.2f} "
+          f"s)", flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"[moe] routing flips outside the float32 "
+                             f"bound: worst gap / bound {worst}")
+    xo, xo_cpu = x[:MOE_OUT_T], x_cpu[:MOE_OUT_T]
+    outs = []
+    for xd, pd in ((xo, p), (xo_cpu, p_cpu)):
+        with _recorded_routes([]) as rec, torch.no_grad():
+            y, aux = L.moe_block(cfg, pd, xd[None])
+        outs.append((rec[0][0].cpu(), rec[0][1].cpu(), y[0].cpu(),
+                     aux.cpu()))
+    (ia, ka, ya, aa), (ib, kb, yb, ab) = outs
+    flipped, worst, _ = _flips(cfg, xo_cpu, p_cpu["router"],
+                               xo_cpu @ p_cpu["router"], ia, ib)
+    rows = (ia == ib).all(-1) & (ka == kb).all(-1)
+    err = _max_err(ya[rows], yb[rows])
+    aux_err = _max_err(aa, ab)
+    print(f"[moe] moe_block at full width on {MOE_OUT_T} tokens (capacity "
+          f"{L.moe_capacity(cfg, MOE_OUT_T)}): {int(flipped.sum())} top-{k} "
+          f"sets differ (worst gap / bound {worst:.3e}); card vs cpu "
+          f"outputs max abs {err:.3e} over the {int(rows.sum())} rows whose "
+          f"routing and drops agree, aux {aux_err:.3e} (tol "
+          f"{ZOO_CROSS_TOL})", flush=True)
+    if not (worst <= 1.0 and err <= ZOO_CROSS_TOL
+            and aux_err <= ZOO_CROSS_TOL
+            and (bool(flipped.any()) or bool(rows.all()))):
+        raise AssertionError(f"[moe] moe_block card vs cpu: outputs {err}, "
+                             f"aux {aux_err}, rows {int(rows.sum())}, flips "
+                             f"{int(flipped.sum())} (worst {worst})")
+
+
+def moe_serve(dev, cfg, batch: int, prompt: int, n_dec: int,
+              check_b: int = 0) -> dict:
+    """A MoE model served by `_serve_run`; then the prefill and the
+    decode steps once more with the routes recorded (the dropped
+    assignments at the published capacity factor), one decode step under
+    `no_implicit_transfers` (no host sync), and, with `check_b`, the
+    decode of `check_b` of the prompts at capacity factor E / k (C = T:
+    nothing drops) held against a full forward (`_decode_vs_full`). The
+    prefill and 4 decode steps profiled. Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis.guards import no_implicit_transfers
+    from repro_torch.launch import decode as dec
+    from repro_torch.launch import steps
+    from repro_torch.models import layers as L
+
+    bf16 = torch.bfloat16
+    run = _serve_run(dev, cfg, batch, prompt, n_dec, "[moe]")
+    with _recorded_routes([]) as rec:
+        dec.run_prefill(cfg, run.params, run.prompts, run.total, bf16)
+    pre_drop, pre_n = _drops(rec)
+    with _recorded_routes([]) as rec:
+        _served_logits(cfg, run.params, run.last, run.cache, run.toks,
+                       prompt)
+    dec_drop, dec_n = _drops(rec)
+    torch.cuda.synchronize()
+    with no_implicit_transfers():
+        lg, _ = steps.make_decode_step(cfg)(run.params, {
+            "tokens": run.toks[:, :1], "cache": run.cache,
+            "positions": torch.full((batch,), prompt, device=dev)})
+    torch.cuda.synchronize()
+    print(f"[moe] {cfg.name} dropped assignments at capacity factor "
+          f"{cfg.moe_capacity_factor}: prefill {pre_drop:,} of {pre_n:,} "
+          f"(capacity {L.moe_capacity(cfg, batch * prompt)} of "
+          f"{batch * prompt} tokens), decode {dec_drop / n_dec:.2f} a step "
+          f"of {dec_n // n_dec} (capacity {L.moe_capacity(cfg, batch)} of "
+          f"{batch} tokens); a decode step under no_implicit_transfers ran "
+          f"with no host sync", flush=True)
+    if not bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()):
+        raise AssertionError(f"[moe] {cfg.name}: guarded decode logits are "
+                             f"not finite")
+    del lg
+    if check_b:
+        nd = dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.n_experts / cfg.n_experts_active)
+        sub = run.prompts[:check_b]
+        last, cache, _ = dec.run_prefill(nd, run.params, sub, run.total,
+                                         bf16)
+        toks, _, _ = dec.run_decode(nd, run.params, last, cache, prompt,
+                                    n_dec)
+        with _recorded_routes([]) as rec:
+            _decode_vs_full("[moe]", nd, run.params, sub, last, cache, toks,
+                            note=f" of {check_b} sequences at capacity "
+                                 f"factor {nd.moe_capacity_factor} (C = T)")
+        dropped, _ = _drops(rec)
+        if dropped:
+            raise AssertionError(f"[moe] {cfg.name}: {dropped} assignments "
+                                 f"dropped at capacity factor "
+                                 f"{nd.moe_capacity_factor}")
+        del last, cache
+    _serve_profiles("[moe]", cfg, run)
+    return run.launches
+
+
+def moe_full_width(dev) -> dict:
+    """olmoe-1b-7b at full width served (`moe_serve` at MOE_SERVE with the
+    decode check on MOE_CHECK_B sequences), its train steps with n_layers
+    cut to MOE_TRAIN_LAYERS (``lm`` at MOE_LM, ``dt`` at MOE_DT: the DT
+    kernel's wide form at D = 2048, one launch), then kimi-k2-1t-a32b at
+    every published width with n_layers cut to MOE_CUT_LAYERS, served at
+    MOE_CUT. Prints each cut with its reason. Returns the launches of the
+    timed steps and the serving runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import decode as dec
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    print(f"[moe] full width: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated before the phase", flush=True)
+    olmoe = get_config(MOE_ARCHS[0])
+    b, p_len, n_dec = MOE_SERVE
+    print(f"[moe] cuts: {olmoe.name} served at full depth, {b} prompts x "
+          f"{p_len} tokens + {n_dec} decode steps (prefill_32k's 32 x "
+          f"32,768 and decode_32k's 128 sequences cut to one card's run; "
+          f"3008 + 64 = 3072 slots puts the prefill on the flash path); "
+          f"trained with n_layers {olmoe.n_layers} -> {MOE_TRAIN_LAYERS} "
+          f"(bf16 params and momentum, float32 accumulators and bf16 "
+          f"gradients of 6.9e9 parameters would take about 69 GB), batch "
+          f"train_4k's 256 -> {MOE_LM[0]} x {MOE_LM[1]} in {MOE_LM[2]} "
+          f"micro-batches, dt at {MOE_DT[0]} x {MOE_DT[1]}; "
+          f"{MOE_CUT_ARCH} at every published width with n_layers 61 -> "
+          f"{MOE_CUT_LAYERS} (its dense first layer and one MoE layer, 39 "
+          f"GB of bf16 weights; a second MoE layer adds 33.8 GB), "
+          f"{MOE_CUT[0]} prompts x {MOE_CUT[1]} + {MOE_CUT[2]} decode "
+          f"steps, serving only", flush=True)
+    total = moe_serve(dev, olmoe, *MOE_SERVE, check_b=MOE_CHECK_B)
+    free()
+    cfg = dataclasses.replace(olmoe, n_layers=MOE_TRAIN_LAYERS)
+    for objective, (b, s, nm), n in (("lm", MOE_LM, MOE_LM_STEPS),
+                                     ("dt", MOE_DT, MOE_DT_STEPS)):
+        params = dec.init_model(cfg, 0, torch.bfloat16, dev)
+        _, counts = _train_run(cfg, params, objective, b, s, nm, n, dev,
+                               tag="[moe]")
+        total = _add(total, counts)
+        del params
+        free()
+    cfg = dataclasses.replace(get_config(MOE_CUT_ARCH),
+                              n_layers=MOE_CUT_LAYERS)
+    total = _add(total, moe_serve(dev, cfg, *MOE_CUT))
+    free()
+    return total
+
+
 def analysis_path(dev, first_build) -> None:
     """[analysis]: the guards live on the card, the registries' contracts
     and the port's lint clean. `first_build` is the tracker around the
     script's first `build.build_all()`."""
-    import contextlib
-
     import torch
 
     from repro_torch.analysis import contracts, lint
@@ -3523,6 +3950,11 @@ def run() -> int:
     torch.cuda.empty_cache()
     dense_cross_check(dev)
     paths["dense"] = dense_full_width(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cross_check(dev)
+    moe_block_check(dev)
+    paths["moe"] = moe_full_width(dev)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
                 else zoo_launches if r["name"] == "rwkv6"

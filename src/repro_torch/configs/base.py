@@ -7,7 +7,8 @@ suffix for the `reduced()` variant. It registers the paper's backbone,
 ``resnet18-cifar`` (configs/resnet18_cifar.py), the zoo's ``ssm``
 architecture ``rwkv6-1.6b`` (configs/rwkv6_1_6b.py) and its four
 ``dense`` ones (``tinyllama-1.1b``, ``qwen2-0.5b``, ``gemma2-27b``,
-``deepseek-67b``). The reference's other architectures raise
+``deepseek-67b``) and its two ``moe`` ones (``olmoe-1b-7b``,
+``kimi-k2-1t-a32b``). The reference's other architectures raise
 NotImplementedError naming the ROADMAP.md entry that ports them.
 """
 from __future__ import annotations
@@ -19,9 +20,9 @@ from dataclasses import dataclass
 VOCAB_PAD_MULTIPLE = 2048
 
 # The reference's registry (repro/configs/) beyond what the port runs.
-UNPORTED_ARCHS = ("hymba-1.5b", "kimi-k2-1t-a32b", "llama-3.2-vision-90b",
-                  "olmoe-1b-7b", "seamless-m4t-large-v2")
-PORTED_FAMILIES = ("resnet", "ssm", "dense")
+UNPORTED_ARCHS = ("hymba-1.5b", "llama-3.2-vision-90b",
+                  "seamless-m4t-large-v2")
+PORTED_FAMILIES = ("resnet", "ssm", "dense", "moe")
 ROADMAP_ZOO = "ROADMAP.md Queue A, item 12 (the other zoo families)"
 
 
@@ -38,11 +39,11 @@ def family_not_ported(family: str) -> NotImplementedError:
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters: the fields of the reference's
-    `ModelConfig` that the ResNet, ``ssm`` (RWKV6) and ``dense`` families
-    read, with the reference's defaults."""
+    `ModelConfig` that the ResNet, ``ssm`` (RWKV6), ``dense`` and ``moe``
+    families read, with the reference's defaults."""
 
     name: str
-    family: str      # resnet | ssm | dense (the reference's others: not ported)
+    family: str      # resnet | ssm | dense | moe (the others: not ported)
     n_layers: int
     d_model: int
     d_ff: int
@@ -61,6 +62,13 @@ class ModelConfig:
     rwkv_head_dim: int = 64
     act: str = "silu"
     gated_mlp: bool = True
+    n_experts: int = 0
+    n_experts_active: int = 0
+    moe_capacity_factor: float = 1.25
+    router_aux_loss_coef: float = 0.01
+    moe_impl: str = "auto"              # auto | scatter | ep (layers.moe_apply)
+    n_shared_experts: int = 0           # kimi-k2: 1 shared expert
+    moe_first_dense_layers: int = 0     # kimi-k2: first layer dense
     norm: str = "rmsnorm"
     post_norm: bool = False             # gemma2: post-block norms too
     norm_eps: float = 1e-5
@@ -77,10 +85,15 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return pad_vocab(self.vocab_size)
 
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family and code path, tiny dims (the
         reference's rule: 2 layers, d_model <= 256, <= 4 heads of 64,
-        <= 2 kv heads, d_ff <= 512, vocab <= 1024; a sliding window
+        <= 2 kv heads, d_ff <= 512, vocab <= 1024; 4 experts, 2 active,
+        <= 1 shared and <= 1 leading dense layer; a sliding window
         becomes 32 and the long-context window 64)."""
         kw = dict(name=self.name + "-smoke", n_layers=2,
                   d_model=min(self.d_model, 256),
@@ -88,6 +101,11 @@ class ModelConfig:
                   n_kv_heads=min(self.n_kv_heads, 2), head_dim=64,
                   d_ff=min(self.d_ff, 512),
                   vocab_size=min(self.vocab_size, 1024))
+        if self.n_experts:
+            kw.update(n_experts=4, n_experts_active=2,
+                      n_shared_experts=min(self.n_shared_experts, 1),
+                      moe_first_dense_layers=min(self.moe_first_dense_layers,
+                                                 1))
         if self.sliding_window:
             kw.update(sliding_window=32)
         if self.long_context_window:
@@ -125,8 +143,8 @@ def get_config(name: str) -> ModelConfig:
     """The registered config `name`; ``<name>-smoke`` is its `reduced()`."""
     if not _REGISTRY:
         from repro_torch.configs import (  # noqa: F401
-            deepseek_67b, gemma2_27b, qwen2_0_5b, resnet18_cifar, rwkv6_1_6b,
-            tinyllama_1_1b)
+            deepseek_67b, gemma2_27b, kimi_k2_1t_a32b, olmoe_1b_7b,
+            qwen2_0_5b, resnet18_cifar, rwkv6_1_6b, tinyllama_1_1b)
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
     if name in UNPORTED_ARCHS:

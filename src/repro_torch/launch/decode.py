@@ -1,7 +1,8 @@
 """Prefill + greedy decode of a zoo model — counterpart of
 `repro.launch.decode` (`main`), for the port's ``ssm`` family (RWKV6,
-a recurrent cache) and ``dense`` family (tinyllama-1.1b, qwen2-0.5b,
-gemma2-27b, deepseek-67b; a ring-buffer KV cache).
+a recurrent cache), ``dense`` family (tinyllama-1.1b, qwen2-0.5b,
+gemma2-27b, deepseek-67b; a ring-buffer KV cache) and ``moe`` family
+(olmoe-1b-7b, kimi-k2-1t-a32b; the dense family's caches).
 
 The reference runs ``--reduced`` end to end on the CPU and, without it,
 only lowers and compiles the decode step for a TPU mesh. The port runs
@@ -19,6 +20,10 @@ where the prompt has 2048 tokens or more and that sum is a multiple of
         --batch 16 --prompt-len 2048 --tokens 64       # on the card
     PYTHONPATH=src python -m repro_torch.launch.decode --arch tinyllama-1.1b \\
         --batch 16 --prompt-len 3008 --tokens 64       # on the card
+    PYTHONPATH=src python -m repro_torch.launch.decode --arch olmoe-1b-7b \\
+        --batch 16 --prompt-len 3008 --tokens 64       # on the card
+    PYTHONPATH=src python -m repro_torch.launch.decode --arch kimi-k2-1t-a32b \\
+        --reduced --device cpu
 
 Prints the prefill time, the decode time per step and decode tok/s.
 """

@@ -236,8 +236,9 @@ def make_prefill_step(cfg, shape: InputShape, param_dtype=torch.bfloat16):
         cache = T.init_cache(cfg, tokens.shape[0], shape.seq_len,
                              dtype=param_dtype,
                              device=tokens.device, long_context=long_ctx)
-        x, cache = T._forward_hidden(cfg, params, tokens, mode="prefill",
-                                     cache=cache, long_context=long_ctx)
+        x, cache, _ = T._forward_hidden(cfg, params, tokens,
+                                        mode="prefill", cache=cache,
+                                        long_context=long_ctx)
         return T._head(cfg, params, x[:, -1]), cache
 
     return prefill

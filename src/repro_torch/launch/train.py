@@ -20,6 +20,8 @@ through `MobilityModel`.
         --device cpu --steps 2 --objective lm
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
         --batch 8 --seq-len 4096 --steps 3                 # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+        --reduced --device cpu --steps 2 --objective dt
 
 ``--mode sim`` — the host-level FL simulation, a `Scenario` driven
 through `run_round`, with whole-`FLState` checkpoints and resume:

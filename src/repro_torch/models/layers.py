@@ -1,9 +1,11 @@
-"""Neural-net primitives of the zoo's ``dense`` and ``ssm`` (RWKV6
-"Finch") families — counterpart of `repro.models.layers` (`normal_init`,
-`fan_in_init`, the norms, `act_fn`, `rope_freqs`, `apply_rope`,
-`_softcap`, `_build_mask`, `_attn_direct`, `flash_attention` with its
-custom VJP, `attention_core`, `init_attention`, `attention_block`,
-`make_cache`, `_quantize_kv`, `_dequantize_kv`, `init_mlp`, `mlp_block`,
+"""Neural-net primitives of the zoo's ``dense``, ``moe`` and ``ssm``
+(RWKV6 "Finch") families — counterpart of `repro.models.layers`
+(`normal_init`, `fan_in_init`, the norms, `act_fn`, `rope_freqs`,
+`apply_rope`, `_softcap`, `_build_mask`, `_attn_direct`,
+`flash_attention` with its custom VJP, `attention_core`,
+`init_attention`, `attention_block`, `make_cache`, `_quantize_kv`,
+`_dequantize_kv`, `init_mlp`, `mlp_block`, `init_moe`, `moe_block`,
+`_moe_dispatch_local`, `moe_apply`, `moe_block_dense_ref`,
 `init_rwkv_tmix`, `_rwkv_project`, `rwkv_tmix_chunked`, `rwkv_tmix_step`,
 `init_rwkv_cmix`, `rwkv_cmix`).
 
@@ -32,6 +34,14 @@ layer on the whole sequence, from the cache's state, reading the
 projections' (B, S, H, D) layout in place. The kernel takes any S, so a
 ragged S needs no head/tail split. The one-token decode step is plain
 torch, as the reference's is jnp.
+
+The MoE block is the reference's sort-based capacity dispatch in plain
+torch and cuBLAS, as the reference's is jnp: float32 router, softmax and
+top-k, a stable argsort of the assignments' expert ids, each kept
+assignment scattered into its expert's slot of an (E, C + 1, d) buffer
+whose last slot takes every dropped one (and is cut off), the expert
+products as batched matmuls, then gather, unsort and the gate-weighted
+sum. Every size comes from shapes, so a block makes no host sync.
 """
 from __future__ import annotations
 
@@ -400,8 +410,8 @@ def _dequantize_kv(codes, scale, dtype):
 # MLP (gated and plain)
 # --------------------------------------------------------------------------
 
-def init_mlp(cfg, gen: torch.Generator, dtype=torch.float32):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(cfg, gen: torch.Generator, dtype=torch.float32, d_ff=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {"w_up": fan_in_init(gen, (d, f), dtype),
          "w_down": fan_in_init(gen, (f, d), dtype)}
     if cfg.gated_mlp:
@@ -414,6 +424,161 @@ def mlp_block(cfg, p, x):
     h = x @ p["w_up"]
     h = a(x @ p["w_gate"]) * h if "w_gate" in p else a(h)
     return h @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts — sort-based capacity dispatch
+# --------------------------------------------------------------------------
+
+MOE_IMPLS = ("auto", "scatter", "ep")
+
+
+def _expert_init(gen: torch.Generator, n: int, shape, std, dtype):
+    """(n, *shape) N(0, std^2) in `dtype`, drawn one expert at a time, so
+    a full-width stack never holds float32 draws of all its experts."""
+    out = torch.empty((n, *shape), dtype=dtype, device=gen.device)
+    for i in range(n):
+        out[i] = normal_init(gen, shape, std, dtype)
+    return out
+
+
+def init_moe(cfg, gen: torch.Generator, dtype=torch.float32):
+    """Router (d, E) in float32 whatever `dtype`, as the reference's;
+    stacked experts w_up, w_gate (E, d, f) and w_down (E, f, d); with
+    ``n_shared_experts`` a shared MLP of width d_ff * n_shared."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": fan_in_init(gen, (d, e), torch.float32),
+         "w_up": _expert_init(gen, e, (d, f), 1 / math.sqrt(d), dtype),
+         "w_down": _expert_init(gen, e, (f, d), 1 / math.sqrt(f), dtype)}
+    if cfg.gated_mlp:
+        p["w_gate"] = _expert_init(gen, e, (d, f), 1 / math.sqrt(d), dtype)
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(cfg, gen, dtype,
+                               d_ff=cfg.d_ff * cfg.n_shared_experts)
+    return p
+
+
+def moe_capacity(cfg, t: int) -> int:
+    """Slots an expert for `t` tokens: the reference's Python expression,
+    min(max(int(T k / E * capacity_factor), 4), T)."""
+    c = max(int(t * cfg.n_experts_active / cfg.n_experts
+                * cfg.moe_capacity_factor), 4)
+    return min(c, t)
+
+
+def moe_route(cfg, logits):
+    """(T, E) float32 router logits -> (probs (T, E), gate_vals (T, k)
+    renormalised to sum to 1, idx (T, k) largest first)."""
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, idx = torch.topk(probs, cfg.n_experts_active, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return probs, gate_vals, idx
+
+
+def moe_slots(cfg, idx, c: int):
+    """Each assignment's slot: the T * k assignments (token-major, as
+    idx.reshape(-1)) stably sorted by expert id; the i-th sorted
+    assignment of expert e takes slot (e, i) when i < c, else the
+    overflow slot (0, c). Returns (order, slot_e, slot_c, valid), each
+    (T * k,) in sorted order; order[j] is the j-th sorted assignment."""
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    experts = torch.arange(cfg.n_experts, device=idx.device)
+    starts = torch.searchsorted(se, experts)
+    pos = torch.arange(se.numel(), device=idx.device) - starts[se]
+    valid = pos < c
+    slot_e = torch.where(valid, se, 0)
+    slot_c = torch.where(valid, pos, c)
+    return order, slot_e, slot_c, valid
+
+
+def _moe_dispatch_local(cfg, xf, logits, c: int):
+    """Sort-based dispatch. xf (T, d); logits (T, E) float32. Returns
+    (buf (E, C + 1, d), slot_e, slot_c, order, gate_vals, (me, ce)): me
+    the mean router probability of each expert (differentiable), ce the
+    share of the T * k assignments it was given (counts, no gradient)."""
+    t, k = xf.shape[0], cfg.n_experts_active
+    probs, gate_vals, idx = moe_route(cfg, logits)
+    me = probs.mean(dim=0)
+    flat_e = idx.reshape(-1)
+    ce = torch.zeros(cfg.n_experts, device=xf.device).index_add_(
+        0, flat_e, torch.ones(t * k, device=xf.device)) / (t * k)
+    order, slot_e, slot_c, _ = moe_slots(cfg, idx, c)
+    # kept slots are written once each; every dropped assignment goes to
+    # the overflow slot (0, c), which no reader keeps
+    buf = xf.new_zeros((cfg.n_experts, c + 1, xf.shape[1])).index_put(
+        (slot_e, slot_c), xf[order // k])
+    return buf, slot_e, slot_c, order, gate_vals, (me, ce)
+
+
+def _experts(cfg, p, buf):
+    """(E, C, d) -> (E, C, d): each expert's gated MLP on its slots."""
+    a = act_fn(cfg.act)
+    h = torch.bmm(buf, p["w_up"])
+    h = a(torch.bmm(buf, p["w_gate"])) * h if "w_gate" in p else a(h)
+    return torch.bmm(h, p["w_down"])
+
+
+def moe_block(cfg, p, x):
+    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux float32).
+
+    aux is the Switch load-balance loss E * sum(me * ce) *
+    router_aux_loss_coef. Assignments beyond an expert's capacity
+    (`moe_capacity`) are dropped: they add nothing, and the token keeps
+    its other experts' and the shared expert's contributions."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_active
+    t = b * s
+    xf = x.reshape(t, d)
+    logits = xf.float() @ p["router"]
+    c = moe_capacity(cfg, t)
+    buf, slot_e, slot_c, order, gate_vals, (me, ce) = _moe_dispatch_local(
+        cfg, xf, logits, c)
+    aux = e * torch.sum(me * ce) * cfg.router_aux_loss_coef
+    out_buf = _experts(cfg, p, buf[:, :c])
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((e, 1, d))], dim=1)
+    gathered = out_buf[slot_e, slot_c]               # sorted order
+    unsorted = gathered.new_zeros((t * k, d)).index_put((order,), gathered)
+    y = torch.einsum("tkd,tk->td", unsorted.reshape(t, k, d),
+                     gate_vals.to(x.dtype))
+    if "shared" in p:
+        y = y + mlp_block(cfg, p["shared"], xf)
+    return y.reshape(b, s, d), aux
+
+
+def moe_apply(cfg, p, x):
+    """The MoE implementation `cfg.moe_impl` names. On one device the
+    reference's every choice runs `moe_block`: "auto" picks the
+    expert-parallel path only under a mesh with a ``model`` axis larger
+    than 1, and "ep" (`moe_block_ep`) falls back without one. That path
+    needs a mesh over the zoo's weights, which the port has not (see
+    ROADMAP.md, mesh lowering), so every choice runs `moe_block`."""
+    if cfg.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}; valid: "
+                         f"{MOE_IMPLS}")
+    return moe_block(cfg, p, x)
+
+
+def moe_block_dense_ref(cfg, p, x):
+    """Every token through every expert, then the top-k by gate: the
+    reference's oracle of `moe_block` when nothing drops."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    _, gate_vals, idx = moe_route(cfg, xf.float() @ p["router"])
+    a = act_fn(cfg.act)
+    h = torch.einsum("td,edf->tef", xf, p["w_up"])
+    if "w_gate" in p:
+        h = a(torch.einsum("td,edf->tef", xf, p["w_gate"])) * h
+    else:
+        h = a(h)
+    all_out = torch.einsum("tef,efd->ted", h, p["w_down"])
+    sel = torch.take_along_dim(all_out, idx[..., None], dim=1)
+    y = torch.einsum("tkd,tk->td", sel, gate_vals.to(x.dtype))
+    if "shared" in p:
+        y = y + mlp_block(cfg, p["shared"], xf)
+    return y.reshape(b, s, d)
 
 
 # --------------------------------------------------------------------------

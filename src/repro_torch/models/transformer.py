@@ -1,8 +1,8 @@
-"""Model assembly of the zoo, ``dense`` and ``ssm`` (RWKV6) families —
-counterpart of `repro.models.transformer` (`_init_decoder_block`,
-`_decoder_block`, `_init_rwkv_block`, `init_params`, `layer_windows`,
-`cache_width`, `init_cache`, `_embed`, `_head`, `_forward_hidden`,
-`forward`, `forward_features`).
+"""Model assembly of the zoo, ``dense``, ``moe`` and ``ssm`` (RWKV6)
+families — counterpart of `repro.models.transformer`
+(`_init_decoder_block`, `_decoder_block`, `_init_rwkv_block`,
+`init_params`, `layer_windows`, `cache_width`, `init_cache`, `_embed`,
+`_head`, `_forward_hidden`, `forward`, `forward_features`).
 
 Blocks keep the reference's stacked layout: every leaf of
 ``params["blocks"]`` and of the cache has a leading layer axis. The
@@ -13,12 +13,20 @@ Python. Modes, as the reference's:
   prefill — like train, into the cache, and returns the new cache
   decode  — one new token against the cache
 
+The ``moe`` family is the dense decoder block with `layers.moe_apply`
+in place of the MLP: ``params["blocks"]`` holds the MoE layers and, with
+``moe_first_dense_layers``, ``params["dense_blocks"]`` the leading dense
+ones, which run first. Its blocks' aux losses are summed into the
+forward's aux_losses.
+
 Caches: ``dense``: ``{"kv": {"k", "v": (L, B, W, KH, hd), "pos": (L, B,
 W) int32}}`` ring buffers of width `cache_width` (int8 k and v add
-``k_scale``, ``v_scale`` (L, B, W, KH)); ``ssm``: ``{"state": (L, B, H,
-D, D) float32, "x_last_t": (L, B, d), "x_last_c": (L, B, d)}`` (the last
-token seen by each layer's time-mix and channel-mix). The other
-families raise NotImplementedError naming ROADMAP.md.
+``k_scale``, ``v_scale`` (L, B, W, KH)); ``moe``: the same for its MoE
+layers, and ``"kv_dense"`` for its leading dense layers; ``ssm``:
+``{"state": (L, B, H, D, D) float32, "x_last_t": (L, B, d), "x_last_c":
+(L, B, d)}`` (the last token seen by each layer's time-mix and
+channel-mix). The other families raise NotImplementedError naming
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -31,16 +39,22 @@ from repro_torch.convert import tree_map
 from repro_torch.models import layers as L
 
 
+ATTENTION_FAMILIES = ("dense", "moe")
+
+
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ATTENTION_FAMILIES + ("ssm",):
         raise family_not_ported(cfg.family)
 
 
-def _init_decoder_block(cfg, gen, dtype):
+def _init_decoder_block(cfg, gen, dtype, moe: bool = False):
     p = {"ln1": L.init_norm(cfg, dtype=dtype, device=gen.device),
          "attn": L.init_attention(cfg, gen, dtype),
-         "ln2": L.init_norm(cfg, dtype=dtype, device=gen.device),
-         "mlp": L.init_mlp(cfg, gen, dtype)}
+         "ln2": L.init_norm(cfg, dtype=dtype, device=gen.device)}
+    if moe:
+        p["moe"] = L.init_moe(cfg, gen, dtype)
+    else:
+        p["mlp"] = L.init_mlp(cfg, gen, dtype)
     if cfg.post_norm:
         p["ln1_post"] = L.init_norm(cfg, dtype=dtype, device=gen.device)
         p["ln2_post"] = L.init_norm(cfg, dtype=dtype, device=gen.device)
@@ -48,18 +62,23 @@ def _init_decoder_block(cfg, gen, dtype):
 
 
 def _decoder_block(cfg, p, x, q_pos, *, window, cache=None):
-    """Pre-norm attention and MLP with residuals (gemma2: a norm after
-    each too). Returns (x, the layer's new cache or None)."""
+    """Pre-norm attention and MLP (or MoE) with residuals (gemma2: a norm
+    after each too). Returns (x, the layer's new cache or None, the
+    layer's aux loss: the MoE's, or 0.0)."""
     h, new_cache = L.attention_block(cfg, p["attn"],
                                      L.apply_norm(cfg, p["ln1"], x), q_pos,
                                      window=window, cache=cache)
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["ln1_post"], h)
     x = x + h
-    h = L.mlp_block(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+    hin = L.apply_norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        h, aux = L.moe_apply(cfg, p["moe"], hin)
+    else:
+        h, aux = L.mlp_block(cfg, p["mlp"], hin), 0.0
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["ln2_post"], h)
-    return x + h, new_cache
+    return x + h, new_cache, aux
 
 
 def _init_rwkv_block(cfg, gen, dtype):
@@ -80,12 +99,43 @@ def _stack(blocks: list) -> dict:
     return build(blocks)
 
 
+def _init_stack(n: int, make) -> dict:
+    """`n` layers of `make()` stacked along a leading layer axis, each
+    layer copied into the stack as it is drawn, so at most one layer's
+    tensors lie beside the stack (a single layer is a view of itself):
+    at full width one kimi-k2 MoE layer holds 33.8 GB of experts."""
+    first = make()
+    if n == 1:
+        return tree_map(lambda t: t.unsqueeze(0), first)
+    out = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make(), i)
+    return out
+
+
+def _n_dense(cfg) -> int:
+    """Leading dense layers: the ``moe`` family's, 0 otherwise."""
+    return cfg.moe_first_dense_layers if cfg.family == "moe" else 0
+
+
 def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
     """Random parameters on the generator's device: embed, final_norm,
     unembed (unless tied) and the stacked blocks, in the reference's
     layouts and per-leaf dtypes (`dtype`, except the ``ssm`` family's
-    float32 ``w0``, ``w_lora_b`` and ``u``). The draws are the port's
-    own: tests carry the reference's weights across with
+    float32 ``w0``, ``w_lora_b`` and ``u`` and the ``moe`` family's
+    float32 router). ``moe`` adds ``dense_blocks`` for its leading dense
+    layers, and its ``blocks`` hold the MoE layers. The draws are the
+    port's own: tests carry the reference's weights across with
     `convert.zoo_params_from_numpy`."""
     _check_family(cfg)
     v, d = cfg.padded_vocab, cfg.d_model
@@ -95,9 +145,18 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = L.normal_init(gen, (d, v), 1 / math.sqrt(d), dtype)
-    block = _init_decoder_block if cfg.family == "dense" else _init_rwkv_block
-    p["blocks"] = _stack([block(cfg, gen, dtype)
-                          for _ in range(cfg.n_layers)])
+    if cfg.family == "ssm":
+        p["blocks"] = _init_stack(
+            cfg.n_layers, lambda: _init_rwkv_block(cfg, gen, dtype))
+        return p
+    moe = cfg.family == "moe"
+    n_dense = _n_dense(cfg)
+    if n_dense:
+        p["dense_blocks"] = _init_stack(
+            n_dense, lambda: _init_decoder_block(cfg, gen, dtype))
+    p["blocks"] = _init_stack(
+        cfg.n_layers - n_dense,
+        lambda: _init_decoder_block(cfg, gen, dtype, moe))
     return p
 
 
@@ -126,14 +185,22 @@ def cache_width(cfg, seq_len: int, long_context: bool) -> int:
 
 def init_cache(cfg, batch: int, seq_len: int = 0, dtype=torch.bfloat16,
                device=None, *, long_context: bool = False) -> dict:
-    """Empty decode cache for positions < `seq_len`: ``dense``, ring
-    buffers of `cache_width` slots in `dtype` (``torch.int8``: the
-    quantized cache); ``ssm``, the recurrent state (its size does not
-    depend on `seq_len`)."""
+    """Empty decode cache for positions < `seq_len`: ``dense`` and
+    ``moe``, ring buffers of `cache_width` slots in `dtype`
+    (``torch.int8``: the quantized cache), ``kv_dense`` for the leading
+    dense layers; ``ssm``, the recurrent state (its size does not depend
+    on `seq_len`)."""
     _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         width = cache_width(cfg, seq_len, long_context)
-        return {"kv": L.make_cache(cfg, batch, width, dtype, device=device)}
+        n_dense = _n_dense(cfg)
+        c = {"kv": L.make_cache(cfg, batch, width, dtype,
+                                n_layers=cfg.n_layers - n_dense,
+                                device=device)}
+        if n_dense:
+            c["kv_dense"] = L.make_cache(cfg, batch, width, dtype,
+                                         n_layers=n_dense, device=device)
+        return c
     d, hd = cfg.d_model, cfg.rwkv_head_dim
     h = d // hd
     n = cfg.n_layers
@@ -185,49 +252,70 @@ def _rwkv_block(cfg, blk, x, mode, st):
     return x + o2, {"state": s_new, "x_last_t": xl_t, "x_last_c": xl_c}
 
 
-def _dense_layers(cfg, p, x, positions, cache, long_context):
-    """The decoder blocks over `x` at `positions` (B, S), each with its
-    window and its slice of the cache. Returns (x, new cache or None)."""
-    wins = layer_windows(cfg, cfg.n_layers, long_context)
+def _decoder_stack(cfg, blocks, n, x, positions, kv, long_context, aux):
+    """The `n` stacked decoder `blocks` over `x` at `positions` (B, S),
+    each with its window (`layer_windows` of the stack's depth) and its
+    slice of the stacked cache `kv` (None: no cache). Returns (x, the new
+    stacked cache or None, aux plus the blocks' aux losses)."""
     outs = []
-    for i, win in enumerate(wins):
-        blk = tree_map(lambda t: t[i], p["blocks"])
-        kv = None if cache is None else {k: c[i]
-                                         for k, c in cache["kv"].items()}
-        x, new = _decoder_block(cfg, blk, x, positions, window=win,
-                                cache=kv)
+    for i, win in enumerate(layer_windows(cfg, n, long_context)):
+        blk = tree_map(lambda t: t[i], blocks)
+        c = None if kv is None else {k: v[i] for k, v in kv.items()}
+        x, new, a = _decoder_block(cfg, blk, x, positions, window=win,
+                                   cache=c)
+        aux = aux + a
         outs.append(new)
-    return x, (None if cache is None else {"kv": _stack(outs)})
+    return x, (None if kv is None else _stack(outs)), aux
+
+
+def _attention_layers(cfg, p, x, positions, cache, long_context):
+    """``dense`` and ``moe``: the leading dense stack (``dense_blocks``,
+    cache ``kv_dense``), then ``blocks`` (cache ``kv``). Returns (x, new
+    cache or None, the summed aux loss, float32)."""
+    aux = torch.zeros((), device=x.device)
+    new_cache = None if cache is None else {}
+    n_dense = _n_dense(cfg)
+    for blocks, key, n in (("dense_blocks", "kv_dense", n_dense),
+                           ("blocks", "kv", cfg.n_layers - n_dense)):
+        if not n:
+            continue
+        x, kv, aux = _decoder_stack(cfg, p[blocks], n, x, positions,
+                                    None if cache is None else cache[key],
+                                    long_context, aux)
+        if cache is not None:
+            new_cache[key] = kv
+    return x, new_cache, aux
 
 
 def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
                     long_context=False):
-    """Backbone: embeddings -> blocks. Returns (hidden, new_cache); the
-    new cache is None in train mode without a cache, as the reference's.
-    ``dense``: `positions` None (0..S-1), (B,) (each row's first
-    position) or (B, S); a prefill without a cache returns None, as the
-    reference's."""
+    """Backbone: embeddings -> blocks. Returns (hidden, new_cache,
+    aux_losses float32); the new cache is None in train mode without a
+    cache, as the reference's. ``dense`` and ``moe``: `positions` None
+    (0..S-1), (B,) (each row's first position) or (B, S); a prefill
+    without a cache returns None, as the reference's."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     x = _embed(cfg, p, tokens)
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         b, s = tokens.shape
         steps = torch.arange(s, device=tokens.device)
         if positions is None:
             positions = steps.expand(b, s)
         elif positions.dim() == 1:
             positions = positions[:, None] + steps[None]
-        return _dense_layers(cfg, p, x, positions, cache, long_context)
+        return _attention_layers(cfg, p, x, positions, cache, long_context)
     outs = []
     for i in range(cfg.n_layers):
         blk = tree_map(lambda t: t[i], p["blocks"])
         st = None if cache is None else {k: c[i] for k, c in cache.items()}
         x, new = _rwkv_block(cfg, blk, x, mode, st)
         outs.append(new)
+    aux = torch.zeros((), device=x.device)
     if cache is None and mode != "prefill":
-        return x, None
-    return x, _stack(outs)
+        return x, None, aux
+    return x, _stack(outs), aux
 
 
 def forward(cfg, p, tokens, *, mode: str = "train", cache=None,
@@ -236,21 +324,21 @@ def forward(cfg, p, tokens, *, mode: str = "train", cache=None,
 
     tokens: (B, S) int64. decode: S == 1 against `cache` and `positions`
     (B,) absolute. The ``ssm`` recurrence reads neither `positions` nor
-    `long_context`. aux_losses is 0 (neither family has an auxiliary
-    loss)."""
-    x, new_cache = _forward_hidden(cfg, p, tokens, mode=mode, cache=cache,
-                                   positions=positions,
-                                   long_context=long_context)
-    return _head(cfg, p, x), new_cache, torch.zeros((), device=x.device)
+    `long_context`. aux_losses (float32) is the sum of the MoE blocks'
+    load-balance losses, 0 for the other families."""
+    x, new_cache, aux = _forward_hidden(cfg, p, tokens, mode=mode,
+                                        cache=cache, positions=positions,
+                                        long_context=long_context)
+    return _head(cfg, p, x), new_cache, aux
 
 
 def forward_features(cfg, p, tokens):
     """Mean-pooled, L2-normalised final hidden state (B, d_model) float32
     — the representation the dual-temperature loss takes for token
-    architectures — and aux_losses (0: neither family has one)."""
-    x, _ = _forward_hidden(cfg, p, tokens, mode="train", cache=None)
+    architectures — and aux_losses, as `forward`'s."""
+    x, _, aux = _forward_hidden(cfg, p, tokens, mode="train", cache=None)
     x = L.apply_norm(cfg, p["final_norm"], x)
     f = x.mean(dim=1).float()
     f = f / torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True),
                         min=1e-8)
-    return f, torch.zeros((), device=x.device)
+    return f, aux

@@ -7,7 +7,8 @@ the installed jax no longer has). The q8 codec's CPU parity tests live
 in tests/test_torch_comms.py and the rwkv6 ones in tests/test_torch_zoo.py.
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
 the card and skip without one; chip_smoke.py runs the same checks at the
-main path's shapes.
+main path's shapes. The MoE block (plain torch, no kernel of its own) is
+held card against CPU here too, since this file imports no jax.
 
 The reference is imported inside the `jx` fixture, not at the top, so
 that on a GPU machine without jax the ``cuda`` tests still run:
@@ -543,3 +544,46 @@ def test_dt_loss_wide_kernel_matches_plain_on_card(cuda, shape):
     big = torch.zeros((*shape[:-1], 8196), device=cuda)
     with pytest.raises(ValueError, match="dt_loss kernel takes D"):
         ops.dt_loss_fwd(big, big, 0.1, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1.0, 16.0])
+def test_moe_block_on_card_matches_cpu(cuda, factor):
+    """`layers.moe_block` (plain torch and cuBLAS, no kernel of its own) on
+    the card against the CPU, float32 with TF32 off, olmoe's smoke config
+    with its shared expert added: top-k indices and the drop masks equal
+    (a near tie within float32 rounding would flip one; none at these
+    inputs), outputs and the aux loss within 2e-5; and one block on the
+    card makes no host sync."""
+    import dataclasses
+
+    from repro_torch.analysis.guards import no_implicit_transfers
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_map
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import set_parity_mode
+
+    set_parity_mode()
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b-smoke"),
+                              moe_capacity_factor=factor, n_shared_experts=1)
+    p = L.init_moe(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        pd, xd = tree_map(lambda t: t.to(dev), p), x.to(dev)
+        logits = xd.reshape(-1, cfg.d_model) @ pd["router"]
+        _, _, idx = L.moe_route(cfg, logits)
+        _, _, _, valid = L.moe_slots(cfg, idx, L.moe_capacity(cfg, 128))
+        y, aux = L.moe_block(cfg, pd, xd)
+        outs.append([t.cpu() for t in (idx, valid, y, aux)])
+    (ic, vc, yc, ac), (ih, vh, yh, ah) = outs
+    assert torch.equal(ic, ih) and torch.equal(vc, vh)
+    assert bool((~vh).any()) == (factor == 1.0)
+    torch.testing.assert_close(yc, yh, atol=2e-5, rtol=0)
+    torch.testing.assert_close(ac, ah, atol=2e-5, rtol=0)
+    pd, xd = tree_map(lambda t: t.to(cuda), p), x.to(cuda)
+    torch.cuda.synchronize()
+    with no_implicit_transfers():
+        L.moe_block(cfg, pd, xd)
+    torch.cuda.synchronize()

@@ -367,6 +367,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.configs.qwen2_0_5b\n"
         "import repro_torch.configs.gemma2_27b\n"
         "import repro_torch.configs.deepseek_67b\n"
+        "import repro_torch.configs.olmoe_1b_7b\n"
+        "import repro_torch.configs.kimi_k2_1t_a32b\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -410,8 +412,8 @@ def test_unported_choices_raise_not_implemented(kw):
     assert (cfg.aggregator, cfg.client) == (want.aggregator, want.client)
 
 
-@pytest.mark.parametrize("what", ["olmoe-1b-7b", "hymba-1.5b-smoke",
-                                  "family:moe", "family:hybrid"])
+@pytest.mark.parametrize("what", ["llama-3.2-vision-90b", "hymba-1.5b-smoke",
+                                  "family:vlm", "family:hybrid"])
 def test_unported_archs_and_families_raise_not_implemented(what):
     import dataclasses
 
