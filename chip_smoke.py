@@ -281,6 +281,39 @@ the JAX package `repro`. Phases, each of which must pass:
      2 (one dense, one MoE layer of 384 experts), served at 2 x 3008 +
      64. Every cut is printed with its reason.
 
+12. Hybrid path (``[hybrid]``): the zoo's hybrid family, Hymba's
+   selective-SSM branch beside sliding-window attention, after [moe]'s
+   tensors are freed. No kernel of its own (the SSM is plain torch and
+   cuBLAS); the DT kernel's wide form runs once a ``dt`` step at D =
+   1600, and [train]'s `dt_wide_check` holds it at (8, 1600) and (512,
+   1600).
+   * Cross-check: ``hymba-1.5b-smoke`` in float32 on the card and with
+     ``device="cpu"``: a train-mode forward of 36 positions, a prefill
+     of 32 (the smoke window, the ring filled exactly) and 4 decode steps
+     (the ring wraps), logits and every cache leaf (ring buffers, SSM
+     and conv states) at ZOO_CROSS_TOL, positions bitwise; one ``lm``
+     step in 2 micro-batches at S = 160 (the SSM's ragged split, 128 +
+     32) and one ``dt`` step through `train_cross_check`.
+   * One SSM layer at full width (d 1600, 3200 inner channels, state 16)
+     in float32: 2 x 300 tokens (256 + 44) from given states, card vs
+     CPU, the output and both states at ZOO_CROSS_TOL, the gradients
+     through the recomputing backward (`layers._SSMScan`) of every leaf,
+     the input and the starting state at TRAIN_LEAF_REL of each one's
+     max.
+   * ``hymba-1.5b`` at full width and depth (32 layers, 1.97e9
+     parameters), random bfloat16 weights from seed 0: 16 prompts x 1024
+     tokens fill the 1024-slot ring exactly (a prefill longer than the
+     window loses keys, the reference's semantics), then 64 greedy decode
+     steps, so the ring wraps from the first; one decode step under
+     `no_implicit_transfers`; decode on HYBRID_CHECK_B sequences held
+     against a full forward as [dense] holds its decode; the prefill and
+     4 decode steps profiled with the ``ssm.scan`` range's device time.
+     ``lm`` at 8 x 4096 in 8 micro-batches at full depth (its warm-up
+     and profiled steps one micro-batch) and ``dt`` at 8 x 512 with
+     n_layers cut to HYBRID_DT_LAYERS, both profiled with the
+     ``ssm.scan`` and ``ssm.recompute`` ranges. Every cut is printed
+     with its reason.
+
 The q8 kernels are held against their plain versions in phase 2, at
 (5, Ppad), (3, Ppad), (2, Ppad) and (1, Ppad), Ppad = 11,506,688 (the
 cohort, the groups of MultiRSU and the handover, a snapshot): codes,
@@ -297,7 +330,7 @@ path), each with its launches on the path that runs it (``paths``: its
 launches on every path: main, comms, batched, resume, engine (its
 graph campaigns), multi, mesh, handover, fedco, zoo, train (the timed
 steps of both objectives), dense (the timed dense steps and serving
-runs), moe (likewise)),
+runs), moe and hybrid (likewise)),
 ``ms`` and ``device_ms``. A ``[time]`` line gives the script's seconds.
 The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
@@ -495,6 +528,43 @@ MOE_DT, MOE_DT_STEPS = (8, 512, 1), 1
 MOE_CUT_ARCH = "kimi-k2-1t-a32b"
 MOE_CUT_LAYERS = 2
 MOE_CUT = (2, 3008, 64)
+
+# [hybrid]: hymba-1.5b. Card vs CPU, the float32 smoke config: logits and
+# every cache leaf at ZOO_CROSS_TOL, the train steps as [dense]'s. One
+# SSM layer at full width, float32: HYBRID_SSM_S tokens (two whole
+# 128-chunks and a ragged 44), outputs and states at ZOO_CROSS_TOL,
+# gradients at TRAIN_LEAF_REL of each leaf's max (the smoke steps'
+# limit).
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_SSM_S = 300
+# Served at full width and depth: prefill_32k and decode_32k cut in batch
+# and length to 16 prompts of 1024 tokens, which fill the 1024-slot ring
+# of the sliding window exactly (a longer prompt loses keys of its
+# earlier queries' windows and, through the SSM, changes even the last
+# logits: the reference's semantics), and 64 decode steps; the decode of
+# HYBRID_CHECK_B sequences held against a full forward at DENSE_FLOOR_X
+# times the one-bfloat16-step floor.
+HYBRID_SERVE = (16, 1024, 64)
+HYBRID_CHECK_B = 2
+# Training, reckoned from the shapes: bf16 params and momentum, a
+# micro-batch's bf16 gradients and float32 accumulators of 1.97e9
+# parameters take 19.7 GB; each layer keeps about 225 KB of activations a
+# token (the norms' float32 copies, the SSM branch's float32 dt, x1 and
+# output, the gated MLP), so lm at 8
+# x 4096 in 8 micro-batches (one sequence each) adds 29.5 GB at full
+# depth: about 50 GiB with the logits and the backward's transients. dt
+# at 8 x 512 in one micro-batch (its 8 rows are the loss's in-batch
+# negatives) runs two views: 8,192 tokens a layer plus the direct
+# attention's two (8, 5, 5, 512, 512) float32 score tensors a view, 2.7
+# GB a layer, about 104 GB at full depth; n_layers is cut to
+# HYBRID_DT_LAYERS, half the depth (about 46 GB reckoned; 12 layers
+# peaked at 40.67 GiB on an H100 80GB HBM3 at 700 W, about 3.3 GiB a
+# layer, so 16 take about 54 GiB). lm's warm-up and profiled steps run
+# one micro-batch (`_train_run(one_micro=True)`): a full step takes about
+# 22 s and half a million launches.
+HYBRID_LM, HYBRID_LM_STEPS = (8, 4096, 8), 1
+HYBRID_DT, HYBRID_DT_STEPS = (8, 512, 1), 1
+HYBRID_DT_LAYERS = 16
 
 
 def _smi() -> str:
@@ -2854,11 +2924,12 @@ def dt_wide_check(dev):
     `ref.dt_loss_fwd_ref` on unit rows at (8, 2048) (a DT micro-batch of
     rwkv6-1.6b and tinyllama-1.1b), (2, 8, 2048) (the cohort form), (512,
     2048), and at the dense family's widest: (8, 4608) (gemma2-27b), (8,
-    8192), (2, 8, 8192) and (512, 8192) (deepseek-67b); one launch each,
-    none of the narrow kernel; two calls bitwise equal; D = 8196 and a D
-    not a multiple of 4 refused. Timed at (8, 2048); device time and
-    bound at (512, 2048), (8, 8192) and (512, 8192) too. Returns its
-    kernels-line row."""
+    8192), (2, 8, 8192) and (512, 8192) (deepseek-67b), and at hymba-1.5b's
+    (8, 1600) and (512, 1600) (a multiple of 4, not of 128); one launch
+    each, none of the narrow kernel; two calls bitwise equal; D = 8196
+    and a D not a multiple of 4 refused. Timed at (8, 2048); device time
+    and bound at (512, 2048), (8, 8192), (512, 8192), (8, 1600) and (512,
+    1600) too. Returns its kernels-line row."""
     import torch
 
     from repro_torch.kernels import dt_loss as dt_kernel
@@ -2867,8 +2938,9 @@ def dt_wide_check(dev):
     g = torch.Generator(device=dev).manual_seed(6)
     errs, d, at = [], TRAIN_D, {}
     m = TRAIN_DT[0]
+    timed = ((512, d), (m, 8192), (512, 8192), (m, 1600), (512, 1600))
     for shape in ((m, d), (2, m, d), (512, d), (m, 4608), (m, 8192),
-                  (2, m, 8192), (512, 8192)):
+                  (2, m, 8192), (512, 8192), (m, 1600), (512, 1600)):
         q, k = _unit_rows(g, dev, shape), _unit_rows(g, dev, shape)
         _zero_counts()
         got = ops.dt_loss_fwd(q, k, 0.1, 1.0)
@@ -2886,7 +2958,7 @@ def dt_wide_check(dev):
             raise AssertionError(f"dt_loss wide {shape}: err {err}, "
                                  f"launches {counts}, bitwise {same}")
         errs.append(err)
-        if shape in ((512, d), (m, 8192), (512, 8192)):
+        if shape in timed:
             at[shape] = (_device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
                                     "dt_fwd_wide", iters=50),
                          _dt_bound(1, *shape))
@@ -2921,7 +2993,11 @@ def dt_wide_check(dev):
             "device_ms_8_8192": at[(m, 8192)][0],
             "bound_ms_8_8192": at[(m, 8192)][1][0],
             "device_ms_512_8192": at[(512, 8192)][0],
-            "bound_ms_512_8192": at[(512, 8192)][1][0]}
+            "bound_ms_512_8192": at[(512, 8192)][1][0],
+            "device_ms_8_1600": at[(m, 1600)][0],
+            "bound_ms_8_1600": at[(m, 1600)][1][0],
+            "device_ms_512_1600": at[(512, 1600)][0],
+            "bound_ms_512_1600": at[(512, 1600)][1][0]}
 
 
 def _dt_kernel_spread(cfg, params, tokens, drops) -> dict:
@@ -3097,12 +3173,15 @@ def _norms_rel(a, b) -> float:
 
 
 def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev,
-               ranges=(), tag="[train]"):
+               ranges=(), tag="[train]", one_micro=False):
     """Full-width steps through `launch/train.py`'s functions: one
     warm-up step, then `steps_` timed steps with the counters zeroed just
     before and the peak memory reset; one more step under the profiler
-    (with the device time of the record_function `ranges`). Returns
-    (params, the timed steps' launches)."""
+    (with the device time of the record_function `ranges`). With
+    `one_micro` the warm-up and the profiled step take one micro-batch
+    (batch_ / n_micro sequences, the same shapes a micro-batch of the
+    timed step has), so the profile holds an eighth of the events of an
+    8-micro-batch step. Returns (params, the timed steps' launches)."""
     import torch
 
     from repro_torch.configs.base import InputShape
@@ -3115,9 +3194,16 @@ def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev,
     mom = st.init_momentum(params)
     batches = [tr.make_batch(cfg, shape, i, 0, dev, objective)
                for i in range(steps_ + 2)]
+    side_fn = fn
+    if one_micro:
+        part = InputShape(objective, seq, batch_ // nm, "train")
+        side_fn, _ = st.make_train_step(cfg, part, objective=objective,
+                                        n_micro=1)
+        for i in (0, steps_ + 1):
+            batches[i] = tr.make_batch(cfg, part, i, 0, dev, objective)
     t = time.time()
-    params, mom, [(loss0, _)] = tr.run_steps(fn, params, mom, batches[:1],
-                                             dev)
+    params, mom, [(loss0, _)] = tr.run_steps(side_fn, params, mom,
+                                             batches[:1], dev)
     warm = time.time() - t
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3130,8 +3216,10 @@ def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev,
     secs = [t_ for _, t_ in timed]
     per = {k: v // steps_ for k, v in counts.items()}
     print(f"{tag} {cfg.name} {objective} bfloat16, {batch_} x {seq} "
-          f"tokens a step in {nm} micro-batches: warm-up step {warm:.2f} s "
-          f"(loss {loss0:.4f}); {steps_} steps, seconds a step "
+          f"tokens a step in {nm} micro-batches: warm-up step "
+          + ("(one micro-batch) " if one_micro else "")
+          + f"{warm:.2f} s (loss {loss0:.4f}); {steps_} steps, seconds a "
+          f"step "
           f"{[round(x, 4) for x in secs]}, {tokens * steps_ / sum(secs):.0f} "
           f"tok/s; losses {[round(l_, 5) for l_, _ in timed]}; peak memory "
           f"{peak:.2f} GiB; launches a step {per}", flush=True)
@@ -3151,13 +3239,26 @@ def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev,
     def work():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn(params, mom, batches[-1])
+        side_fn(params, mom, batches[-1])
         torch.cuda.synchronize()
         return time.perf_counter() - t0
     prof = _profile(work, ranges=ranges)
-    print(f"{tag} profiled {cfg.name} {objective} step: "
-          f"{json.dumps(prof)}", flush=True)
+    what = f"{cfg.name} {objective} step" + (
+        f" (one micro-batch, {batch_ // nm} x {seq})" if one_micro else "")
+    print(f"{tag} profiled {what}: {json.dumps(prof)}", flush=True)
+    _range_shares(tag, what, prof, ranges)
     return params, counts
+
+
+def _range_shares(tag, what, prof, ranges) -> None:
+    """Prints each record_function range's device ms and its share of the
+    profiled device busy time."""
+    if ranges and prof["device_busy_ms"]:
+        print(f"{tag} {what}: " + "; ".join(
+            f"{name} {prof[f'{name}_ms']:.1f} ms of device time, "
+            f"{prof[f'{name}_ms'] / prof['device_busy_ms']:.4f} of the "
+            f"busy {prof['device_busy_ms']:.1f} ms" for name in ranges),
+            flush=True)
 
 
 def train_full_width(dev):
@@ -3314,11 +3415,14 @@ def _dense_logits(cfg, params, tokens, start: int, eps: float = 0.0):
         L.attention_core = core
 
 
-def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str):
+def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str,
+               flash: bool = True):
     """A zoo model with random bfloat16 weights from seed 0 through
     launch/decode.py's functions: `batch` prompts of `prompt` tokens
-    prefilled on the flash path into a bfloat16 cache of `prompt` +
-    `n_dec` slots, then `n_dec` greedy decode steps, timed after a
+    prefilled (`flash`: on the flash path; else within the ring, prompt
+    <= its width) into a bfloat16 cache of `prompt` + `n_dec` slots (of
+    the window's width where that is less), then `n_dec` greedy decode
+    steps, timed after a
     warm-up, the counters zeroed before each; no kernel launch (the
     attention families' serving path runs none) and peak memory at most
     PEAK_GIB. Prints the times; returns a namespace of params, prompts,
@@ -3331,12 +3435,16 @@ def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str):
     from repro_torch.convert import leaves_with_paths
     from repro_torch.launch import decode as dec
     from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
 
     bf16 = torch.bfloat16
     total = prompt + n_dec
-    if prompt < L.FLASH_MIN_SQ or total % L.FLASH_CHUNK:
+    if flash and (prompt < L.FLASH_MIN_SQ or total % L.FLASH_CHUNK):
         raise AssertionError(f"{tag} {cfg.name}: {prompt} + {n_dec} does "
                              f"not prefill on the flash path")
+    if not flash and prompt > T.cache_width(cfg, total, False):
+        raise AssertionError(f"{tag} {cfg.name}: a {prompt}-token prompt "
+                             f"overflows the ring")
     t = time.time()
     params = dec.init_model(cfg, 0, bf16, dev)
     prompts = dec.random_prompts(cfg, batch, prompt, 0, dev)
@@ -3423,22 +3531,25 @@ def _decode_vs_full(tag, cfg, params, prompts, last, cache, toks,
                              f"{finite}")
 
 
-def _serve_profiles(tag, cfg, run) -> None:
+def _serve_profiles(tag, cfg, run, ranges=()) -> None:
     """The prefill and 4 decode steps of `run` (a `_serve_run`) under the
-    profiler."""
+    profiler, with the device time of the record_function `ranges`."""
     import torch
 
     from repro_torch.launch import decode as dec
 
     prof = _profile(lambda: dec.run_prefill(cfg, run.params, run.prompts,
-                                            run.total, torch.bfloat16)[2])
+                                            run.total, torch.bfloat16)[2],
+                    ranges=ranges)
     print(f"{tag} profiled {cfg.name} prefill: {json.dumps(prof)}",
           flush=True)
+    _range_shares(tag, f"{cfg.name} prefill", prof, ranges)
     prof = _profile(lambda: dec.run_decode(cfg, run.params, run.last,
                                            run.cache, run.prompts.shape[1],
-                                           4)[2])
+                                           4)[2], ranges=ranges)
     print(f"{tag} profiled {cfg.name} 4 decode steps: {json.dumps(prof)}",
           flush=True)
+    _range_shares(tag, f"{cfg.name} 4 decode steps", prof, ranges)
     print(f"{tag} {cfg.name} decode: {prof['kernel_launches'] / 4:.0f} "
           f"kernel launches a step, device idle {prof['idle_share']:.4f} of "
           f"the profiled steps", flush=True)
@@ -3824,6 +3935,219 @@ def moe_full_width(dev) -> dict:
     return total
 
 
+def hybrid_cross_check(dev):
+    """``hymba-1.5b-smoke`` in float32 on the card and with
+    ``device="cpu"`` from the same params: a train-mode forward of 36
+    positions, then a prefill of 32 (its window: the ring filled) and 4
+    decode steps through `T.forward`, the ring wrapping; logits and every
+    cache leaf (k and v, the SSM and conv states) at ZOO_CROSS_TOL,
+    positions bitwise; then an ``lm`` step in 2 micro-batches at S = 160
+    (the SSM's 128 + 32 split, the recomputing backward over both parts)
+    and a ``dt`` step through `train_cross_check`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_map
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    cfg = get_config(HYBRID_ARCH + "-smoke")
+    v, b, s, n = cfg.vocab_size, 2, cfg.sliding_window, 4
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        1, v, (b, s + n)))
+    outs = []
+    for d in (dev, cpu):
+        p = tree_map(lambda t: t.to(d), params)
+        tk = toks.to(d)
+        with torch.no_grad():
+            full, _, _ = T.forward(cfg, p, tk)
+            lg, cache, _ = T.forward(
+                cfg, p, tk[:, :s], mode="prefill",
+                cache=T.init_cache(cfg, b, s + n, dtype=torch.float32,
+                                   device=d))
+            logits = [lg[:, -1]]
+            for i in range(n):
+                lg, cache, _ = T.forward(
+                    cfg, p, tk[:, s + i:s + i + 1], mode="decode",
+                    cache=cache, positions=torch.full((b,), s + i, device=d))
+                logits.append(lg[:, 0])
+        outs.append((full[..., :v].cpu(), [t[:, :v].cpu() for t in logits],
+                     tree_map(lambda t: t.cpu(), cache)))
+    (fc, lc, cc), (fh, lh, ch) = outs
+    full_err = _max_err(fc, fh)
+    err = max(_max_err(a, c) for a, c in zip(lc, lh))
+    cache_err = max([_max_err(cc["kv"][k], ch["kv"][k]) for k in ("k", "v")]
+                    + [_max_err(cc[k], ch[k]) for k in ("ssm", "conv")])
+    same_pos = torch.equal(cc["kv"]["pos"], ch["kv"]["pos"])
+    print(f"[hybrid] {cfg.name} float32, forward {b}x{s + n}, prefill "
+          f"{b}x{s} into {cc['kv']['k'].shape[2]} slots + {n} decode steps: "
+          f"card vs cpu forward logits max abs {full_err:.3e}, prefill and "
+          f"decode logits {err:.3e}, cache leaves (k, v, ssm, conv) "
+          f"{cache_err:.3e}, positions equal {same_pos} (tol "
+          f"{ZOO_CROSS_TOL})", flush=True)
+    if not (full_err <= ZOO_CROSS_TOL and err <= ZOO_CROSS_TOL
+            and cache_err <= ZOO_CROSS_TOL and same_pos):
+        raise AssertionError(f"[hybrid] smoke card vs cpu: forward "
+                             f"{full_err}, logits {err}, cache {cache_err}, "
+                             f"positions {same_pos}")
+    train_cross_check(dev, HYBRID_ARCH, (("lm", 2, 2, 160), ("dt", 1, 4, 37)),
+                      tag="[hybrid]", dt_loss_spec=True)
+
+
+def hybrid_ssm_check(dev):
+    """One hymba-1.5b SSM layer at full width in float32 (TF32 off),
+    weights and inputs drawn on the card and copied to the CPU: HYBRID_SSM_S
+    tokens of 2 sequences from given SSM and conv states, the output and
+    both new states at ZOO_CROSS_TOL; the gradients of a random
+    projection of all three through the recomputing backward, of every
+    leaf, the input and the starting state, at TRAIN_LEAF_REL of each
+    one's max."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import leaves_with_paths, unflatten
+    from repro_torch.models import layers as L
+
+    cfg = get_config(HYBRID_ARCH)
+    d, di, st = cfg.d_model, cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = L.init_ssm(cfg, g)
+    b, s = 2, HYBRID_SSM_S
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    ins = [draw((b, s, d), 0.5), draw((b, di, st), 0.1),
+           draw((b, 3, di), 0.5)]
+    gs = [draw((b, s, d), 1.0), draw((b, di, st), 1.0), draw((b, 3, di), 1.0)]
+    outs = []
+    t0 = time.perf_counter()
+    for dv in (dev, torch.device("cpu")):
+        leaves = [t.to(dv).requires_grad_()
+                  for _, t in leaves_with_paths(p)]
+        x, h0, c0 = (t.to(dv).requires_grad_() for t in ins)
+        o, (h, c) = L.ssm_block(cfg, unflatten(leaves, p), x, h0, c0)
+        loss = sum((a * w.to(dv)).sum() for a, w in zip((o, h, c), gs))
+        grads = torch.autograd.grad(loss, leaves + [x, h0])
+        outs.append(([t.detach().cpu() for t in (o, h, c)],
+                     [t.cpu() for t in grads]))
+    secs = time.perf_counter() - t0
+    (vc, gc_), (vh, gh) = outs
+    err = max(_max_err(a, c) for a, c in zip(vc, vh))
+    grad_rel = max(_leaf_rel(a, c) for a, c in zip(gc_, gh))
+    print(f"[hybrid] ssm_block at full width (d {d}, {di} inner channels, "
+          f"state {st}), float32, {b} x {s} tokens ({s // L.SSM_CHUNK} "
+          f"chunks of {L.SSM_CHUNK} + {s % L.SSM_CHUNK}) from given states: "
+          f"card vs cpu output and states max abs {err:.3e} (tol "
+          f"{ZOO_CROSS_TOL}); gradients through the recomputing backward, "
+          f"{len(gh)} tensors, {grad_rel:.2e} of each one's max (tol "
+          f"{TRAIN_LEAF_REL}); both sides {secs:.2f} s", flush=True)
+    if not (err <= ZOO_CROSS_TOL and grad_rel <= TRAIN_LEAF_REL):
+        raise AssertionError(f"[hybrid] ssm_block card vs cpu: outputs "
+                             f"{err}, gradients {grad_rel}")
+
+
+def hybrid_serve(dev, cfg, batch: int, prompt: int, n_dec: int,
+                 check_b: int) -> dict:
+    """hymba served by `_serve_run` within its ring (prompt = window),
+    one decode step under `no_implicit_transfers` (no host sync), the
+    decode of `check_b` sequences held against a full forward
+    (`_decode_vs_full`), the prefill and 4 decode steps profiled with the
+    ``ssm.scan`` range. Returns the launches."""
+    import torch
+
+    from repro_torch.analysis.guards import no_implicit_transfers
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import steps
+
+    run = _serve_run(dev, cfg, batch, prompt, n_dec, "[hybrid]",
+                     flash=False)
+    print(f"[hybrid] {cfg.name} cache after the prefill: ring "
+          f"{tuple(run.cache['kv']['k'].shape)}, ssm "
+          f"{tuple(run.cache['ssm'].shape)} float32, conv "
+          f"{tuple(run.cache['conv'].shape)}", flush=True)
+    torch.cuda.synchronize()
+    with no_implicit_transfers():
+        lg, _ = steps.make_decode_step(cfg)(run.params, {
+            "tokens": run.toks[:, :1], "cache": run.cache,
+            "positions": torch.full((batch,), prompt, device=dev)})
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()):
+        raise AssertionError(f"[hybrid] {cfg.name}: guarded decode logits "
+                             f"are not finite")
+    print(f"[hybrid] {cfg.name} a decode step under no_implicit_transfers "
+          f"ran with no host sync", flush=True)
+    del lg
+    _decode_vs_full("[hybrid]", cfg, run.params, run.prompts[:check_b],
+                    run.last[:check_b],
+                    tree_map(lambda t: t[:, :check_b], run.cache),
+                    run.toks[:check_b], note=f" of {check_b} sequences")
+    _serve_profiles("[hybrid]", cfg, run, ranges=("ssm.scan",))
+    return run.launches
+
+
+def hybrid_full_width(dev) -> dict:
+    """hymba-1.5b at full width and depth served (`hybrid_serve` at
+    HYBRID_SERVE), then its ``lm`` steps at HYBRID_LM at full depth and
+    its ``dt`` steps at HYBRID_DT (the DT kernel's wide form at D = 1600,
+    one launch a step) with n_layers cut to HYBRID_DT_LAYERS, both
+    through `launch/train.py`'s functions, the ``lm`` step profiled with
+    the SSM's ranges. Prints each cut with its reason. Returns the
+    launches of the timed steps and the serving runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import decode as dec
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    print(f"[hybrid] full width: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated before the phase", flush=True)
+    cfg = get_config(HYBRID_ARCH)
+    b, p_len, n_dec = HYBRID_SERVE
+    print(f"[hybrid] cuts: {cfg.name} served at full width and depth, {b} "
+          f"prompts x {p_len} tokens + {n_dec} decode steps (prefill_32k's "
+          f"32 x 32,768 and decode_32k's 128 sequences cut to one card's "
+          f"run; the prompt fills the {cfg.sliding_window}-slot ring "
+          f"exactly, since a longer one loses keys); lm at full depth, "
+          f"train_4k's batch 256 -> {HYBRID_LM[0]} x {HYBRID_LM[1]} in "
+          f"{HYBRID_LM[2]} micro-batches (reckoned peak about 50 GiB); dt "
+          f"at {HYBRID_DT[0]} x {HYBRID_DT[1]} with n_layers "
+          f"{cfg.n_layers} -> {HYBRID_DT_LAYERS} (two views' activations "
+          f"and direct-attention scores, about 2.7 GB a layer, would take "
+          f"about 104 GB at full depth; about 54 GiB cut); lm's warm-up "
+          f"and profiled steps take one micro-batch of "
+          f"{HYBRID_LM[0] // HYBRID_LM[2]} x {HYBRID_LM[1]} (a full step "
+          f"is about half a million launches; a one-sequence batch's "
+          f"Eq.-11 weight is 0, so its loss reads 0 for the same work)",
+          flush=True)
+    t = time.time()
+    total = hybrid_serve(dev, cfg, *HYBRID_SERVE, check_b=HYBRID_CHECK_B)
+    print(f"[hybrid] serving {time.time() - t:.1f} s", flush=True)
+    free()
+    for objective, (b, s, nm), n, layers in (
+            ("lm", HYBRID_LM, HYBRID_LM_STEPS, cfg.n_layers),
+            ("dt", HYBRID_DT, HYBRID_DT_STEPS, HYBRID_DT_LAYERS)):
+        t = time.time()
+        c = dataclasses.replace(cfg, n_layers=layers)
+        params = dec.init_model(c, 0, torch.bfloat16, dev)
+        _, counts = _train_run(c, params, objective, b, s, nm, n, dev,
+                               ranges=("ssm.scan", "ssm.recompute"),
+                               tag="[hybrid]", one_micro=nm > 1)
+        total = _add(total, counts)
+        del params
+        free()
+        print(f"[hybrid] {objective} {time.time() - t:.1f} s", flush=True)
+    return total
+
+
 def analysis_path(dev, first_build) -> None:
     """[analysis]: the guards live on the card, the registries' contracts
     and the port's lint clean. `first_build` is the tracker around the
@@ -3955,6 +4279,11 @@ def run() -> int:
     moe_cross_check(dev)
     moe_block_check(dev)
     paths["moe"] = moe_full_width(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_cross_check(dev)
+    hybrid_ssm_check(dev)
+    paths["hybrid"] = hybrid_full_width(dev)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
                 else zoo_launches if r["name"] == "rwkv6"

@@ -8,7 +8,8 @@ suffix for the `reduced()` variant. It registers the paper's backbone,
 architecture ``rwkv6-1.6b`` (configs/rwkv6_1_6b.py) and its four
 ``dense`` ones (``tinyllama-1.1b``, ``qwen2-0.5b``, ``gemma2-27b``,
 ``deepseek-67b``) and its two ``moe`` ones (``olmoe-1b-7b``,
-``kimi-k2-1t-a32b``). The reference's other architectures raise
+``kimi-k2-1t-a32b``) and its ``hybrid`` one, ``hymba-1.5b``
+(configs/hymba_1_5b.py). The reference's other architectures raise
 NotImplementedError naming the ROADMAP.md entry that ports them.
 """
 from __future__ import annotations
@@ -20,9 +21,8 @@ from dataclasses import dataclass
 VOCAB_PAD_MULTIPLE = 2048
 
 # The reference's registry (repro/configs/) beyond what the port runs.
-UNPORTED_ARCHS = ("hymba-1.5b", "llama-3.2-vision-90b",
-                  "seamless-m4t-large-v2")
-PORTED_FAMILIES = ("resnet", "ssm", "dense", "moe")
+UNPORTED_ARCHS = ("llama-3.2-vision-90b", "seamless-m4t-large-v2")
+PORTED_FAMILIES = ("resnet", "ssm", "dense", "moe", "hybrid")
 ROADMAP_ZOO = "ROADMAP.md Queue A, item 12 (the other zoo families)"
 
 
@@ -39,11 +39,12 @@ def family_not_ported(family: str) -> NotImplementedError:
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters: the fields of the reference's
-    `ModelConfig` that the ResNet, ``ssm`` (RWKV6), ``dense`` and ``moe``
-    families read, with the reference's defaults."""
+    `ModelConfig` that the ResNet, ``ssm`` (RWKV6), ``dense``, ``moe``
+    and ``hybrid`` (Hymba) families read, with the reference's
+    defaults."""
 
     name: str
-    family: str      # resnet | ssm | dense | moe (the others: not ported)
+    family: str      # resnet | ssm | dense | moe | hybrid (others: not ported)
     n_layers: int
     d_model: int
     d_ff: int
@@ -59,7 +60,10 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0     # gemma2: 50.
     final_logit_softcap: float = 0.0    # gemma2: 30.
     attn_scale_override: float = 0.0    # 0 -> 1/sqrt(head_dim)
+    ssm_state: int = 0                  # mamba state size (hymba 16)
+    ssm_expand: int = 2
     rwkv_head_dim: int = 64
+    hybrid_parallel: bool = False       # hymba: parallel attn + ssm heads
     act: str = "silu"
     gated_mlp: bool = True
     n_experts: int = 0
@@ -143,8 +147,9 @@ def get_config(name: str) -> ModelConfig:
     """The registered config `name`; ``<name>-smoke`` is its `reduced()`."""
     if not _REGISTRY:
         from repro_torch.configs import (  # noqa: F401
-            deepseek_67b, gemma2_27b, kimi_k2_1t_a32b, olmoe_1b_7b,
-            qwen2_0_5b, resnet18_cifar, rwkv6_1_6b, tinyllama_1_1b)
+            deepseek_67b, gemma2_27b, hymba_1_5b, kimi_k2_1t_a32b,
+            olmoe_1b_7b, qwen2_0_5b, resnet18_cifar, rwkv6_1_6b,
+            tinyllama_1_1b)
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
     if name in UNPORTED_ARCHS:

@@ -1,8 +1,10 @@
 """Prefill + greedy decode of a zoo model — counterpart of
 `repro.launch.decode` (`main`), for the port's ``ssm`` family (RWKV6,
 a recurrent cache), ``dense`` family (tinyllama-1.1b, qwen2-0.5b,
-gemma2-27b, deepseek-67b; a ring-buffer KV cache) and ``moe`` family
-(olmoe-1b-7b, kimi-k2-1t-a32b; the dense family's caches).
+gemma2-27b, deepseek-67b; a ring-buffer KV cache), ``moe`` family
+(olmoe-1b-7b, kimi-k2-1t-a32b; the dense family's caches) and
+``hybrid`` family (hymba-1.5b; the ring of its 1024 window beside the
+SSM and conv states).
 
 The reference runs ``--reduced`` end to end on the CPU and, without it,
 only lowers and compiles the decode step for a TPU mesh. The port runs
@@ -24,6 +26,11 @@ where the prompt has 2048 tokens or more and that sum is a multiple of
         --batch 16 --prompt-len 3008 --tokens 64       # on the card
     PYTHONPATH=src python -m repro_torch.launch.decode --arch kimi-k2-1t-a32b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.decode --arch hymba-1.5b \\
+        --batch 16 --prompt-len 1024 --tokens 64       # on the card
+
+A hymba prompt longer than its window of 1024 loses keys of its earlier
+queries' windows, as the reference's prefill does (models/transformer.py).
 
 Prints the prefill time, the decode time per step and decode tok/s.
 """

@@ -22,6 +22,8 @@ through `MobilityModel`.
         --batch 8 --seq-len 4096 --steps 3                 # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
         --reduced --device cpu --steps 2 --objective dt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
+        --batch 8 --seq-len 4096 --n-micro 8 --steps 2     # on the card
 
 ``--mode sim`` — the host-level FL simulation, a `Scenario` driven
 through `run_round`, with whole-`FLState` checkpoints and resume:

@@ -1,5 +1,6 @@
-"""Neural-net primitives of the zoo's ``dense``, ``moe`` and ``ssm``
-(RWKV6 "Finch") families — counterpart of `repro.models.layers`
+"""Neural-net primitives of the zoo's ``dense``, ``moe``, ``ssm``
+(RWKV6 "Finch") and ``hybrid`` (Hymba) families — counterpart of
+`repro.models.layers`
 (`normal_init`, `fan_in_init`, the norms, `act_fn`, `rope_freqs`,
 `apply_rope`, `_softcap`, `_build_mask`, `_attn_direct`,
 `flash_attention` with its custom VJP, `attention_core`,
@@ -7,7 +8,8 @@
 `_dequantize_kv`, `init_mlp`, `mlp_block`, `init_moe`, `moe_block`,
 `_moe_dispatch_local`, `moe_apply`, `moe_block_dense_ref`,
 `init_rwkv_tmix`, `_rwkv_project`, `rwkv_tmix_chunked`, `rwkv_tmix_step`,
-`init_rwkv_cmix`, `rwkv_cmix`).
+`init_rwkv_cmix`, `rwkv_cmix`, `init_ssm`, `_ssm_conv`, `ssm_block`,
+`ssm_step`).
 
 Functional, like the reference: ``init_*`` builds a dict of tensors from
 an explicit `torch.Generator` (the tensors land on the generator's
@@ -42,6 +44,16 @@ assignment scattered into its expert's slot of an (E, C + 1, d) buffer
 whose last slot takes every dropped one (and is cut off), the expert
 products as batched matmuls, then gather, unsort and the gate-weighted
 sum. Every size comes from shapes, so a block makes no host sync.
+
+The selective SSM (Hymba's parallel branch) is plain torch, as the
+reference's is jnp: projections in the weights' dtype, the width-4 conv,
+dt, B, C and the recurrence in float32. The reference walks its chunks
+of SSM_CHUNK steps with `lax.scan` and scans each chunk with
+`lax.associative_scan`; the port mirrors that recursion over strided
+slices, in the same association order, scans a group of chunks at once
+(the within-chunk scan reads no state) and passes the state from chunk
+to chunk. `_SSMScan` saves the inputs and each group's starting state,
+and its backward recomputes the group.
 """
 from __future__ import annotations
 
@@ -686,3 +698,255 @@ def rwkv_cmix(cfg, p, x, x_last=None):
     xk = xs + (xp - xs) * p["mu"].float()[0]
     h = torch.square(torch.relu(xk.to(x.dtype) @ p["w_up"]))
     return h @ p["w_down"], x[:, -1]
+
+
+# --------------------------------------------------------------------------
+# Selective SSM (Mamba-style, Hymba's parallel branch)
+# --------------------------------------------------------------------------
+
+SSM_CHUNK = 128
+# Float32 elements of one (B, chunks, C, di, st) decay tensor of a group
+# of chunks scanned together (`_ssm_groups`): 2^27, 537 MB. At hymba's
+# width a prefill of 16 x 1024 takes one 128-chunk a group (419 MB), a
+# dt step's 8 x 512 two, a training sequence of 4096 20 (26 MB a chunk),
+# so its 32 chunks run in 2 groups.
+SSM_GROUP_ELEMS = 1 << 27
+
+
+def init_ssm(cfg, gen: torch.Generator, dtype=torch.float32):
+    """w_in (d, 2 di), the width-4 depthwise conv (4, di), w_dt (di, di),
+    w_B and w_C (di, st), w_out (di, d) in `dtype`; b_dt, A_log (di, st)
+    and D in float32 whatever `dtype`, as the reference's."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    st = cfg.ssm_state
+    dev = gen.device
+    return {
+        "w_in": fan_in_init(gen, (d, 2 * di), dtype),
+        "conv": normal_init(gen, (4, di), 0.5, dtype),
+        "w_dt": fan_in_init(gen, (di, di), dtype),
+        "b_dt": torch.full((di,), -3.0, device=dev),    # softplus(-3) ~ 0.05
+        "w_B": fan_in_init(gen, (di, st), dtype),
+        "w_C": fan_in_init(gen, (di, st), dtype),
+        "A_log": torch.log(torch.arange(1, st + 1, dtype=torch.float32,
+                                        device=dev)).repeat(di, 1),
+        "D": torch.ones((di,), device=dev),
+        "w_out": fan_in_init(gen, (di, d), dtype),
+    }
+
+
+def _ssm_conv(p, x, conv_state=None):
+    """Causal depthwise conv of width 4 in float32. x: (B, S, di);
+    conv_state: the 3 inputs before x[:, 0] (B, 3, di), or None (zeros).
+    Returns (out, the last 3 inputs as the new conv state), both in x's
+    dtype. The four terms are summed in the reference's order, a Python
+    `sum` from 0."""
+    w = p["conv"].float()
+    pad = (conv_state if conv_state is not None
+           else x.new_zeros((x.shape[0], 3, x.shape[2])))
+    xp = torch.cat([pad.float(), x.float()], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s] * w[i] for i in range(4))
+    return y.to(x.dtype), xp[:, -3:].to(x.dtype)
+
+
+def _softplus(v):
+    """The reference's softplus, logaddexp(v, 0)."""
+    return torch.logaddexp(v, v.new_zeros(()))
+
+
+def _assoc_scan(a, b):
+    """Inclusive scan of the pairs (a, b) along dim 1 under the combine
+    (a_l, b_l) . (a_r, b_r) = (a_l a_r, b_l a_r + b_r):
+    `jax.lax.associative_scan`'s recursion (its `_scan`) in the same
+    association order. Adjacent pairs are combined and scanned, the odd
+    results combined with the even inputs, and the two written
+    interleaved into the outputs through strided slices: 2 log2(n)
+    levels of elementwise passes. Not differentiable: `_SSMScan` has its
+    own backward."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ar, br = a[:, 1::2], b[:, 1::2]
+    oa, ob = _assoc_scan(a[:, 0:n - 1:2] * ar, b[:, 0:n - 1:2] * ar + br)
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    out_a[:, 1::2], out_b[:, 1::2] = oa, ob
+    out_a[:, :1], out_b[:, :1] = a[:, :1], b[:, :1]
+    m = (n - 1) // 2
+    eb = out_b[:, 2::2]
+    torch.mul(oa[:, :m], a[:, 2::2], out=out_a[:, 2::2])
+    torch.mul(ob[:, :m], a[:, 2::2], out=eb)
+    eb.add_(b[:, 2::2])
+    return out_a, out_b
+
+
+def _ssm_groups(b: int, s: int, di: int, st: int, chunk: int):
+    """[(s0, s1)]: the sequence cut into groups of whole chunks, each
+    group's (B, chunks, C, di, st) float32 decay tensor at most
+    SSM_GROUP_ELEMS elements (at least one chunk)."""
+    g = max(1, SSM_GROUP_ELEMS // (b * chunk * di * st)) * chunk
+    return [(s0, min(s0 + g, s)) for s0 in range(0, s, g)]
+
+
+def _ssm_states(dt, x1, bm, a_mat, h0, chunk: int):
+    """The reference's chunk body over a group of whole chunks at once,
+    up to the states. dt, x1: (B, L, di) float32; bm: (B, L, st); a_mat
+    (di, st); h0 (B, di, st) the state before the group. Each chunk's
+    decays and inputs, exp(dt A) and (dt x1) B, are scanned within the
+    chunk (`_assoc_scan`); that scan reads no state, so the group's
+    chunks scan together, and the state then passes from chunk to chunk,
+    h_j+1 = A_j[-1] h_j + B_j[-1] (the reference's h[:, -1]), and h_t =
+    A_t h_j + B_t. Returns (the decays and the states h_t, both (B, g, C,
+    di, st), each chunk's starting state (B, g, di, st), the state after
+    the group)."""
+    b, length, di = dt.shape
+    st = a_mat.shape[1]
+    g = length // chunk
+    dtc = dt.reshape(b * g, chunk, di)
+    a = torch.exp(dtc[..., None] * a_mat)                   # (B g, C, di, st)
+    u = (dtc * x1.reshape(b * g, chunk, di))[..., None] \
+        * bm.reshape(b * g, chunk, st)[:, :, None, :]
+    a_, b_ = _assoc_scan(a, u)
+    del u
+    a_ = a_.view(b, g, chunk, di, st)
+    b_ = b_.view(b, g, chunk, di, st)
+    starts, h = [], h0
+    for j in range(g):
+        starts.append(h)
+        h = a_[:, j, -1] * h + b_[:, j, -1]
+    starts = torch.stack(starts, dim=1)
+    hs = torch.mul(a_, starts[:, :, None]).add_(b_)
+    return a.view(b, g, chunk, di, st), hs, starts, h
+
+
+class _SSMScan(torch.autograd.Function):
+    """The selective scan over a whole sequence of whole chunks, all
+    float32: h_t = exp(dt_t A) h_t-1 + dt_t x1_t B_t, y_t = h_t . C_t.
+    apply(dt, x1 (B, S, di), bm, cm (B, S, st), a_mat (di, st), h0 (B, di,
+    st), chunk) -> (y (B, S, di), the last state (B, di, st)), S a
+    multiple of `chunk`. The forward saves only its inputs and
+    the state at each group's start (`_ssm_groups`); the backward walks
+    the groups in reverse, recomputes each group's decays and states and
+    takes the recurrence's adjoint, g_t = C_t dy_t + a_t+1 g_t+1, by the
+    same associative scan run backwards in time within each chunk, the
+    chunks chained by their carries (dL/dh before a chunk = a_first
+    g_first). Plain autograd would keep a dozen (B, C, di, st) float32
+    tensors a chunk alive (at hymba's width 26 MB each a sequence, about
+    10 GB a sequence a layer at S = 4096) and accumulate the strided
+    slices' gradients into zeroed buffers level by level. The profiler
+    sees the forward as the range ``ssm.scan`` and the backward as
+    ``ssm.recompute``."""
+
+    @staticmethod
+    def forward(ctx, dt, x1, bm, cm, a_mat, h0, chunk):
+        b, s, di = dt.shape
+        groups = _ssm_groups(b, s, di, a_mat.shape[1], chunk)
+        y = torch.empty_like(dt)
+        starts, h = [], h0
+        with torch.profiler.record_function("ssm.scan"):
+            for s0, s1 in groups:
+                starts.append(h)
+                _, hs, _, h = _ssm_states(dt[:, s0:s1], x1[:, s0:s1],
+                                          bm[:, s0:s1], a_mat, h, chunk)
+                y[:, s0:s1] = torch.einsum(
+                    "bgcdn,bgcn->bgcd", hs,
+                    cm[:, s0:s1].reshape(hs.shape[:3] + cm.shape[-1:])
+                ).reshape(b, s1 - s0, di)
+                del hs
+        ctx.save_for_backward(dt, x1, bm, cm, a_mat, *starts)
+        ctx.groups, ctx.chunk = groups, chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        dt, x1, bm, cm, a_mat, *starts = ctx.saved_tensors
+        chunk = ctx.chunk
+        grads = [torch.empty_like(t) for t in (dt, x1, bm, cm)]
+        g_a = torch.zeros_like(a_mat)
+        di, st = a_mat.shape
+        for (s0, s1), h0 in zip(reversed(ctx.groups), reversed(starts)):
+            with torch.profiler.record_function("ssm.recompute"):
+                a, hs, h_starts, _ = _ssm_states(
+                    dt[:, s0:s1], x1[:, s0:s1], bm[:, s0:s1], a_mat, h0,
+                    chunk)
+                b, g = hs.shape[:2]
+
+                def chunks(t):
+                    return t[:, s0:s1].reshape(b, g, chunk, t.shape[-1])
+
+                dtc, x1c, bmc, cmc, gyc = (chunks(t) for t in
+                                           (dt, x1, bm, cm, g_y))
+                d_cm = torch.einsum("bgcdn,bgcd->bgcn", hs, gyc)
+                # the adjoint within each chunk, backwards in time:
+                # g_t = dy_t C_t + alpha_t g_t+1, alpha_t = a_t+1 (1 last)
+                alpha = torch.ones_like(a)
+                alpha[:, :, :-1] = a[:, :, 1:]
+                flat = (b * g, chunk, di, st)
+                ga, gb = _assoc_scan(
+                    alpha.view(flat).flip(1),
+                    (gyc[..., None] * cmc[..., None, :]).view(flat).flip(1))
+                del alpha
+                ga, gb = ga.view(b, g, chunk, di, st), gb.view(b, g, chunk,
+                                                               di, st)
+                carries, c = [], g_h
+                for j in reversed(range(g)):
+                    carries.append(c)
+                    c = a[:, j, 0] * (ga[:, j, -1] * c + gb[:, j, -1])
+                g_h = c
+                adj = ga.mul_(torch.stack(carries[::-1], dim=1)[:, :, None]
+                              ).add_(gb).flip(2)
+                del ga, gb
+                dtx1 = dtc * x1c
+                d_bm = torch.einsum("bgcdn,bgcd->bgcn", adj, dtx1)
+                d_dtx1 = torch.einsum("bgcdn,bgcn->bgcd", adj, bmc)
+                # dL/da_t = g_t h_t-1, and a = exp(dt A): dz = dL/da a
+                adj[:, :, 1:].mul_(hs[:, :, :-1])
+                adj[:, :, 0].mul_(h_starts)
+                del hs
+                dz = adj.mul_(a)
+                del a
+                d_dt = torch.einsum("bgcdn,dn->bgcd", dz, a_mat) \
+                    + d_dtx1 * x1c
+                g_a += torch.einsum("bgcdn,bgcd->dn", dz, dtc)
+                del dz
+                for out, gr in zip(grads, (d_dt, d_dtx1 * dtc, d_bm, d_cm)):
+                    out[:, s0:s1] = gr.reshape(b, s1 - s0, -1)
+        return (*grads, g_a, g_h, None)
+
+
+def ssm_block(cfg, p, x, state=None, conv_state=None):
+    """Selective SSM. x: (B, S, d) -> (out (B, S, d), (h_state (B, di, st)
+    float32, conv_state (B, 3, di) in x's dtype)); `state` and
+    `conv_state` None start from zeros.
+
+    h_t = exp(dt_t A) h_t-1 + dt_t (x_t B_t); y_t = h_t . C_t + D x_t,
+    gated by silu(z), over chunks of min(SSM_CHUNK, S). An S that is no
+    multiple of the chunk runs as the reference's does: its whole chunks,
+    then the rest as one chunk, the states threaded between them."""
+    b, s, d = x.shape
+    di, st = cfg.ssm_expand * d, cfg.ssm_state
+    c0 = min(SSM_CHUNK, s)
+    if s % c0:
+        s_main = (s // c0) * c0
+        o1, (h1, c1) = ssm_block(cfg, p, x[:, :s_main], state, conv_state)
+        o2, (h2, c2) = ssm_block(cfg, p, x[:, s_main:], h1, c1)
+        return torch.cat([o1, o2], dim=1), (h2, c2)
+    x1, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    x1, conv_state = _ssm_conv(p, x1, conv_state)
+    x1 = F.silu(x1)
+    dt = _softplus(x1 @ p["w_dt"] + p["b_dt"]).float()       # (B, S, di)
+    bm = (x1 @ p["w_B"]).float()                             # (B, S, st)
+    cm = (x1 @ p["w_C"]).float()
+    a_mat = -torch.exp(p["A_log"])                           # (di, st)
+    if state is None:
+        state = torch.zeros((b, di, st), device=x.device)
+    x1f = x1.float()
+    y, h = _SSMScan.apply(dt, x1f, bm, cm, a_mat, state, c0)
+    y = y + p["D"] * x1f
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["w_out"], (h, conv_state)
+
+
+def ssm_step(cfg, p, x, state, conv_state):
+    """Single-token decode step. x: (B, 1, d)."""
+    return ssm_block(cfg, p, x, state=state, conv_state=conv_state)

@@ -1,8 +1,9 @@
-"""Model assembly of the zoo, ``dense``, ``moe`` and ``ssm`` (RWKV6)
-families — counterpart of `repro.models.transformer`
+"""Model assembly of the zoo, ``dense``, ``moe``, ``ssm`` (RWKV6) and
+``hybrid`` (Hymba) families — counterpart of `repro.models.transformer`
 (`_init_decoder_block`, `_decoder_block`, `_init_rwkv_block`,
-`init_params`, `layer_windows`, `cache_width`, `init_cache`, `_embed`,
-`_head`, `_forward_hidden`, `forward`, `forward_features`).
+`_init_hymba_block`, `_hymba_block`, `init_params`, `layer_windows`,
+`cache_width`, `init_cache`, `_embed`, `_head`, `_forward_hidden`,
+`forward`, `forward_features`).
 
 Blocks keep the reference's stacked layout: every leaf of
 ``params["blocks"]`` and of the cache has a leading layer axis. The
@@ -17,7 +18,9 @@ The ``moe`` family is the dense decoder block with `layers.moe_apply`
 in place of the MLP: ``params["blocks"]`` holds the MoE layers and, with
 ``moe_first_dense_layers``, ``params["dense_blocks"]`` the leading dense
 ones, which run first. Its blocks' aux losses are summed into the
-forward's aux_losses.
+forward's aux_losses. The ``hybrid`` block runs sliding-window
+attention and the selective SSM (`layers.ssm_block`) side by side on the
+same normed input and averages their normed outputs.
 
 Caches: ``dense``: ``{"kv": {"k", "v": (L, B, W, KH, hd), "pos": (L, B,
 W) int32}}`` ring buffers of width `cache_width` (int8 k and v add
@@ -25,8 +28,15 @@ W) int32}}`` ring buffers of width `cache_width` (int8 k and v add
 layers, and ``"kv_dense"`` for its leading dense layers; ``ssm``:
 ``{"state": (L, B, H, D, D) float32, "x_last_t": (L, B, d), "x_last_c":
 (L, B, d)}`` (the last token seen by each layer's time-mix and
-channel-mix). The other families raise NotImplementedError naming
-ROADMAP.md.
+channel-mix); ``hybrid``: ``{"kv": the dense ring buffers, "ssm": (L,
+B, di, st) float32, "conv": (L, B, 3, di)}`` (each layer's SSM state and
+the last 3 inputs of its conv). A ``hybrid`` prefill needs a cache, as
+the reference's; one longer than the ring (W = 1024 slots for
+hymba-1.5b) keeps only its last W positions' keys, so its earlier
+queries lose keys of their window, and the next layer's SSM carries
+that on: even the last logits then differ from a full forward's, as
+the reference's do. The other families raise NotImplementedError
+naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -43,7 +53,7 @@ ATTENTION_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ATTENTION_FAMILIES + ("ssm",):
+    if cfg.family not in ATTENTION_FAMILIES + ("ssm", "hybrid"):
         raise family_not_ported(cfg.family)
 
 
@@ -90,6 +100,35 @@ def _init_rwkv_block(cfg, gen, dtype):
     }
 
 
+def _init_hymba_block(cfg, gen, dtype):
+    dev = gen.device
+    return {"ln1": L.init_norm(cfg, dtype=dtype, device=dev),
+            "attn": L.init_attention(cfg, gen, dtype),
+            "ssm": L.init_ssm(cfg, gen, dtype),
+            "norm_attn": L.init_rmsnorm(cfg.d_model, dtype, dev),
+            "norm_ssm": L.init_rmsnorm(cfg.d_model, dtype, dev),
+            "ln2": L.init_norm(cfg, dtype=dtype, device=dev),
+            "mlp": L.init_mlp(cfg, gen, dtype)}
+
+
+def _hymba_block(cfg, p, x, q_pos, *, window, cache=None, ssm_state=None,
+                 conv_state=None):
+    """Attention and the SSM in parallel on the same normed input,
+    mean-fused after a norm each, then the MLP; residuals around both.
+    Returns (x, the layer's new kv cache or None, SSM state, conv
+    state)."""
+    xn = L.apply_norm(cfg, p["ln1"], x)
+    ha, new_cache = L.attention_block(cfg, p["attn"], xn, q_pos,
+                                      window=window, cache=cache)
+    hs, (new_ssm, new_conv) = L.ssm_block(cfg, p["ssm"], xn,
+                                          state=ssm_state,
+                                          conv_state=conv_state)
+    h = 0.5 * (L.rmsnorm(p["norm_attn"], ha) + L.rmsnorm(p["norm_ssm"], hs))
+    x = x + h
+    x = x + L.mlp_block(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+    return x, new_cache, new_ssm, new_conv
+
+
 def _stack(blocks: list) -> dict:
     """Per-layer trees -> one tree whose leaves have a leading layer axis."""
     def build(nodes):
@@ -132,8 +171,9 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
     """Random parameters on the generator's device: embed, final_norm,
     unembed (unless tied) and the stacked blocks, in the reference's
     layouts and per-leaf dtypes (`dtype`, except the ``ssm`` family's
-    float32 ``w0``, ``w_lora_b`` and ``u`` and the ``moe`` family's
-    float32 router). ``moe`` adds ``dense_blocks`` for its leading dense
+    float32 ``w0``, ``w_lora_b`` and ``u``, the ``moe`` family's float32
+    router and the ``hybrid`` family's float32 ``b_dt``, ``A_log`` and
+    ``D``). ``moe`` adds ``dense_blocks`` for its leading dense
     layers, and its ``blocks`` hold the MoE layers. The draws are the
     port's own: tests carry the reference's weights across with
     `convert.zoo_params_from_numpy`."""
@@ -145,9 +185,10 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = L.normal_init(gen, (d, v), 1 / math.sqrt(d), dtype)
-    if cfg.family == "ssm":
-        p["blocks"] = _init_stack(
-            cfg.n_layers, lambda: _init_rwkv_block(cfg, gen, dtype))
+    if cfg.family in ("ssm", "hybrid"):
+        init = _init_rwkv_block if cfg.family == "ssm" else _init_hymba_block
+        p["blocks"] = _init_stack(cfg.n_layers,
+                                  lambda: init(cfg, gen, dtype))
         return p
     moe = cfg.family == "moe"
     n_dense = _n_dense(cfg)
@@ -189,8 +230,18 @@ def init_cache(cfg, batch: int, seq_len: int = 0, dtype=torch.bfloat16,
     ``moe``, ring buffers of `cache_width` slots in `dtype`
     (``torch.int8``: the quantized cache), ``kv_dense`` for the leading
     dense layers; ``ssm``, the recurrent state (its size does not depend
-    on `seq_len`)."""
+    on `seq_len`); ``hybrid``, the ring buffers, the SSM states in
+    float32 and the conv states in `dtype`."""
     _check_family(cfg)
+    if cfg.family == "hybrid":
+        n, di = cfg.n_layers, cfg.ssm_expand * cfg.d_model
+        return {"kv": L.make_cache(cfg, batch,
+                                   cache_width(cfg, seq_len, long_context),
+                                   dtype, n_layers=n, device=device),
+                "ssm": torch.zeros((n, batch, di, cfg.ssm_state),
+                                   dtype=torch.float32, device=device),
+                "conv": torch.zeros((n, batch, 3, di), dtype=dtype,
+                                    device=device)}
     if cfg.family in ATTENTION_FAMILIES:
         width = cache_width(cfg, seq_len, long_context)
         n_dense = _n_dense(cfg)
@@ -287,25 +338,51 @@ def _attention_layers(cfg, p, x, positions, cache, long_context):
     return x, new_cache, aux
 
 
+def _hymba_layers(cfg, p, x, positions, cache, long_context):
+    """``hybrid``: the stacked Hymba blocks, each with its window and its
+    slice of the cache (None: none). Returns (x, the new cache or None,
+    a float32 zero aux loss)."""
+    outs = []
+    for i, win in enumerate(layer_windows(cfg, cfg.n_layers, long_context)):
+        blk = tree_map(lambda t: t[i], p["blocks"])
+        st = None if cache is None else {
+            "kv": {k: v[i] for k, v in cache["kv"].items()},
+            "ssm": cache["ssm"][i], "conv": cache["conv"][i]}
+        x, kv, h, conv = _hymba_block(
+            cfg, blk, x, positions, window=win,
+            cache=None if st is None else st["kv"],
+            ssm_state=None if st is None else st["ssm"],
+            conv_state=None if st is None else st["conv"])
+        outs.append({"kv": kv, "ssm": h, "conv": conv})
+    aux = torch.zeros((), device=x.device)
+    return x, (None if cache is None else _stack(outs)), aux
+
+
 def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
                     long_context=False):
     """Backbone: embeddings -> blocks. Returns (hidden, new_cache,
     aux_losses float32); the new cache is None in train mode without a
-    cache, as the reference's. ``dense`` and ``moe``: `positions` None
-    (0..S-1), (B,) (each row's first position) or (B, S); a prefill
-    without a cache returns None, as the reference's."""
+    cache, as the reference's. ``dense``, ``moe`` and ``hybrid``:
+    `positions` None (0..S-1), (B,) (each row's first position) or (B,
+    S); a ``dense`` or ``moe`` prefill without a cache returns None, a
+    ``hybrid`` one raises ValueError, as the reference's."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if cfg.family == "hybrid" and mode == "prefill" and cache is None:
+        raise ValueError("hybrid prefill requires a cache (init_cache) so "
+                         "the kv ring fills")
     x = _embed(cfg, p, tokens)
-    if cfg.family in ATTENTION_FAMILIES:
+    if cfg.family != "ssm":
         b, s = tokens.shape
         steps = torch.arange(s, device=tokens.device)
         if positions is None:
             positions = steps.expand(b, s)
         elif positions.dim() == 1:
             positions = positions[:, None] + steps[None]
-        return _attention_layers(cfg, p, x, positions, cache, long_context)
+        layers = (_hymba_layers if cfg.family == "hybrid"
+                  else _attention_layers)
+        return layers(cfg, p, x, positions, cache, long_context)
     outs = []
     for i in range(cfg.n_layers):
         blk = tree_map(lambda t: t[i], p["blocks"])
@@ -324,7 +401,7 @@ def forward(cfg, p, tokens, *, mode: str = "train", cache=None,
 
     tokens: (B, S) int64. decode: S == 1 against `cache` and `positions`
     (B,) absolute. The ``ssm`` recurrence reads neither `positions` nor
-    `long_context`. aux_losses (float32) is the sum of the MoE blocks'
+    `long_context` (the ``hybrid`` family's attention reads both). aux_losses (float32) is the sum of the MoE blocks'
     load-balance losses, 0 for the other families."""
     x, new_cache, aux = _forward_hidden(cfg, p, tokens, mode=mode,
                                         cache=cache, positions=positions,

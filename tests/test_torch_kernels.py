@@ -7,8 +7,9 @@ the installed jax no longer has). The q8 codec's CPU parity tests live
 in tests/test_torch_comms.py and the rwkv6 ones in tests/test_torch_zoo.py.
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
 the card and skip without one; chip_smoke.py runs the same checks at the
-main path's shapes. The MoE block (plain torch, no kernel of its own) is
-held card against CPU here too, since this file imports no jax.
+main path's shapes. The MoE block and the hybrid family's selective SSM
+(plain torch, no kernel of their own) are held card against CPU here
+too, since this file imports no jax.
 
 The reference is imported inside the `jx` fixture, not at the top, so
 that on a GPU machine without jax the ``cuda`` tests still run:
@@ -520,7 +521,7 @@ def test_rwkv6_function_on_card_matches_plain_gradients(cuda, BH, S,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 2048), (2, 8, 2048), (512, 2048),
                                    (37, 260), (3, 17, 1024), (8, 8192),
-                                   (3, 17, 4608)])
+                                   (3, 17, 4608), (8, 1600), (512, 1600)])
 def test_dt_loss_wide_kernel_matches_plain_on_card(cuda, shape):
     """The wide form (256 < D <= 8192) against the plain version on unit
     rows: one launch of it and none of the narrow kernel, two calls
@@ -586,4 +587,51 @@ def test_moe_block_on_card_matches_cpu(cuda, factor):
     torch.cuda.synchronize()
     with no_implicit_transfers():
         L.moe_block(cfg, pd, xd)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ssm_block_on_card_matches_cpu(cuda):
+    """`layers.ssm_block` (plain torch and cuBLAS) on the card against the
+    CPU, float32 with TF32 off, hymba's smoke config: 200 tokens (a
+    128-chunk and a ragged 72) from given SSM and conv states, the
+    output and both states within 2e-4, the gradients through the
+    recomputing backward within 2e-5 of each one's max; a decode step
+    on the card makes no host sync."""
+    from repro_torch.analysis.guards import no_implicit_transfers
+    from repro_torch.configs import get_config
+    from repro_torch.convert import leaves_with_paths, unflatten
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import set_parity_mode
+
+    set_parity_mode()
+    cfg = get_config("hymba-1.5b-smoke")
+    di = cfg.ssm_expand * cfg.d_model
+    gen = torch.Generator().manual_seed(0)
+    p = L.init_ssm(cfg, gen)
+    ins = [torch.randn(shape, generator=gen) * scale
+           for shape, scale in (((2, 200, cfg.d_model), 0.5),
+                                ((2, di, cfg.ssm_state), 0.1),
+                                ((2, 3, di), 0.5))]
+    gs = [torch.randn(t.shape, generator=gen) for t in ins]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for _, t in leaves_with_paths(p)]
+        x, h0, c0 = (t.to(dev).requires_grad_() for t in ins)
+        o, (h, c) = L.ssm_block(cfg, unflatten(leaves, p), x, h0, c0)
+        loss = sum((a * w.to(dev)).sum() for a, w in zip((o, h, c), gs))
+        grads = torch.autograd.grad(loss, leaves + [x, h0])
+        outs.append(([t.detach().cpu() for t in (o, h, c)],
+                     [t.cpu() for t in grads]))
+    (vc, gc), (vh, gh) = outs
+    for a, b in zip(vc, vh):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
+    for a, b in zip(gc, gh):
+        assert float((a - b).abs().max() / b.abs().max()) <= 2e-5
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    step_in = [t[:, :1].to(cuda) if i == 0 else t.to(cuda)
+               for i, t in enumerate(ins)]
+    torch.cuda.synchronize()
+    with no_implicit_transfers():
+        L.ssm_step(cfg, pc, *step_in)
     torch.cuda.synchronize()

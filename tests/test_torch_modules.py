@@ -412,8 +412,9 @@ def test_unported_choices_raise_not_implemented(kw):
     assert (cfg.aggregator, cfg.client) == (want.aggregator, want.client)
 
 
-@pytest.mark.parametrize("what", ["llama-3.2-vision-90b", "hymba-1.5b-smoke",
-                                  "family:vlm", "family:hybrid"])
+@pytest.mark.parametrize("what", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2", "family:vlm",
+                                  "family:audio"])
 def test_unported_archs_and_families_raise_not_implemented(what):
     import dataclasses
 
