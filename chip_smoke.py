@@ -205,7 +205,8 @@ the JAX package `repro`. Phases, each of which must pass:
      one kernel launch each, within RWKV6_GRAD_REL of each leaf's max.
    * The DT kernel's wide form (256 < D <= 8192, the zoo's features)
      against `ref.dt_loss_fwd_ref` at (8, 2048), (2, 8, 2048), (512,
-     2048), (8, 4608), (8, 8192), (2, 8, 8192) and (512, 8192),
+     2048), (8, 4608), (8, 8192), (2, 8, 8192) and (512, 8192) (and
+     hymba's D = 1600 and seamless's D = 1024, at 8 and 512 rows),
      DT_FWD_TOL, one launch of it and none of the narrow kernel, two
      calls bitwise equal, D = 8196 and 8190 refused; timed at (8, 2048),
      a DT micro-batch.
@@ -314,6 +315,35 @@ the JAX package `repro`. Phases, each of which must pass:
      ``ssm.scan`` and ``ssm.recompute`` ranges. Every cut is printed
      with its reason.
 
+13. Audio path (``[audio]``): the zoo's audio family, SeamlessM4T's
+   non-causal encoder over frame embeddings and its tanh-gated
+   cross-attention over the encoder's context, after [hybrid]'s tensors
+   are freed. No kernel of its own (attention is plain torch and
+   cuBLAS); the DT kernel's wide form runs once a ``dt`` step at D =
+   1024, and [train]'s `dt_wide_check` holds it at (8, 1024) and (512,
+   1024). The reference starts every gate at 0, which keeps the context
+   out of the logits, so every check sets the gates to AUDIO_GATES.
+   * Cross-check: ``seamless-m4t-large-v2-smoke`` in float32 on the card
+     and with ``device="cpu"``: a train-mode forward with frames, a
+     prefill of 32 with frames and 4 decode steps that read the ctx from
+     the cache, logits and the cache leaves (rings and ctx) at
+     ZOO_CROSS_TOL, decode against a full forward with the same frames;
+     one ``lm`` step in 2 micro-batches and one ``dt`` step with frames
+     through `train_cross_check`.
+   * ``seamless-m4t-large-v2`` at full width and depth (24 encoder and
+     24 decoder layers, 2.04e9 parameters), random bfloat16 weights from
+     seed 0: 16 prompts x 3008 tokens with frames (16, 752, 1024) into
+     3072 slots, 64 greedy decode steps; one decode step under
+     `no_implicit_transfers`; decode on AUDIO_CHECK_B sequences held
+     against a full forward with the same frames as [dense] holds its
+     decode; ``lm`` at 8 x 4096 (frames 8 x 1024) in 8 micro-batches at
+     full depth and ``dt`` at 8 x 512 with the decoder cut to
+     AUDIO_DT_LAYERS layers; the prefill, 4 decode steps and an ``lm``
+     micro-batch profiled with the ``audio.encoder``, ``audio.cross``
+     and ``attention.ctx_kv`` ranges (the last: the cross blocks' k and v
+     projections of the context, recomputed every decode step, as the
+     reference's). Every cut is printed with its reason.
+
 The q8 kernels are held against their plain versions in phase 2, at
 (5, Ppad), (3, Ppad), (2, Ppad) and (1, Ppad), Ppad = 11,506,688 (the
 cohort, the groups of MultiRSU and the handover, a snapshot): codes,
@@ -330,7 +360,7 @@ path), each with its launches on the path that runs it (``paths``: its
 launches on every path: main, comms, batched, resume, engine (its
 graph campaigns), multi, mesh, handover, fedco, zoo, train (the timed
 steps of both objectives), dense (the timed dense steps and serving
-runs), moe and hybrid (likewise)),
+runs), moe, hybrid and audio (likewise)),
 ``ms`` and ``device_ms``. A ``[time]`` line gives the script's seconds.
 The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
@@ -565,6 +595,46 @@ HYBRID_CHECK_B = 2
 HYBRID_LM, HYBRID_LM_STEPS = (8, 4096, 8), 1
 HYBRID_DT, HYBRID_DT_STEPS = (8, 512, 1), 1
 HYBRID_DT_LAYERS = 16
+
+# [audio]: seamless-m4t-large-v2. The reference starts every cross
+# block's gate_attn and gate_mlp at 0, so tanh(0) = 0 keeps the encoder
+# and the cross-attention out of the logits and their gradients: a check
+# at the init gates passes with a wrong or missing encoder. Every check
+# of the phase sets them to AUDIO_GATES first (`_set_gates`). Card vs
+# CPU, the float32 smoke config: logits and every cache leaf (the rings
+# and the ctx) at ZOO_CROSS_TOL, the train steps as [dense]'s.
+AUDIO_ARCH = "seamless-m4t-large-v2"
+AUDIO_GATES = (0.5, -0.4)   # (gate_attn, gate_mlp) in every cross block
+# Served at full width and depth as DENSE_SERVE (prefill_32k and
+# decode_32k cut in batch and length): 16 prompts of 3008 tokens with
+# frames (16, 752, 1024) (max(S // 4, 8) rows at the prompt's S) into
+# 3072 slots (the decoder's self-attention on the flash path; the cross
+# blocks' 752 context rows, not a multiple of 1024, on the direct path),
+# 64 decode steps; the decode of AUDIO_CHECK_B sequences held against a
+# full forward with the same frames at DENSE_FLOOR_X times the
+# one-bfloat16-step floor.
+AUDIO_SERVE = (16, 3008, 64)
+AUDIO_CHECK_B = 2
+# Training, reckoned from the shapes: bf16 params and momentum, a
+# micro-batch's bf16 gradients and float32 accumulators of 2.04e9
+# parameters take 20.4 GB. lm at 8 x 4096 in 8 micro-batches (one
+# sequence and its 1024 frames each): a decoder layer with its cross
+# block keeps about 0.6 GB (two MLPs' (4096, 8192) bf16 hidden states,
+# 268 MB; four norms' float32 copies, about 200 MB; the two flash
+# attentions' q, k, v and float32 o), an encoder layer about 0.2 GB (its
+# direct attention's (16, 1024, 1024) float32 probabilities, twice),
+# 19.8 GB at full depth, plus 4.2 GB of float32 logits (V = 258,048) and
+# their backward's: about 50 GB, so full depth. dt at 8 x 512 (frames 8
+# x 128) in one micro-batch runs two views, and the direct path keeps
+# two (8, 16, 512, 512) float32 probability tensors a self-attention:
+# about 1.9 GB a decoder layer for both views, 46 GB at full depth
+# beside the state, over PEAK_GIB; n_layers (the decoder's) is cut to
+# AUDIO_DT_LAYERS, the encoder kept whole (about 48 GiB reckoned). lm's
+# warm-up and profiled steps run one micro-batch, as [hybrid]'s.
+AUDIO_LM, AUDIO_LM_STEPS = (8, 4096, 8), 1
+AUDIO_DT, AUDIO_DT_STEPS = (8, 512, 1), 1
+AUDIO_DT_LAYERS = 16
+AUDIO_RANGES = ("audio.encoder", "audio.cross", "attention.ctx_kv")
 
 
 def _smi() -> str:
@@ -2924,12 +2994,13 @@ def dt_wide_check(dev):
     `ref.dt_loss_fwd_ref` on unit rows at (8, 2048) (a DT micro-batch of
     rwkv6-1.6b and tinyllama-1.1b), (2, 8, 2048) (the cohort form), (512,
     2048), and at the dense family's widest: (8, 4608) (gemma2-27b), (8,
-    8192), (2, 8, 8192) and (512, 8192) (deepseek-67b), and at hymba-1.5b's
-    (8, 1600) and (512, 1600) (a multiple of 4, not of 128); one launch
-    each, none of the narrow kernel; two calls bitwise equal; D = 8196
-    and a D not a multiple of 4 refused. Timed at (8, 2048); device time
-    and bound at (512, 2048), (8, 8192), (512, 8192), (8, 1600) and (512,
-    1600) too. Returns its kernels-line row."""
+    8192), (2, 8, 8192) and (512, 8192) (deepseek-67b), at hymba-1.5b's
+    (8, 1600) and (512, 1600) (a multiple of 4, not of 128), and at
+    seamless-m4t-large-v2's (8, 1024) and (512, 1024); one launch each,
+    none of the narrow kernel; two calls bitwise equal; D = 8196 and a D
+    not a multiple of 4 refused. Timed at (8, 2048); device time and
+    bound at (512, 2048), (8, 8192), (512, 8192), (8, 1600), (512, 1600),
+    (8, 1024) and (512, 1024) too. Returns its kernels-line row."""
     import torch
 
     from repro_torch.kernels import dt_loss as dt_kernel
@@ -2938,9 +3009,11 @@ def dt_wide_check(dev):
     g = torch.Generator(device=dev).manual_seed(6)
     errs, d, at = [], TRAIN_D, {}
     m = TRAIN_DT[0]
-    timed = ((512, d), (m, 8192), (512, 8192), (m, 1600), (512, 1600))
+    timed = ((512, d), (m, 8192), (512, 8192), (m, 1600), (512, 1600),
+             (m, 1024), (512, 1024))
     for shape in ((m, d), (2, m, d), (512, d), (m, 4608), (m, 8192),
-                  (2, m, 8192), (512, 8192), (m, 1600), (512, 1600)):
+                  (2, m, 8192), (512, 8192), (m, 1600), (512, 1600),
+                  (m, 1024), (512, 1024)):
         q, k = _unit_rows(g, dev, shape), _unit_rows(g, dev, shape)
         _zero_counts()
         got = ops.dt_loss_fwd(q, k, 0.1, 1.0)
@@ -2997,10 +3070,14 @@ def dt_wide_check(dev):
             "device_ms_8_1600": at[(m, 1600)][0],
             "bound_ms_8_1600": at[(m, 1600)][1][0],
             "device_ms_512_1600": at[(512, 1600)][0],
-            "bound_ms_512_1600": at[(512, 1600)][1][0]}
+            "bound_ms_512_1600": at[(512, 1600)][1][0],
+            "device_ms_8_1024": at[(m, 1024)][0],
+            "bound_ms_8_1024": at[(m, 1024)][1][0],
+            "device_ms_512_1024": at[(512, 1024)][0],
+            "bound_ms_512_1024": at[(512, 1024)][1][0]}
 
 
-def _dt_kernel_spread(cfg, params, tokens, drops) -> dict:
+def _dt_kernel_spread(cfg, params, tokens, drops, aux_inputs=None) -> dict:
     """How far the DT kernel's float32 difference from the plain version
     may reach the DT step on this batch, by specification, with the
     kernel held to it on the card's features (raises otherwise):
@@ -3018,7 +3095,8 @@ def _dt_kernel_spread(cfg, params, tokens, drops) -> dict:
 
     Also returns the measured errors, min(w_a), and the plain version's
     float32 mean loss against its float64 evaluation on the same
-    features (the formula's own rounding)."""
+    features (the formula's own rounding). `aux_inputs`: the ``audio``
+    family's frames, which both views read."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -3027,7 +3105,8 @@ def _dt_kernel_spread(cfg, params, tokens, drops) -> dict:
 
     with torch.no_grad():
         q, k = (T.forward_features(cfg, params, torch.where(
-            d, steps.MASK_TOKEN, tokens))[0] for d in drops)
+            d, steps.MASK_TOKEN, tokens), aux_inputs=aux_inputs)[0]
+            for d in drops)
         loss_k, la_k, lb_k, _ = ops.dt_loss_fwd(q, k, 0.1, 1.0)
         loss_p, la_p, lb_p, pos = ref.dt_loss_fwd_ref(q, k, 0.1, 1.0)
         loss_64 = ref.dt_loss_from_sim(q.double() @ k.double().T, 0.1,
@@ -3066,7 +3145,9 @@ def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
     TRAIN_LEAF_REL plus DT_FWD_TOL / min(w_a), the most the DT kernel's
     specified float32 difference in lse_a can reach the gradient
     (`_dt_kernel_spread`, which also holds the kernel's lse_a and lse_b
-    to DT_FWD_TOL on the card's features)."""
+    to DT_FWD_TOL on the card's features). An ``audio`` config gets
+    AUDIO_GATES (`_set_gates`) and each batch standard normal frames
+    (B, max(S // 4, 8), d_audio)."""
     import numpy as np
     import torch
 
@@ -3078,6 +3159,8 @@ def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
 
     cfg = get_config(arch + "-smoke")
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    if cfg.family == "audio":
+        _set_gates(params)
     for objective, nm, b, s in cases:
         shape = InputShape("cross", s, b, "train")
         rs = np.random.RandomState(0)
@@ -3087,6 +3170,9 @@ def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
                      np.float32)),
                  "drops": steps.draw_drop_masks(
                      (b, s), torch.Generator().manual_seed(1))}
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(rs.randn(
+                *steps.frames_shape(cfg, b, s)).astype(np.float32))
         outs = []
         for d in (dev, torch.device("cpu")):
             p = tree_map(lambda t: t.to(d), params)
@@ -3102,7 +3188,9 @@ def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
         if objective == "dt":
             sp = _dt_kernel_spread(
                 cfg, tree_map(lambda t: t.to(dev), params),
-                batch["tokens"].to(dev), batch["drops"].to(dev))
+                batch["tokens"].to(dev), batch["drops"].to(dev),
+                {"frames": batch["frames"].to(dev)} if "frames" in batch
+                else None)
             amp = sp["amp"]
             if dt_loss_spec:
                 loss_tol = sp["loss_tol"]
@@ -3384,12 +3472,13 @@ def dense_cross_check(dev):
                           tag="[dense]", dt_loss_spec=True)
 
 
-def _dense_logits(cfg, params, tokens, start: int, eps: float = 0.0):
+def _dense_logits(cfg, params, tokens, start: int, eps: float = 0.0,
+                  aux_inputs=None):
     """Float32 logits over the real vocabulary of positions start.. of a
-    full forward (train mode, no cache) of `tokens`, the head on those
-    positions only; with eps > 0 every attention output is scaled by
-    (1 +- eps), a seeded random sign an element, and rounded back to its
-    dtype."""
+    full forward (train mode, no cache) of `tokens` (with `aux_inputs`,
+    the ``audio`` family's frames), the head on those positions only;
+    with eps > 0 every attention output is scaled by (1 +- eps), a
+    seeded random sign an element, and rounded back to its dtype."""
     import torch
 
     from repro_torch.models import layers as L
@@ -3409,25 +3498,27 @@ def _dense_logits(cfg, params, tokens, start: int, eps: float = 0.0):
     try:
         with torch.no_grad():
             x, _, _ = T._forward_hidden(cfg, params, tokens,
-                                        mode="train", cache=None)
+                                        mode="train", cache=None,
+                                        aux_inputs=aux_inputs)
             return T._head(cfg, params, x[:, start:])[..., :cfg.vocab_size]
     finally:
         L.attention_core = core
 
 
 def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str,
-               flash: bool = True):
-    """A zoo model with random bfloat16 weights from seed 0 through
-    launch/decode.py's functions: `batch` prompts of `prompt` tokens
-    prefilled (`flash`: on the flash path; else within the ring, prompt
-    <= its width) into a bfloat16 cache of `prompt` + `n_dec` slots (of
-    the window's width where that is less), then `n_dec` greedy decode
-    steps, timed after a
+               flash: bool = True, frames=None, prepare=None):
+    """A zoo model with random bfloat16 weights from seed 0 (passed to
+    `prepare` first, when given) through launch/decode.py's functions:
+    `batch` prompts of `prompt` tokens (with the ``audio`` family's
+    `frames`) prefilled (`flash`: on the flash path; else within the
+    ring, prompt <= its width) into a bfloat16 cache of `prompt` +
+    `n_dec` slots (of the window's width where that is less), then
+    `n_dec` greedy decode steps, timed after a
     warm-up, the counters zeroed before each; no kernel launch (the
     attention families' serving path runs none) and peak memory at most
     PEAK_GIB. Prints the times; returns a namespace of params, prompts,
-    the timed prefill's last logits and cache, the decoded tokens and
-    the launches."""
+    frames, the timed prefill's last logits and cache, the decoded
+    tokens and the launches."""
     import types
 
     import torch
@@ -3447,15 +3538,19 @@ def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str,
                              f"overflows the ring")
     t = time.time()
     params = dec.init_model(cfg, 0, bf16, dev)
+    if prepare is not None:
+        prepare(params)
     prompts = dec.random_prompts(cfg, batch, prompt, 0, dev)
-    last, cache, t_warm = dec.run_prefill(cfg, params, prompts, total, bf16)
+    last, cache, t_warm = dec.run_prefill(cfg, params, prompts, total, bf16,
+                                          frames)
     dec.run_decode(cfg, params, last, cache, prompt, 2)
     del last, cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     warm = time.time() - t
     _zero_counts()
-    last, cache, t_pre = dec.run_prefill(cfg, params, prompts, total, bf16)
+    last, cache, t_pre = dec.run_prefill(cfg, params, prompts, total, bf16,
+                                         frames)
     pre = _counts()
     _zero_counts()
     toks, _, t_dec = dec.run_decode(cfg, params, last, cache, prompt, n_dec)
@@ -3476,8 +3571,9 @@ def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str,
     if not peak <= PEAK_GIB:
         raise AssertionError(f"{tag} {cfg.name}: peak {peak:.2f} GiB > "
                              f"{PEAK_GIB}")
-    return types.SimpleNamespace(params=params, prompts=prompts, last=last,
-                                 cache=cache, toks=toks, total=total,
+    return types.SimpleNamespace(params=params, prompts=prompts,
+                                 frames=frames, last=last, cache=cache,
+                                 toks=toks, total=total,
                                  launches=_add(pre, dcd))
 
 
@@ -3501,22 +3597,24 @@ def _served_logits(cfg, params, last, cache, toks, start: int):
 
 
 def _decode_vs_full(tag, cfg, params, prompts, last, cache, toks,
-                    note: str = "") -> None:
+                    note: str = "", frames=None) -> None:
     """Each decode step's logits (and the prefill's last) against a full
-    forward of the prompts and the decoded tokens at the same positions,
-    held at DENSE_FLOOR_X times the divergence of that forward from
-    itself with its attention outputs perturbed by DENSE_BF16_EPS (up to
-    one bfloat16 step: the decode steps' direct path rounds its
+    forward of the prompts and the decoded tokens at the same positions
+    (with the prefill's `frames`, for the ``audio`` family), held at
+    DENSE_FLOOR_X times the divergence of that forward from itself with
+    its attention outputs perturbed by DENSE_BF16_EPS (up to one
+    bfloat16 step: the decode steps' direct path rounds its
     probabilities to bfloat16, the forward's flash path does not),
     measured in the same run."""
     import torch
 
+    aux = None if frames is None else {"frames": frames}
     prompt, n = prompts.shape[1], toks.shape[1] - 1
     served = _served_logits(cfg, params, last, cache, toks, prompt)
     seq = torch.cat([prompts, toks[:, :n]], 1)
-    full = _dense_logits(cfg, params, seq, prompt - 1)
+    full = _dense_logits(cfg, params, seq, prompt - 1, aux_inputs=aux)
     floor = _rel(_dense_logits(cfg, params, seq, prompt - 1,
-                               DENSE_BF16_EPS), full)
+                               DENSE_BF16_EPS, aux), full)
     rel = _rel(served, full)
     agree = float((served.argmax(-1) == full.argmax(-1)).float().mean())
     finite = bool(torch.isfinite(served).all()) and bool(
@@ -3539,7 +3637,8 @@ def _serve_profiles(tag, cfg, run, ranges=()) -> None:
     from repro_torch.launch import decode as dec
 
     prof = _profile(lambda: dec.run_prefill(cfg, run.params, run.prompts,
-                                            run.total, torch.bfloat16)[2],
+                                            run.total, torch.bfloat16,
+                                            run.frames)[2],
                     ranges=ranges)
     print(f"{tag} profiled {cfg.name} prefill: {json.dumps(prof)}",
           flush=True)
@@ -4148,6 +4247,201 @@ def hybrid_full_width(dev) -> dict:
     return total
 
 
+def _set_gates(params) -> None:
+    """Every cross block's (gate_attn, gate_mlp) to AUDIO_GATES, in
+    place."""
+    for name, g in zip(("gate_attn", "gate_mlp"), AUDIO_GATES):
+        params["cross_blocks"][name].fill_(g)
+
+
+def audio_cross_check(dev):
+    """``seamless-m4t-large-v2-smoke`` in float32 with AUDIO_GATES on the
+    card and with ``device="cpu"`` from the same params and frames: a
+    train-mode forward of 36 positions with 9 frames, then a prefill of
+    32 with 8 frames into 36 slots (the ctx starting at enc_ctx_len(36) =
+    9 zero rows) and 4 decode steps that read the ctx from the cache;
+    logits and the cache leaves (k, v, ctx) at ZOO_CROSS_TOL, positions
+    bitwise; each side's decode logits against its own full forward with
+    the prefill's frames at ZOO_CROSS_TOL; then an ``lm`` step in 2
+    micro-batches and a ``dt`` step with frames through
+    `train_cross_check`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    cfg = get_config(AUDIO_ARCH + "-smoke")
+    v, b, s, n = cfg.vocab_size, 2, 32, 4
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    _set_gates(params)
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(1, v, (b, s + n)))
+    fr_full, fr = (torch.from_numpy(rs.randn(
+        *steps.frames_shape(cfg, b, t)).astype(np.float32))
+        for t in (s + n, s))
+    outs = []
+    for d in (dev, cpu):
+        p = tree_map(lambda t: t.to(d), params)
+        tk = toks.to(d)
+        with torch.no_grad():
+            full, _, _ = T.forward(cfg, p, tk,
+                                   aux_inputs={"frames": fr_full.to(d)})
+            cache = T.init_cache(cfg, b, s + n, dtype=torch.float32,
+                                 device=d,
+                                 ctx_len=steps.enc_ctx_len(cfg, s + n))
+            lg, cache, _ = T.forward(cfg, p, tk[:, :s], mode="prefill",
+                                     cache=cache,
+                                     aux_inputs={"frames": fr.to(d)})
+            logits = [lg[:, -1]]
+            for i in range(n):
+                lg, cache, _ = T.forward(
+                    cfg, p, tk[:, s + i:s + i + 1], mode="decode",
+                    cache=cache, positions=torch.full((b,), s + i, device=d))
+                logits.append(lg[:, 0])
+            same, _, _ = T.forward(cfg, p, tk,
+                                   aux_inputs={"frames": fr.to(d)})
+        served = torch.stack(logits, 1)[..., :v]
+        outs.append((full[..., :v].cpu(), served.cpu(),
+                     _max_err(served, same[:, s - 1:, :v]),
+                     tree_map(lambda t: t.cpu(), cache)))
+    (fc, lc, dc, cc), (fh, lh, dh, ch) = outs
+    full_err, err = _max_err(fc, fh), _max_err(lc, lh)
+    cache_err = max([_max_err(cc["kv"][k], ch["kv"][k]) for k in ("k", "v")]
+                    + [_max_err(cc["ctx"], ch["ctx"])])
+    same_pos = torch.equal(cc["kv"]["pos"], ch["kv"]["pos"])
+    print(f"[audio] {cfg.name} float32, gates {AUDIO_GATES}: forward "
+          f"{b}x{s + n} with {fr_full.shape[1]} frames, prefill {b}x{s} "
+          f"with {fr.shape[1]} frames into {cc['kv']['k'].shape[2]} slots "
+          f"+ {n} decode steps: card vs cpu forward logits max abs "
+          f"{full_err:.3e}, prefill and decode logits {err:.3e}, cache "
+          f"leaves (k, v, ctx {tuple(cc['ctx'].shape)}) {cache_err:.3e}, "
+          f"positions equal {same_pos}; decode vs the full forward with "
+          f"the prefill's frames {dc:.3e} (card), {dh:.3e} (cpu) (tol "
+          f"{ZOO_CROSS_TOL})", flush=True)
+    if not (max(full_err, err, cache_err, dc, dh) <= ZOO_CROSS_TOL
+            and same_pos):
+        raise AssertionError(f"[audio] smoke card vs cpu: forward "
+                             f"{full_err}, logits {err}, cache {cache_err}, "
+                             f"decode vs full {dc} {dh}, positions "
+                             f"{same_pos}")
+    train_cross_check(dev, AUDIO_ARCH, (("lm", 2, 4, 40), ("dt", 1, 4, 37)),
+                      tag="[audio]", dt_loss_spec=True)
+
+
+def audio_serve(dev, cfg, batch: int, prompt: int, n_dec: int,
+                check_b: int) -> dict:
+    """seamless served by `_serve_run` with AUDIO_GATES and frames
+    (batch, max(prompt // 4, 8), d_audio) drawn on the card from seed 5,
+    one decode step under `no_implicit_transfers` (no host sync), the
+    decode of `check_b` sequences held against a full forward with the
+    same frames (`_decode_vs_full`), the prefill and 4 decode steps
+    profiled with the AUDIO_RANGES. Returns the launches."""
+    import torch
+
+    from repro_torch.analysis.guards import no_implicit_transfers
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import steps
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    frames = torch.randn(steps.frames_shape(cfg, batch, prompt),
+                         generator=g, device=dev)
+    run = _serve_run(dev, cfg, batch, prompt, n_dec, "[audio]",
+                     frames=frames, prepare=_set_gates)
+    gates = [round(float(run.params["cross_blocks"][k][0]), 6)
+             for k in ("gate_attn", "gate_mlp")]
+    print(f"[audio] {cfg.name} gates (gate_attn, gate_mlp) {gates} in "
+          f"every cross block; frames {tuple(frames.shape)}; cache after "
+          f"the prefill: rings {tuple(run.cache['kv']['k'].shape)}, ctx "
+          f"{tuple(run.cache['ctx'].shape)} {run.cache['ctx'].dtype}",
+          flush=True)
+    torch.cuda.synchronize()
+    with no_implicit_transfers():
+        lg, _ = steps.make_decode_step(cfg)(run.params, {
+            "tokens": run.toks[:, :1], "cache": run.cache,
+            "positions": torch.full((batch,), prompt, device=dev)})
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()):
+        raise AssertionError(f"[audio] {cfg.name}: guarded decode logits "
+                             f"are not finite")
+    print(f"[audio] {cfg.name} a decode step under no_implicit_transfers "
+          f"ran with no host sync", flush=True)
+    del lg
+    cache = {"kv": tree_map(lambda t: t[:, :check_b], run.cache["kv"]),
+             "ctx": run.cache["ctx"][:check_b]}
+    _decode_vs_full("[audio]", cfg, run.params, run.prompts[:check_b],
+                    run.last[:check_b], cache, run.toks[:check_b],
+                    note=f" of {check_b} sequences",
+                    frames=frames[:check_b])
+    _serve_profiles("[audio]", cfg, run, ranges=AUDIO_RANGES)
+    return run.launches
+
+
+def audio_full_width(dev) -> dict:
+    """seamless-m4t-large-v2 at full width and depth with AUDIO_GATES,
+    served (`audio_serve` at AUDIO_SERVE), then its ``lm`` steps at
+    AUDIO_LM at full depth and its ``dt`` steps at AUDIO_DT (the DT
+    kernel's wide form at D = 1024, one launch a step) with the decoder's
+    n_layers cut to AUDIO_DT_LAYERS, both through `launch/train.py`'s
+    functions (frames from `make_batch`), profiled with the encoder's
+    and the cross blocks' ranges. Prints each cut with its reason.
+    Returns the launches of the timed steps and the serving runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import decode as dec
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    print(f"[audio] full width: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated before the phase", flush=True)
+    cfg = get_config(AUDIO_ARCH)
+    b, p_len, n_dec = AUDIO_SERVE
+    print(f"[audio] cuts: {cfg.name} served at full width and depth "
+          f"({cfg.n_encoder_layers} encoder and {cfg.n_layers} decoder "
+          f"layers), {b} prompts x {p_len} tokens with {p_len // 4} frames "
+          f"each + {n_dec} decode steps (prefill_32k's 32 x 32,768 and "
+          f"decode_32k's 128 sequences cut to one card's run); lm at full "
+          f"depth, train_4k's batch 256 -> {AUDIO_LM[0]} x {AUDIO_LM[1]} "
+          f"in {AUDIO_LM[2]} micro-batches (reckoned peak about 50 GB); dt "
+          f"at {AUDIO_DT[0]} x {AUDIO_DT[1]} with the decoder's n_layers "
+          f"{cfg.n_layers} -> {AUDIO_DT_LAYERS}, the encoder's "
+          f"{cfg.n_encoder_layers} kept (two views' direct-attention "
+          f"probabilities and activations, about 1.9 GB a decoder layer, "
+          f"would take about 46 GB at full depth beside 20.4 GB of step "
+          f"state); lm's warm-up and profiled steps take one micro-batch "
+          f"of {AUDIO_LM[0] // AUDIO_LM[2]} x {AUDIO_LM[1]}; gates "
+          f"{AUDIO_GATES} (the reference's init of 0 keeps the context out "
+          f"of the logits)", flush=True)
+    t = time.time()
+    total = audio_serve(dev, cfg, *AUDIO_SERVE, check_b=AUDIO_CHECK_B)
+    print(f"[audio] serving {time.time() - t:.1f} s", flush=True)
+    free()
+    for objective, (b, s, nm), n, layers in (
+            ("lm", AUDIO_LM, AUDIO_LM_STEPS, cfg.n_layers),
+            ("dt", AUDIO_DT, AUDIO_DT_STEPS, AUDIO_DT_LAYERS)):
+        t = time.time()
+        c = dataclasses.replace(cfg, n_layers=layers)
+        params = dec.init_model(c, 0, torch.bfloat16, dev)
+        _set_gates(params)
+        _, counts = _train_run(c, params, objective, b, s, nm, n, dev,
+                               ranges=AUDIO_RANGES[:2], tag="[audio]",
+                               one_micro=nm > 1)
+        total = _add(total, counts)
+        del params
+        free()
+        print(f"[audio] {objective} {time.time() - t:.1f} s", flush=True)
+    return total
+
+
 def analysis_path(dev, first_build) -> None:
     """[analysis]: the guards live on the card, the registries' contracts
     and the port's lint clean. `first_build` is the tracker around the
@@ -4284,6 +4578,10 @@ def run() -> int:
     hybrid_cross_check(dev)
     hybrid_ssm_check(dev)
     paths["hybrid"] = hybrid_full_width(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_cross_check(dev)
+    paths["audio"] = audio_full_width(dev)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
                 else zoo_launches if r["name"] == "rwkv6"

@@ -8,9 +8,12 @@ suffix for the `reduced()` variant. It registers the paper's backbone,
 architecture ``rwkv6-1.6b`` (configs/rwkv6_1_6b.py) and its four
 ``dense`` ones (``tinyllama-1.1b``, ``qwen2-0.5b``, ``gemma2-27b``,
 ``deepseek-67b``) and its two ``moe`` ones (``olmoe-1b-7b``,
-``kimi-k2-1t-a32b``) and its ``hybrid`` one, ``hymba-1.5b``
-(configs/hymba_1_5b.py). The reference's other architectures raise
-NotImplementedError naming the ROADMAP.md entry that ports them.
+``kimi-k2-1t-a32b``), its ``hybrid`` one, ``hymba-1.5b``
+(configs/hymba_1_5b.py), and its ``audio`` one,
+``seamless-m4t-large-v2`` (configs/seamless_m4t_large_v2.py). The
+reference's other architecture (the ``vlm`` family's
+``llama-3.2-vision-90b``) raises NotImplementedError naming the
+ROADMAP.md entry that ports it.
 """
 from __future__ import annotations
 
@@ -21,8 +24,8 @@ from dataclasses import dataclass
 VOCAB_PAD_MULTIPLE = 2048
 
 # The reference's registry (repro/configs/) beyond what the port runs.
-UNPORTED_ARCHS = ("llama-3.2-vision-90b", "seamless-m4t-large-v2")
-PORTED_FAMILIES = ("resnet", "ssm", "dense", "moe", "hybrid")
+UNPORTED_ARCHS = ("llama-3.2-vision-90b",)
+PORTED_FAMILIES = ("resnet", "ssm", "dense", "moe", "hybrid", "audio")
 ROADMAP_ZOO = "ROADMAP.md Queue A, item 12 (the other zoo families)"
 
 
@@ -39,12 +42,12 @@ def family_not_ported(family: str) -> NotImplementedError:
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters: the fields of the reference's
-    `ModelConfig` that the ResNet, ``ssm`` (RWKV6), ``dense``, ``moe``
-    and ``hybrid`` (Hymba) families read, with the reference's
-    defaults."""
+    `ModelConfig` that the ResNet, ``ssm`` (RWKV6), ``dense``, ``moe``,
+    ``hybrid`` (Hymba) and ``audio`` (SeamlessM4T) families read, with
+    the reference's defaults."""
 
     name: str
-    family: str      # resnet | ssm | dense | moe | hybrid (others: not ported)
+    family: str      # resnet | ssm | dense | moe | hybrid | audio (vlm: not ported)
     n_layers: int
     d_model: int
     d_ff: int
@@ -73,6 +76,8 @@ class ModelConfig:
     moe_impl: str = "auto"              # auto | scatter | ep (layers.moe_apply)
     n_shared_experts: int = 0           # kimi-k2: 1 shared expert
     moe_first_dense_layers: int = 0     # kimi-k2: first layer dense
+    n_encoder_layers: int = 0           # seamless: 24
+    d_audio: int = 0                    # frontend frame-embedding dim
     norm: str = "rmsnorm"
     post_norm: bool = False             # gemma2: post-block norms too
     norm_eps: float = 1e-5
@@ -97,8 +102,9 @@ class ModelConfig:
         """Smoke-test variant: same family and code path, tiny dims (the
         reference's rule: 2 layers, d_model <= 256, <= 4 heads of 64,
         <= 2 kv heads, d_ff <= 512, vocab <= 1024; 4 experts, 2 active,
-        <= 1 shared and <= 1 leading dense layer; a sliding window
-        becomes 32 and the long-context window 64)."""
+        <= 1 shared and <= 1 leading dense layer; 2 encoder layers; a
+        sliding window becomes 32, the long-context window 64 and the
+        frame embedding 64 wide)."""
         kw = dict(name=self.name + "-smoke", n_layers=2,
                   d_model=min(self.d_model, 256),
                   n_heads=min(self.n_heads, 4),
@@ -110,10 +116,14 @@ class ModelConfig:
                       n_shared_experts=min(self.n_shared_experts, 1),
                       moe_first_dense_layers=min(self.moe_first_dense_layers,
                                                  1))
+        if self.n_encoder_layers:
+            kw.update(n_encoder_layers=2)
         if self.sliding_window:
             kw.update(sliding_window=32)
         if self.long_context_window:
             kw.update(long_context_window=64)
+        if self.d_audio:
+            kw.update(d_audio=64)
         return dataclasses.replace(self, **kw)
 
 
@@ -149,7 +159,7 @@ def get_config(name: str) -> ModelConfig:
         from repro_torch.configs import (  # noqa: F401
             deepseek_67b, gemma2_27b, hymba_1_5b, kimi_k2_1t_a32b,
             olmoe_1b_7b, qwen2_0_5b, resnet18_cifar, rwkv6_1_6b,
-            tinyllama_1_1b)
+            seamless_m4t_large_v2, tinyllama_1_1b)
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
     if name in UNPORTED_ARCHS:

@@ -2,9 +2,10 @@
 `repro.launch.decode` (`main`), for the port's ``ssm`` family (RWKV6,
 a recurrent cache), ``dense`` family (tinyllama-1.1b, qwen2-0.5b,
 gemma2-27b, deepseek-67b; a ring-buffer KV cache), ``moe`` family
-(olmoe-1b-7b, kimi-k2-1t-a32b; the dense family's caches) and
-``hybrid`` family (hymba-1.5b; the ring of its 1024 window beside the
-SSM and conv states).
+(olmoe-1b-7b, kimi-k2-1t-a32b; the dense family's caches), ``hybrid``
+family (hymba-1.5b; the ring of its 1024 window beside the SSM and conv
+states) and ``audio`` family (seamless-m4t-large-v2; the decoder's
+rings beside the encoder's context).
 
 The reference runs ``--reduced`` end to end on the CPU and, without it,
 only lowers and compiles the decode step for a TPU mesh. The port runs
@@ -31,6 +32,12 @@ where the prompt has 2048 tokens or more and that sum is a multiple of
 
 A hymba prompt longer than its window of 1024 loses keys of its earlier
 queries' windows, as the reference's prefill does (models/transformer.py).
+The command line prefills seamless without frames, as the reference's
+does: its cross blocks then attend over a zero context of max(S // 4,
+8) rows (S the cache's length). `run_prefill` takes frames.
+
+    PYTHONPATH=src python -m repro_torch.launch.decode \\
+        --arch seamless-m4t-large-v2 --reduced --device cpu
 
 Prints the prefill time, the decode time per step and decode tok/s.
 """
@@ -71,15 +78,20 @@ def greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
 
 
-def run_prefill(cfg, params, prompts, total_len: int, param_dtype):
-    """Prefill `prompts`; returns (last-position logits (B, V), cache,
+def run_prefill(cfg, params, prompts, total_len: int, param_dtype,
+                frames=None):
+    """Prefill `prompts` (with the ``audio`` family's `frames` (B, Te,
+    d_audio) when given); returns (last-position logits (B, V), cache,
     seconds on the host clock, synchronised)."""
     b = prompts.shape[0]
     prefill = st.make_prefill_step(
         cfg, InputShape("prefill", total_len, b, "prefill"), param_dtype)
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
     _sync(prompts.device)
     t0 = time.perf_counter()
-    last, cache = prefill(params, {"tokens": prompts})
+    last, cache = prefill(params, batch)
     _sync(prompts.device)
     return last, cache, time.perf_counter() - t0
 

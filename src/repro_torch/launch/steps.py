@@ -13,7 +13,9 @@ so the train step weights each example's loss by its normalised Eq.-11
 weight (`_flsimco_example_weights`). On a mesh that sum is the weighted
 all-reduce GSPMD emits; on one card it is the sum over the batch.
 Micro-batches accumulate their gradients in float32, as the reference's
-scan does.
+scan does. The ``audio`` family's batches carry ``frames`` (B,
+`enc_ctx_len`, d_audio) beside the tokens, split into the micro-batches
+with them, and its prefill writes the encoder's context into the cache.
 """
 from __future__ import annotations
 
@@ -28,6 +30,25 @@ from repro_torch.models import transformer as T
 MASK_TOKEN = 0  # token id used for DT-objective masking views
 DROP_P = 0.15   # the DT objective's token drop rate, a view each
 AGGREGATIONS = ("flsimco", "fedavg", "discard")
+
+
+def enc_ctx_len(cfg, seq_len: int) -> int:
+    """Context rows of the ``audio`` family for `seq_len` tokens (the
+    reference's frames length, max(S // 4, 8)); 0 for the other
+    families."""
+    return max(seq_len // 4, 8) if cfg.family == "audio" else 0
+
+
+def frames_shape(cfg, batch: int, seq_len: int) -> tuple:
+    """(B, enc_ctx_len, d_audio): the ``audio`` family's frame
+    embeddings for `batch` sequences of `seq_len` tokens."""
+    return (batch, enc_ctx_len(cfg, seq_len), cfg.d_audio)
+
+
+def _aux_inputs(batch: dict):
+    """The forward's aux_inputs of a batch: ``{"frames"}`` where the
+    batch has frames, else None."""
+    return {"frames": batch["frames"]} if "frames" in batch else None
 
 
 # --------------------------------------------------------------------------
@@ -78,15 +99,16 @@ def draw_drop_masks(shape, gen: torch.Generator) -> torch.Tensor:
 
 
 def dt_objective(cfg, params, tokens, drops, tau_alpha: float = 0.1,
-                 tau_beta: float = 1.0) -> torch.Tensor:
+                 tau_beta: float = 1.0, aux_inputs=None) -> torch.Tensor:
     """Token-view DT-SSL objective: two views of `tokens`, each with the
     tokens of its drop mask (`drops` (2, B, S) bool) set to MASK_TOKEN,
-    through `forward_features`, and the in-batch DT loss between them
-    (`ops.dt_loss`, the DT kernel on the card) plus the aux terms."""
+    through `forward_features` (both reading the same `aux_inputs`), and
+    the in-batch DT loss between them (`ops.dt_loss`, the DT kernel on
+    the card) plus the aux terms."""
     v1 = torch.where(drops[0], MASK_TOKEN, tokens)
     v2 = torch.where(drops[1], MASK_TOKEN, tokens)
-    q, aux1 = T.forward_features(cfg, params, v1)
-    k, aux2 = T.forward_features(cfg, params, v2)
+    q, aux1 = T.forward_features(cfg, params, v1, aux_inputs=aux_inputs)
+    k, aux2 = T.forward_features(cfg, params, v2, aux_inputs=aux_inputs)
     return ops.dt_loss(q, k, tau_alpha, tau_beta) + aux1 + aux2
 
 
@@ -113,9 +135,10 @@ def make_grad_fn(cfg, *, objective: str = "lm",
     `n_micro` micro-batches and its gradients accumulated in float32, one
     tensor per leaf in `leaves_with_paths` order. ``batch`` holds
     ``tokens`` (B, S) and ``blur`` (B,) float32; for ``dt`` also
-    ``drops`` (2, B, S) bool (`draw_drop_masks`). The LM loss is weighted
-    by `example_weights` over the global batch; the DT loss is not, as
-    the reference's."""
+    ``drops`` (2, B, S) bool (`draw_drop_masks`); for ``audio`` also
+    ``frames`` (`frames_shape`). The LM loss is weighted by
+    `example_weights` over the global batch; the DT loss is not, as the
+    reference's."""
     if objective not in ("lm", "dt"):
         raise ValueError(f"unknown objective {objective!r}; valid: lm, dt")
     if aggregation not in AGGREGATIONS:
@@ -123,9 +146,12 @@ def make_grad_fn(cfg, *, objective: str = "lm",
                          f"{AGGREGATIONS}")
 
     def loss_fn(params, mb):
+        aux_in = _aux_inputs(mb)
         if objective == "dt":
-            return dt_objective(cfg, params, mb["tokens"], mb["drops"])
-        logits, _, aux = T.forward(cfg, params, mb["tokens"], mode="train")
+            return dt_objective(cfg, params, mb["tokens"], mb["drops"],
+                                aux_inputs=aux_in)
+        logits, _, aux = T.forward(cfg, params, mb["tokens"], mode="train",
+                                   aux_inputs=aux_in)
         per_ex = lm_loss_per_example(cfg, logits, mb["tokens"])
         return (per_ex * mb["weights"]).sum() + aux
 
@@ -135,6 +161,8 @@ def make_grad_fn(cfg, *, objective: str = "lm",
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{n_micro} micro-batches")
         parts = {"tokens": tokens.chunk(n_micro)}
+        if "frames" in batch:
+            parts["frames"] = batch["frames"].chunk(n_micro)
         if objective == "dt":
             if "drops" not in batch:
                 raise ValueError("the dt objective takes its views' drop "
@@ -221,9 +249,12 @@ def _long_context(shape: InputShape) -> bool:
 
 
 def make_prefill_step(cfg, shape: InputShape, param_dtype=torch.bfloat16):
-    """prefill(params, {"tokens": (B, S)}) -> (logits of the last position
-    (B, V) float32, cache). The cache starts empty, for positions below
-    ``shape.seq_len``, in `param_dtype`, as the reference's. The head
+    """prefill(params, {"tokens": (B, S)[, "frames"]}) -> (logits of the
+    last position (B, V) float32, cache). The cache starts empty, for
+    positions below ``shape.seq_len``, in `param_dtype`, as the
+    reference's; an ``audio`` cache starts with a zero context of
+    `enc_ctx_len` (``shape.seq_len``) rows, which the encoder's output
+    replaces when the batch has ``frames``. The head
     runs on the last position only: the reference computes (B, S, V)
     logits and returns ``logits[:, -1]``, the same values, and at full
     width (B = 16, S = 2048, V = 65536) the full logits would take 8.6 GB
@@ -235,9 +266,11 @@ def make_prefill_step(cfg, shape: InputShape, param_dtype=torch.bfloat16):
         tokens = batch["tokens"]
         cache = T.init_cache(cfg, tokens.shape[0], shape.seq_len,
                              dtype=param_dtype,
-                             device=tokens.device, long_context=long_ctx)
+                             device=tokens.device, long_context=long_ctx,
+                             ctx_len=enc_ctx_len(cfg, shape.seq_len))
         x, cache, _ = T._forward_hidden(cfg, params, tokens,
                                         mode="prefill", cache=cache,
+                                        aux_inputs=_aux_inputs(batch),
                                         long_context=long_ctx)
         return T._head(cfg, params, x[:, -1]), cache
 

@@ -24,6 +24,9 @@ through `MobilityModel`.
         --reduced --device cpu --steps 2 --objective dt
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
         --batch 8 --seq-len 4096 --n-micro 8 --steps 2     # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-large-v2 --batch 8 --seq-len 4096 \\
+        --n-micro 8 --steps 2                              # on the card
 
 ``--mode sim`` — the host-level FL simulation, a `Scenario` driven
 through `run_round`, with whole-`FLState` checkpoints and resume:
@@ -107,7 +110,9 @@ def make_batch(cfg, shape: InputShape, step: int, seed: int, device,
                objective: str, mob: MobilityModel | None = None) -> dict:
     """Step `step`'s batch: tokens (B, S) in [1, vocab_size) and blur (B,)
     (`MobilityModel` velocities through Eq. 2), from a CPU generator
-    seeded with (seed, step); for ``dt`` also the two views' drop masks.
+    seeded with (seed, step); for the ``audio`` family also the frame
+    embeddings (B, max(S // 4, 8), d_audio), standard normal float32, as
+    the reference's; for ``dt`` also the two views' drop masks.
     Everything is drawn first, then moved to `device`."""
     gen = torch.Generator().manual_seed(seed * 1_000_003 + step)
     b, s = shape.global_batch, shape.seq_len
@@ -115,6 +120,9 @@ def make_batch(cfg, shape: InputShape, step: int, seed: int, device,
     batch = {"tokens": torch.randint(1, cfg.vocab_size, (b, s),
                                      generator=gen),
              "blur": mob.blur_level(mob.sample(gen, b))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(st.frames_shape(cfg, b, s),
+                                      generator=gen)
     if objective == "dt":
         batch["drops"] = st.draw_drop_masks((b, s), gen)
     return {k: v.to(device) for k, v in batch.items()}

@@ -1,5 +1,6 @@
 """Neural-net primitives of the zoo's ``dense``, ``moe``, ``ssm``
-(RWKV6 "Finch") and ``hybrid`` (Hymba) families — counterpart of
+(RWKV6 "Finch"), ``hybrid`` (Hymba) and ``audio`` (SeamlessM4T)
+families — counterpart of
 `repro.models.layers`
 (`normal_init`, `fan_in_init`, the norms, `act_fn`, `rope_freqs`,
 `apply_rope`, `_softcap`, `_build_mask`, `_attn_direct`,
@@ -23,8 +24,11 @@ dtype.
 Attention is plain torch and cuBLAS, as the reference's is jnp (no
 Pallas kernel): GQA with q viewed as (B, S, KH, G, D), so head h =
 kh * G + g reads kv head kh; scores, softmax and the probability-value
-products in float32, masked scores at the finite NEG_INF. The flash
-path is a `torch.autograd.Function` over key chunks whose backward
+products in float32, masked scores at the finite NEG_INF.
+Self-attention is causal with RoPE, or non-causal (the audio
+encoder's); cross-attention projects k and v from a context and lets
+every query see all of it, without RoPE, on the same two paths. The
+flash path is a `torch.autograd.Function` over key chunks whose backward
 recomputes the chunk tiles, so training at S = 4096 never keeps a
 (Sq, Sk) tile per layer. KV caches are ring buffers (position t in slot
 t % W) in the parameters' dtype, float32 or int8 with per-(slot, head)
@@ -323,44 +327,71 @@ def attention_core(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
 # attention block (projections + rope + ring-buffer cache)
 # --------------------------------------------------------------------------
 
-def init_attention(cfg, gen: torch.Generator, dtype=torch.float32):
+def init_attention(cfg, gen: torch.Generator, dtype=torch.float32,
+                   cross: bool = False):
+    """q, k, v, o projections (and qwen2's q, k, v biases, which a
+    `cross` block never has, as the reference's)."""
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     p = {"wq": fan_in_init(gen, (d, h * hd), dtype),
          "wk": fan_in_init(gen, (d, kh * hd), dtype),
          "wv": fan_in_init(gen, (d, kh * hd), dtype),
          "wo": fan_in_init(gen, (h * hd, d), dtype)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", h), ("bk", kh), ("bv", kh)):
             p[name] = torch.zeros((n * hd,), dtype=dtype, device=gen.device)
     return p
 
 
-def attention_block(cfg, p, x, q_pos, *, window=None, cache=None):
-    """Causal self-attention with RoPE and an optional ring-buffer cache.
+def attention_block(cfg, p, x, q_pos, *, causal=True, window=None,
+                    cache=None, kv_src=None, use_rope=True):
+    """Self-attention with RoPE and an optional ring-buffer cache, or
+    cross-attention over a context.
 
     x: (B, Sq, d); q_pos: (B, Sq) absolute positions, consecutive along a
-    row. cache: None, or ``{"k", "v": (B, W, KH, hd), "pos": (B, W)
-    int32}`` (plus ``"k_scale"``, ``"v_scale"`` (B, W, KH) float32 when
-    k and v are int8). Position t goes to slot t % W and the queries
-    attend over the updated buffer. A prefill longer than the ring
-    writes its last W positions only: the reference's scatter keeps the
-    latest of the positions that share a slot, and a scatter with
-    repeated indices on the card promises no order. Returns (out (B, Sq,
-    d), the new cache or None); the cache passed in is not changed."""
+    row. Self-attention is causal unless `causal` is False (the
+    encoder's). cache: None, or ``{"k", "v": (B, W, KH, hd), "pos": (B,
+    W) int32}`` (plus ``"k_scale"``, ``"v_scale"`` (B, W, KH) float32
+    when k and v are int8). Position t goes to slot t % W and the
+    queries attend over the updated buffer. A prefill longer than the
+    ring writes its last W positions only: the reference's scatter keeps
+    the latest of the positions that share a slot, and a scatter with
+    repeated indices on the card promises no order.
+
+    kv_src: a context (B, Sk, d) to attend over instead (the encoder's
+    output): k and v are projected from it, nothing is rotated, and
+    every query sees every context row (the reference's query positions
+    1 against key positions 0, non-causal, no window); the cache is
+    neither read nor written; its k and v projections run in the
+    profiler range ``attention.ctx_kv``. Without it, RoPE rotates q and
+    k at `q_pos` when `use_rope` is set. Returns (out (B, Sq, d), the
+    new cache or None); the cache passed in is not changed."""
     b, sq, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    sk = x.shape[1] if kv_src is None else kv_src.shape[1]
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    if kv_src is None:
+        k, v = x @ p["wk"], x @ p["wv"]
+    else:
+        with torch.profiler.record_function("attention.ctx_kv"):
+            k, v = kv_src @ p["wk"], kv_src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(b, sq, h, hd), q_pos, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, sq, kh, hd), q_pos, cfg.rope_theta)
-    v = v.reshape(b, sq, kh, hd)
-    kw = dict(window=window, scale=cfg.attn_scale_override or None,
+    q = q.reshape(b, sq, h, hd)
+    k = k.reshape(b, sk, kh, hd)
+    v = v.reshape(b, sk, kh, hd)
+    if use_rope and kv_src is None:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    kw = dict(scale=cfg.attn_scale_override or None,
               softcap=cfg.attn_logit_softcap)
-    if cache is None:
-        o = attention_core(q, k, v, q_pos, q_pos, **kw)
+    if kv_src is not None:
+        kv_pos = torch.zeros((b, sk), dtype=q_pos.dtype, device=x.device)
+        o = attention_core(q, k, v, torch.ones_like(q_pos), kv_pos,
+                           causal=False, **kw)
+        new_cache = None
+    elif cache is None:
+        o = attention_core(q, k, v, q_pos, q_pos, causal=causal,
+                           window=window, **kw)
         new_cache = None
     else:
         w = cache["k"].shape[1]
@@ -383,7 +414,8 @@ def attention_block(cfg, p, x, q_pos, *, window=None, cache=None):
                 new_cache[name] = cache[name].index_put(
                     at, t.to(cache[name].dtype))
             k_use, v_use = new_cache["k"], new_cache["v"]
-        o = attention_core(q, k_use, v_use, q_pos, new_cache["pos"], **kw)
+        o = attention_core(q, k_use, v_use, q_pos, new_cache["pos"],
+                           causal=causal, window=window, **kw)
     return o.reshape(b, sq, h * hd) @ p["wo"], new_cache
 
 

@@ -1,9 +1,11 @@
-"""Model assembly of the zoo, ``dense``, ``moe``, ``ssm`` (RWKV6) and
-``hybrid`` (Hymba) families — counterpart of `repro.models.transformer`
-(`_init_decoder_block`, `_decoder_block`, `_init_rwkv_block`,
-`_init_hymba_block`, `_hymba_block`, `init_params`, `layer_windows`,
-`cache_width`, `init_cache`, `_embed`, `_head`, `_forward_hidden`,
-`forward`, `forward_features`).
+"""Model assembly of the zoo, ``dense``, ``moe``, ``ssm`` (RWKV6),
+``hybrid`` (Hymba) and ``audio`` (SeamlessM4T) families — counterpart
+of `repro.models.transformer` (`_init_decoder_block`, `_decoder_block`,
+`_init_cross_block`, `_cross_block`, `_encoder_block` (its init is
+`_init_decoder_block`), `_init_rwkv_block`, `_init_hymba_block`,
+`_hymba_block`, `init_params`, `layer_windows`, `cache_width`,
+`init_cache`, `_embed`, `_head`, `_forward_hidden`, `forward`,
+`forward_features`).
 
 Blocks keep the reference's stacked layout: every leaf of
 ``params["blocks"]`` and of the cache has a leading layer axis. The
@@ -20,7 +22,17 @@ in place of the MLP: ``params["blocks"]`` holds the MoE layers and, with
 ones, which run first. Its blocks' aux losses are summed into the
 forward's aux_losses. The ``hybrid`` block runs sliding-window
 attention and the selective SSM (`layers.ssm_block`) side by side on the
-same normed input and averages their normed outputs.
+same normed input and averages their normed outputs. The ``audio``
+family is an encoder-decoder: the frame embeddings (``aux_inputs
+["frames"]`` (B, Te, d_audio)) go through ``audio_adapter``, the
+non-causal encoder blocks (``enc_blocks``, RoPE at 0..Te-1) and
+``enc_norm`` to the context; each decoder layer is the decoder block
+(``blocks``) followed by a cross block (``cross_blocks``) that attends
+over the context, its attention and MLP outputs scaled by
+tanh(``gate_attn``) and tanh(``gate_mlp``), float32 scalars that start
+at 0, so at init the context does not reach the logits (the
+reference's init). The ranges ``audio.encoder`` and ``audio.cross``
+mark the encoder stack and each cross block for the profiler.
 
 Caches: ``dense``: ``{"kv": {"k", "v": (L, B, W, KH, hd), "pos": (L, B,
 W) int32}}`` ring buffers of width `cache_width` (int8 k and v add
@@ -30,12 +42,16 @@ layers, and ``"kv_dense"`` for its leading dense layers; ``ssm``:
 (L, B, d)}`` (the last token seen by each layer's time-mix and
 channel-mix); ``hybrid``: ``{"kv": the dense ring buffers, "ssm": (L,
 B, di, st) float32, "conv": (L, B, 3, di)}`` (each layer's SSM state and
-the last 3 inputs of its conv). A ``hybrid`` prefill needs a cache, as
+the last 3 inputs of its conv); ``audio``: ``{"kv": the dense ring
+buffers of its decoder layers, "ctx": (B, Te, d)}``, the encoder's
+output, which a prefill with frames writes (Te = the frames' length)
+and decode reads (the cross blocks project its k and v again every
+step, as the reference's). A ``hybrid`` prefill needs a cache, as
 the reference's; one longer than the ring (W = 1024 slots for
 hymba-1.5b) keeps only its last W positions' keys, so its earlier
 queries lose keys of their window, and the next layer's SSM carries
 that on: even the last logits then differ from a full forward's, as
-the reference's do. The other families raise NotImplementedError
+the reference's do. The ``vlm`` family raises NotImplementedError
 naming ROADMAP.md.
 """
 from __future__ import annotations
@@ -53,7 +69,7 @@ ATTENTION_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ATTENTION_FAMILIES + ("ssm", "hybrid"):
+    if cfg.family not in ATTENTION_FAMILIES + ("ssm", "hybrid", "audio"):
         raise family_not_ported(cfg.family)
 
 
@@ -89,6 +105,40 @@ def _decoder_block(cfg, p, x, q_pos, *, window, cache=None):
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["ln2_post"], h)
     return x + h, new_cache, aux
+
+
+def _init_cross_block(cfg, gen, dtype):
+    """Norm, cross-attention (no qkv biases), norm, MLP, and the two
+    float32 0-d gates at 0 whatever `dtype` is."""
+    dev = gen.device
+    return {"ln1": L.init_norm(cfg, dtype=dtype, device=dev),
+            "xattn": L.init_attention(cfg, gen, dtype, cross=True),
+            "ln2": L.init_norm(cfg, dtype=dtype, device=dev),
+            "mlp": L.init_mlp(cfg, gen, dtype),
+            "gate_attn": torch.zeros((), dtype=torch.float32, device=dev),
+            "gate_mlp": torch.zeros((), dtype=torch.float32, device=dev)}
+
+
+def _cross_block(cfg, p, x, q_pos, ctx):
+    """Gated cross-attention over the context `ctx` (B, Te, d), then a
+    gated MLP, with residuals: x + tanh(gate) * h, the gate rounded to
+    x's dtype before the product, as the reference's ``.astype``."""
+    with torch.profiler.record_function("audio.cross"):
+        h, _ = L.attention_block(cfg, p["xattn"],
+                                 L.apply_norm(cfg, p["ln1"], x), q_pos,
+                                 kv_src=ctx, use_rope=False)
+        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * h
+        h = L.mlp_block(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * h
+
+
+def _encoder_block(cfg, p, x, pos):
+    """Pre-norm non-causal self-attention (RoPE at `pos`) and the MLP,
+    with residuals."""
+    h, _ = L.attention_block(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
+                             pos, causal=False)
+    x = x + h
+    return x + L.mlp_block(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
 
 
 def _init_rwkv_block(cfg, gen, dtype):
@@ -172,9 +222,12 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
     unembed (unless tied) and the stacked blocks, in the reference's
     layouts and per-leaf dtypes (`dtype`, except the ``ssm`` family's
     float32 ``w0``, ``w_lora_b`` and ``u``, the ``moe`` family's float32
-    router and the ``hybrid`` family's float32 ``b_dt``, ``A_log`` and
-    ``D``). ``moe`` adds ``dense_blocks`` for its leading dense
-    layers, and its ``blocks`` hold the MoE layers. The draws are the
+    router, the ``hybrid`` family's float32 ``b_dt``, ``A_log`` and
+    ``D``, and the ``audio`` family's float32 gates). ``moe`` adds
+    ``dense_blocks`` for its leading dense layers, and its ``blocks``
+    hold the MoE layers; ``audio`` adds ``enc_blocks``,
+    ``cross_blocks`` (one a decoder layer), ``audio_adapter`` (d_audio,
+    d) and ``enc_norm``. The draws are the
     port's own: tests carry the reference's weights across with
     `convert.zoo_params_from_numpy`."""
     _check_family(cfg)
@@ -189,6 +242,16 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
         init = _init_rwkv_block if cfg.family == "ssm" else _init_hymba_block
         p["blocks"] = _init_stack(cfg.n_layers,
                                   lambda: init(cfg, gen, dtype))
+        return p
+    if cfg.family == "audio":     # an encoder layer: a decoder block's init
+        p["enc_blocks"] = _init_stack(
+            cfg.n_encoder_layers, lambda: _init_decoder_block(cfg, gen, dtype))
+        p["blocks"] = _init_stack(
+            cfg.n_layers, lambda: _init_decoder_block(cfg, gen, dtype))
+        p["cross_blocks"] = _init_stack(
+            cfg.n_layers, lambda: _init_cross_block(cfg, gen, dtype))
+        p["audio_adapter"] = L.fan_in_init(gen, (cfg.d_audio, d), dtype)
+        p["enc_norm"] = L.init_norm(cfg, dtype=dtype, device=gen.device)
         return p
     moe = cfg.family == "moe"
     n_dense = _n_dense(cfg)
@@ -225,14 +288,23 @@ def cache_width(cfg, seq_len: int, long_context: bool) -> int:
 
 
 def init_cache(cfg, batch: int, seq_len: int = 0, dtype=torch.bfloat16,
-               device=None, *, long_context: bool = False) -> dict:
+               device=None, *, long_context: bool = False,
+               ctx_len: int = 0) -> dict:
     """Empty decode cache for positions < `seq_len`: ``dense`` and
     ``moe``, ring buffers of `cache_width` slots in `dtype`
     (``torch.int8``: the quantized cache), ``kv_dense`` for the leading
     dense layers; ``ssm``, the recurrent state (its size does not depend
     on `seq_len`); ``hybrid``, the ring buffers, the SSM states in
-    float32 and the conv states in `dtype`."""
+    float32 and the conv states in `dtype`; ``audio``, the ring buffers
+    and a zero context of `ctx_len` rows in `dtype`."""
     _check_family(cfg)
+    if cfg.family == "audio":
+        return {"kv": L.make_cache(cfg, batch,
+                                   cache_width(cfg, seq_len, long_context),
+                                   dtype, n_layers=cfg.n_layers,
+                                   device=device),
+                "ctx": torch.zeros((batch, ctx_len, cfg.d_model),
+                                   dtype=dtype, device=device)}
     if cfg.family == "hybrid":
         n, di = cfg.n_layers, cfg.ssm_expand * cfg.d_model
         return {"kv": L.make_cache(cfg, batch,
@@ -358,14 +430,61 @@ def _hymba_layers(cfg, p, x, positions, cache, long_context):
     return x, (None if cache is None else _stack(outs)), aux
 
 
+def _encode(cfg, p, frames, dtype):
+    """The ``audio`` context: `frames` (B, Te, d_audio) in `dtype` through
+    ``audio_adapter``, the encoder blocks at positions 0..Te-1 and
+    ``enc_norm`` -> (B, Te, d)."""
+    with torch.profiler.record_function("audio.encoder"):
+        x = frames.to(dtype) @ p["audio_adapter"]
+        b, te = x.shape[:2]
+        pos = torch.arange(te, device=x.device).expand(b, te)
+        for i in range(cfg.n_encoder_layers):
+            x = _encoder_block(cfg, tree_map(lambda t: t[i], p["enc_blocks"]),
+                               x, pos)
+        return L.apply_norm(cfg, p["enc_norm"], x)
+
+
+def _audio_layers(cfg, p, x, positions, cache, long_context, aux_inputs):
+    """``audio``: the context from ``aux_inputs["frames"]`` when given
+    (`_encode`), else the cache's ``ctx``; then each decoder block (the
+    long-context window under `long_context`, else none) with its slice
+    of the cache, followed by its cross block over the context. Returns
+    (x, the new cache ``{"kv", "ctx"}`` (this call's context) or None, a
+    float32 zero aux loss)."""
+    if aux_inputs is not None:
+        ctx = _encode(cfg, p, aux_inputs["frames"], x.dtype)
+    elif cache is not None:
+        ctx = cache["ctx"]
+    else:
+        raise ValueError("the audio family needs aux_inputs['frames'] (B, "
+                         "T_frames, d_audio) for its encoder, or a cache "
+                         "holding the encoder's ctx")
+    win = cfg.long_context_window if long_context else L.BIG_WINDOW
+    outs = []
+    for i in range(cfg.n_layers):
+        c = None if cache is None else {k: v[i] for k, v in
+                                        cache["kv"].items()}
+        x, new, _ = _decoder_block(cfg, tree_map(lambda t: t[i], p["blocks"]),
+                                   x, positions, window=win, cache=c)
+        x = _cross_block(cfg, tree_map(lambda t: t[i], p["cross_blocks"]),
+                         x, positions, ctx)
+        outs.append(new)
+    aux = torch.zeros((), device=x.device)
+    return x, (None if cache is None else {"kv": _stack(outs),
+                                           "ctx": ctx}), aux
+
+
 def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
-                    long_context=False):
+                    aux_inputs=None, long_context=False):
     """Backbone: embeddings -> blocks. Returns (hidden, new_cache,
     aux_losses float32); the new cache is None in train mode without a
-    cache, as the reference's. ``dense``, ``moe`` and ``hybrid``:
-    `positions` None (0..S-1), (B,) (each row's first position) or (B,
-    S); a ``dense`` or ``moe`` prefill without a cache returns None, a
-    ``hybrid`` one raises ValueError, as the reference's."""
+    cache, as the reference's. ``dense``, ``moe``, ``hybrid`` and
+    ``audio``: `positions` None (0..S-1), (B,) (each row's first
+    position) or (B, S); a ``dense``, ``moe`` or ``audio`` prefill
+    without a cache returns None, a ``hybrid`` one raises ValueError, as
+    the reference's. `aux_inputs`: ``{"frames": (B, Te, d_audio)}`` for
+    ``audio`` (without it, and without a cache, ``audio`` raises
+    ValueError), ignored by the other families."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -380,6 +499,9 @@ def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
             positions = steps.expand(b, s)
         elif positions.dim() == 1:
             positions = positions[:, None] + steps[None]
+        if cfg.family == "audio":
+            return _audio_layers(cfg, p, x, positions, cache, long_context,
+                                 aux_inputs)
         layers = (_hymba_layers if cfg.family == "hybrid"
                   else _attention_layers)
         return layers(cfg, p, x, positions, cache, long_context)
@@ -396,24 +518,28 @@ def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
 
 
 def forward(cfg, p, tokens, *, mode: str = "train", cache=None,
-            positions=None, long_context: bool = False):
+            positions=None, aux_inputs=None, long_context: bool = False):
     """Unified forward. Returns (logits float32, new_cache, aux_losses).
 
     tokens: (B, S) int64. decode: S == 1 against `cache` and `positions`
     (B,) absolute. The ``ssm`` recurrence reads neither `positions` nor
-    `long_context` (the ``hybrid`` family's attention reads both). aux_losses (float32) is the sum of the MoE blocks'
-    load-balance losses, 0 for the other families."""
+    `long_context` (the ``hybrid`` family's attention reads both).
+    `aux_inputs`: the ``audio`` family's ``{"frames"}``
+    (`_forward_hidden`). aux_losses (float32) is the sum of the MoE
+    blocks' load-balance losses, 0 for the other families."""
     x, new_cache, aux = _forward_hidden(cfg, p, tokens, mode=mode,
                                         cache=cache, positions=positions,
+                                        aux_inputs=aux_inputs,
                                         long_context=long_context)
     return _head(cfg, p, x), new_cache, aux
 
 
-def forward_features(cfg, p, tokens):
+def forward_features(cfg, p, tokens, *, aux_inputs=None):
     """Mean-pooled, L2-normalised final hidden state (B, d_model) float32
     — the representation the dual-temperature loss takes for token
     architectures — and aux_losses, as `forward`'s."""
-    x, _, aux = _forward_hidden(cfg, p, tokens, mode="train", cache=None)
+    x, _, aux = _forward_hidden(cfg, p, tokens, mode="train", cache=None,
+                                aux_inputs=aux_inputs)
     x = L.apply_norm(cfg, p["final_norm"], x)
     f = x.mean(dim=1).float()
     f = f / torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True),

@@ -521,7 +521,8 @@ def test_rwkv6_function_on_card_matches_plain_gradients(cuda, BH, S,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 2048), (2, 8, 2048), (512, 2048),
                                    (37, 260), (3, 17, 1024), (8, 8192),
-                                   (3, 17, 4608), (8, 1600), (512, 1600)])
+                                   (3, 17, 4608), (8, 1600), (512, 1600),
+                                   (8, 1024), (512, 1024)])
 def test_dt_loss_wide_kernel_matches_plain_on_card(cuda, shape):
     """The wide form (256 < D <= 8192) against the plain version on unit
     rows: one launch of it and none of the narrow kernel, two calls
