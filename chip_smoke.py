@@ -322,7 +322,7 @@ the JAX package `repro`. Phases, each of which must pass:
    cuBLAS); the DT kernel's wide form runs once a ``dt`` step at D =
    1024, and [train]'s `dt_wide_check` holds it at (8, 1024) and (512,
    1024). The reference starts every gate at 0, which keeps the context
-   out of the logits, so every check sets the gates to AUDIO_GATES.
+   out of the logits, so every check sets the gates to CROSS_GATES.
    * Cross-check: ``seamless-m4t-large-v2-smoke`` in float32 on the card
      and with ``device="cpu"``: a train-mode forward with frames, a
      prefill of 32 with frames and 4 decode steps that read the ctx from
@@ -344,6 +344,36 @@ the JAX package `repro`. Phases, each of which must pass:
      projections of the context, recomputed every decode step, as the
      reference's). Every cut is printed with its reason.
 
+14. Vision-language path (``[vlm]``): the zoo's vlm family,
+   Llama-3.2-Vision's decoder blocks stacked nested under super-layers,
+   each closed by the gated cross block of [audio] over the projected
+   patch embeddings, after [audio]'s tensors are freed. No kernel of its
+   own; the DT kernel's wide form runs once a ``dt`` step at D = 8192,
+   which [train]'s `dt_wide_check` holds at (8, 8192) and (512, 8192).
+   Every check sets the gates to CROSS_GATES.
+   * Cross-check: ``llama-3.2-vision-90b-smoke`` at VLM_NESTED (2
+     super-layers of 2 decoder blocks, the rings 4 flat layers) in
+     float32 on the card and with ``device="cpu"``: a train-mode forward
+     with patches, a prefill of 32 with patches and 4 decode steps that
+     read the projected patches from the cache, logits and the cache
+     leaves at ZOO_CROSS_TOL, decode against a full forward with the same
+     patches; one ``lm`` step in 2 micro-batches and one ``dt`` step
+     through `train_cross_check`.
+   * ``llama-3.2-vision-90b`` at full width (d 8192, 64 heads of 128 with
+     8 KV heads, d_ff 28,672, 1,601 vision tokens of 1,280), random
+     bfloat16 weights from seed 0, served with n_layers cut to 5 (one
+     period: 4 decoder blocks and one cross block, 6.40e9 parameters): 8
+     prompts x 3008 tokens with patches (8, 1601, 1280) into 3072 slots,
+     64 greedy decode steps; one decode step under
+     `no_implicit_transfers`; decode on VLM_CHECK_B sequences held
+     against a full forward with the same patches; trained with n_layers
+     cut to 2 (one decoder block and one cross block, the reference's
+     reduced() layout at full width): ``lm`` at 8 x 4096 in 8
+     micro-batches and ``dt`` at 8 x 512; the prefill, 4 decode steps and
+     an ``lm`` micro-batch profiled with the ``vlm.vision_proj``,
+     ``vlm.cross`` and ``attention.ctx_kv`` ranges. Every cut is printed
+     with its reason.
+
 The q8 kernels are held against their plain versions in phase 2, at
 (5, Ppad), (3, Ppad), (2, Ppad) and (1, Ppad), Ppad = 11,506,688 (the
 cohort, the groups of MultiRSU and the handover, a snapshot): codes,
@@ -360,7 +390,7 @@ path), each with its launches on the path that runs it (``paths``: its
 launches on every path: main, comms, batched, resume, engine (its
 graph campaigns), multi, mesh, handover, fedco, zoo, train (the timed
 steps of both objectives), dense (the timed dense steps and serving
-runs), moe, hybrid and audio (likewise)),
+runs), moe, hybrid, audio and vlm (likewise)),
 ``ms`` and ``device_ms``. A ``[time]`` line gives the script's seconds.
 The last three lines of standard output are the
 ``kernels`` JSON line, the nvidia-smi line, and ``{"ok": true,
@@ -600,11 +630,12 @@ HYBRID_DT_LAYERS = 16
 # block's gate_attn and gate_mlp at 0, so tanh(0) = 0 keeps the encoder
 # and the cross-attention out of the logits and their gradients: a check
 # at the init gates passes with a wrong or missing encoder. Every check
-# of the phase sets them to AUDIO_GATES first (`_set_gates`). Card vs
-# CPU, the float32 smoke config: logits and every cache leaf (the rings
-# and the ctx) at ZOO_CROSS_TOL, the train steps as [dense]'s.
+# of the phase (and of [vlm], whose cross blocks are the same) sets them
+# to CROSS_GATES first (`_set_gates`). Card vs CPU, the float32 smoke
+# config: logits and every cache leaf (the rings and the ctx) at
+# ZOO_CROSS_TOL, the train steps as [dense]'s.
 AUDIO_ARCH = "seamless-m4t-large-v2"
-AUDIO_GATES = (0.5, -0.4)   # (gate_attn, gate_mlp) in every cross block
+CROSS_GATES = (0.5, -0.4)   # (gate_attn, gate_mlp) in every cross block
 # Served at full width and depth as DENSE_SERVE (prefill_32k and
 # decode_32k cut in batch and length): 16 prompts of 3008 tokens with
 # frames (16, 752, 1024) (max(S // 4, 8) rows at the prompt's S) into
@@ -635,6 +666,40 @@ AUDIO_LM, AUDIO_LM_STEPS = (8, 4096, 8), 1
 AUDIO_DT, AUDIO_DT_STEPS = (8, 512, 1), 1
 AUDIO_DT_LAYERS = 16
 AUDIO_RANGES = ("audio.encoder", "audio.cross", "attention.ctx_kv")
+
+# [vlm]: llama-3.2-vision-90b (100 layers, a gated cross block every 5th,
+# 9.07e10 parameters, 181 GB in bf16: one card holds no full depth).
+# Card vs CPU at VLM_NESTED, the smoke config with 2 super-layers of 2
+# decoder blocks (the reduced() layout has one of each and would not show
+# the order of the nested walk or of the flat cache index), float32, gates
+# CROSS_GATES, the limits of [audio]. Served at full width with n_layers
+# cut to VLM_SERVE_LAYERS, one period (4 decoder blocks and one cross
+# block, 6.40e9 parameters, 12.8 GB): 8 prompts x 3008 tokens with patches
+# (8, 1601, 1280) into 3072 slots (the decoder blocks on the flash path;
+# the cross blocks' 1601 rows, not a multiple of 1024, on the direct
+# path), 64 decode steps; reckoned peak 12.8 GB of weights + about 35 GB
+# for the cross block's direct path ((8, 64, 3008, 1601) float32 scores,
+# 9.9 GB a tensor, about 3.5 alive) + a 6.3 GB flash tile, about 55 GB,
+# so 8 prompts (16 would pass PEAK_GIB). Trained with n_layers 2 and a
+# cross block every 2nd layer (the reference's reduced() layout at full
+# width: one decoder block and one cross block, 3.84e9 parameters): at 5
+# layers the step state alone (bf16 params, momentum and a micro-batch's
+# gradients, float32 accumulators: 10 bytes a parameter) is 64 GB, over
+# PEAK_GIB; at 2 layers 38.4 GB. lm at 8 x 4096 in 8 micro-batches adds
+# 2.1 GB float32 logits a micro-batch and about 4 such tensors in their
+# backward, and the cross block's direct path keeps two (64, 4096, 1601)
+# float32 tensors of 1.7 GB: about 55 GB reckoned. dt at 8 x 512 in one
+# micro-batch: two views' (8, 64, 512, 1601) float32 probabilities, 1.7
+# GB a tensor, about 50 GB reckoned. lm's warm-up and profiled steps take
+# one micro-batch, as [audio]'s.
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_NESTED = dict(n_layers=6, cross_attn_period=3)
+VLM_SERVE, VLM_SERVE_LAYERS = (8, 3008, 64), 5
+VLM_CHECK_B = 2
+VLM_TRAIN = dict(n_layers=2, cross_attn_period=2)
+VLM_LM, VLM_LM_STEPS = (8, 4096, 8), 1
+VLM_DT, VLM_DT_STEPS = (8, 512, 1), 1
+VLM_RANGES = ("vlm.vision_proj", "vlm.cross", "attention.ctx_kv")
 
 
 def _smi() -> str:
@@ -3096,7 +3161,8 @@ def _dt_kernel_spread(cfg, params, tokens, drops, aux_inputs=None) -> dict:
     Also returns the measured errors, min(w_a), and the plain version's
     float32 mean loss against its float64 evaluation on the same
     features (the formula's own rounding). `aux_inputs`: the ``audio``
-    family's frames, which both views read."""
+    family's frames or the ``vlm`` family's patches, which both views
+    read."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -3132,9 +3198,23 @@ def _dt_kernel_spread(cfg, params, tokens, drops, aux_inputs=None) -> dict:
     return out
 
 
+def _ctx_input(cfg, b: int, s: int):
+    """(key, shape) of the context input of `b` sequences of `s` tokens:
+    the ``audio`` family's frames (B, max(S // 4, 8), d_audio), the
+    ``vlm`` family's patches (B, n_vision_tokens, d_vision); None for
+    the other families."""
+    from repro_torch.launch import steps
+
+    if cfg.family == "audio":
+        return "frames", steps.frames_shape(cfg, b, s)
+    if cfg.family == "vlm":
+        return "patches", steps.patches_shape(cfg, b)
+    return None
+
+
 def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
                                                       ("dt", 1, 4, 37)),
-                      tag="[train]", dt_loss_spec=False):
+                      tag="[train]", dt_loss_spec=False, **replace):
     """``<arch>-smoke`` in float32: for each (objective, micro-batches,
     B, S) of `cases` (default: one ``lm`` step (flsimco, sgdm) in 2
     micro-batches and one ``dt`` step, B = 4, S = 37) the step from the
@@ -3145,9 +3225,12 @@ def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
     TRAIN_LEAF_REL plus DT_FWD_TOL / min(w_a), the most the DT kernel's
     specified float32 difference in lse_a can reach the gradient
     (`_dt_kernel_spread`, which also holds the kernel's lse_a and lse_b
-    to DT_FWD_TOL on the card's features). An ``audio`` config gets
-    AUDIO_GATES (`_set_gates`) and each batch standard normal frames
-    (B, max(S // 4, 8), d_audio)."""
+    to DT_FWD_TOL on the card's features). An ``audio`` or ``vlm``
+    config gets CROSS_GATES (`_set_gates`) and each batch its context
+    input (`_ctx_input`), standard normal. `replace`: fields of the smoke config to
+    change (`dataclasses.replace`)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -3157,9 +3240,9 @@ def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
 
-    cfg = get_config(arch + "-smoke")
+    cfg = dataclasses.replace(get_config(arch + "-smoke"), **replace)
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
-    if cfg.family == "audio":
+    if cfg.family in ("audio", "vlm"):
         _set_gates(params)
     for objective, nm, b, s in cases:
         shape = InputShape("cross", s, b, "train")
@@ -3170,9 +3253,10 @@ def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
                      np.float32)),
                  "drops": steps.draw_drop_masks(
                      (b, s), torch.Generator().manual_seed(1))}
-        if cfg.family == "audio":
-            batch["frames"] = torch.from_numpy(rs.randn(
-                *steps.frames_shape(cfg, b, s)).astype(np.float32))
+        ctx_in = _ctx_input(cfg, b, s)
+        if ctx_in is not None:
+            batch[ctx_in[0]] = torch.from_numpy(
+                rs.randn(*ctx_in[1]).astype(np.float32))
         outs = []
         for d in (dev, torch.device("cpu")):
             p = tree_map(lambda t: t.to(d), params)
@@ -3189,8 +3273,8 @@ def train_cross_check(dev, arch="rwkv6-1.6b", cases=(("lm", 2, 4, 37),
             sp = _dt_kernel_spread(
                 cfg, tree_map(lambda t: t.to(dev), params),
                 batch["tokens"].to(dev), batch["drops"].to(dev),
-                {"frames": batch["frames"].to(dev)} if "frames" in batch
-                else None)
+                {k: batch[k].to(dev) for k in steps.AUX_KEYS
+                 if k in batch} or None)
             amp = sp["amp"]
             if dt_loss_spec:
                 loss_tol = sp["loss_tol"]
@@ -3269,13 +3353,17 @@ def _train_run(cfg, params, objective, batch_, seq, n_micro, steps_, dev,
     `one_micro` the warm-up and the profiled step take one micro-batch
     (batch_ / n_micro sequences, the same shapes a micro-batch of the
     timed step has), so the profile holds an eighth of the events of an
-    8-micro-batch step. Returns (params, the timed steps' launches)."""
+    8-micro-batch step. `params` may be a function that makes them, so
+    that no caller holds the first copy past the warm-up step, which
+    replaces it. Returns (params, the timed steps' launches)."""
     import torch
 
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import steps as st
     from repro_torch.launch import train as tr
 
+    if callable(params):
+        params = params()
     shape = InputShape(objective, seq, batch_, "train")
     fn, nm = st.make_train_step(cfg, shape, objective=objective,
                                 n_micro=n_micro)
@@ -3476,7 +3564,8 @@ def _dense_logits(cfg, params, tokens, start: int, eps: float = 0.0,
                   aux_inputs=None):
     """Float32 logits over the real vocabulary of positions start.. of a
     full forward (train mode, no cache) of `tokens` (with `aux_inputs`,
-    the ``audio`` family's frames), the head on those positions only;
+    the ``audio`` family's frames or the ``vlm`` family's patches), the
+    head on those positions only;
     with eps > 0 every attention output is scaled by (1 +- eps), a
     seeded random sign an element, and rounded back to its dtype."""
     import torch
@@ -3506,18 +3595,19 @@ def _dense_logits(cfg, params, tokens, start: int, eps: float = 0.0,
 
 
 def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str,
-               flash: bool = True, frames=None, prepare=None):
+               flash: bool = True, aux=None, prepare=None):
     """A zoo model with random bfloat16 weights from seed 0 (passed to
     `prepare` first, when given) through launch/decode.py's functions:
-    `batch` prompts of `prompt` tokens (with the ``audio`` family's
-    `frames`) prefilled (`flash`: on the flash path; else within the
+    `batch` prompts of `prompt` tokens (with `aux`, the context inputs
+    of `run_prefill`: the ``audio`` family's ``{"frames"}``, the ``vlm``
+    family's ``{"patches"}``) prefilled (`flash`: on the flash path; else within the
     ring, prompt <= its width) into a bfloat16 cache of `prompt` +
     `n_dec` slots (of the window's width where that is less), then
     `n_dec` greedy decode steps, timed after a
     warm-up, the counters zeroed before each; no kernel launch (the
     attention families' serving path runs none) and peak memory at most
     PEAK_GIB. Prints the times; returns a namespace of params, prompts,
-    frames, the timed prefill's last logits and cache, the decoded
+    aux, the timed prefill's last logits and cache, the decoded
     tokens and the launches."""
     import types
 
@@ -3541,8 +3631,9 @@ def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str,
     if prepare is not None:
         prepare(params)
     prompts = dec.random_prompts(cfg, batch, prompt, 0, dev)
+    aux = aux or {}
     last, cache, t_warm = dec.run_prefill(cfg, params, prompts, total, bf16,
-                                          frames)
+                                          **aux)
     dec.run_decode(cfg, params, last, cache, prompt, 2)
     del last, cache
     torch.cuda.synchronize()
@@ -3550,7 +3641,7 @@ def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str,
     warm = time.time() - t
     _zero_counts()
     last, cache, t_pre = dec.run_prefill(cfg, params, prompts, total, bf16,
-                                         frames)
+                                         **aux)
     pre = _counts()
     _zero_counts()
     toks, _, t_dec = dec.run_decode(cfg, params, last, cache, prompt, n_dec)
@@ -3572,7 +3663,7 @@ def _serve_run(dev, cfg, batch: int, prompt: int, n_dec: int, tag: str,
         raise AssertionError(f"{tag} {cfg.name}: peak {peak:.2f} GiB > "
                              f"{PEAK_GIB}")
     return types.SimpleNamespace(params=params, prompts=prompts,
-                                 frames=frames, last=last, cache=cache,
+                                 aux=aux, last=last, cache=cache,
                                  toks=toks, total=total,
                                  launches=_add(pre, dcd))
 
@@ -3597,10 +3688,11 @@ def _served_logits(cfg, params, last, cache, toks, start: int):
 
 
 def _decode_vs_full(tag, cfg, params, prompts, last, cache, toks,
-                    note: str = "", frames=None) -> None:
+                    note: str = "", aux=None) -> None:
     """Each decode step's logits (and the prefill's last) against a full
     forward of the prompts and the decoded tokens at the same positions
-    (with the prefill's `frames`, for the ``audio`` family), held at
+    (with the prefill's context inputs `aux`, for the ``audio`` and
+    ``vlm`` families), held at
     DENSE_FLOOR_X times the divergence of that forward from itself with
     its attention outputs perturbed by DENSE_BF16_EPS (up to one
     bfloat16 step: the decode steps' direct path rounds its
@@ -3608,7 +3700,7 @@ def _decode_vs_full(tag, cfg, params, prompts, last, cache, toks,
     measured in the same run."""
     import torch
 
-    aux = None if frames is None else {"frames": frames}
+    aux = aux or None
     prompt, n = prompts.shape[1], toks.shape[1] - 1
     served = _served_logits(cfg, params, last, cache, toks, prompt)
     seq = torch.cat([prompts, toks[:, :n]], 1)
@@ -3638,7 +3730,7 @@ def _serve_profiles(tag, cfg, run, ranges=()) -> None:
 
     prof = _profile(lambda: dec.run_prefill(cfg, run.params, run.prompts,
                                             run.total, torch.bfloat16,
-                                            run.frames)[2],
+                                            **run.aux)[2],
                     ranges=ranges)
     print(f"{tag} profiled {cfg.name} prefill: {json.dumps(prof)}",
           flush=True)
@@ -4248,54 +4340,53 @@ def hybrid_full_width(dev) -> dict:
 
 
 def _set_gates(params) -> None:
-    """Every cross block's (gate_attn, gate_mlp) to AUDIO_GATES, in
+    """Every cross block's (gate_attn, gate_mlp) to CROSS_GATES, in
     place."""
-    for name, g in zip(("gate_attn", "gate_mlp"), AUDIO_GATES):
+    for name, g in zip(("gate_attn", "gate_mlp"), CROSS_GATES):
         params["cross_blocks"][name].fill_(g)
 
 
-def audio_cross_check(dev):
-    """``seamless-m4t-large-v2-smoke`` in float32 with AUDIO_GATES on the
-    card and with ``device="cpu"`` from the same params and frames: a
-    train-mode forward of 36 positions with 9 frames, then a prefill of
-    32 with 8 frames into 36 slots (the ctx starting at enc_ctx_len(36) =
-    9 zero rows) and 4 decode steps that read the ctx from the cache;
-    logits and the cache leaves (k, v, ctx) at ZOO_CROSS_TOL, positions
-    bitwise; each side's decode logits against its own full forward with
-    the prefill's frames at ZOO_CROSS_TOL; then an ``lm`` step in 2
-    micro-batches and a ``dt`` step with frames through
-    `train_cross_check`."""
-    import numpy as np
+def _free() -> None:
+    """Drops what Python no longer holds and the allocator's cache."""
     import torch
 
-    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ctx_cross_check(dev, tag, cfg, params, toks, s, aux_full, aux_pre):
+    """A model with a context (``audio``, ``vlm``; gates set) in float32
+    on the card and with ``device="cpu"`` from the same `params` and
+    tokens `toks` (B, s + n): a train-mode forward of all s + n
+    positions with the context inputs `aux_full`, then a prefill of s
+    with `aux_pre` into s + n slots (the ctx starting at
+    enc_ctx_len(s + n) zero rows) and n decode steps that read the ctx
+    from the cache; logits and the cache leaves (k, v, ctx) at
+    ZOO_CROSS_TOL, positions bitwise; each side's decode logits against
+    its own full forward with `aux_pre` at ZOO_CROSS_TOL."""
+    import torch
+
     from repro_torch.convert import tree_map
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
 
     cpu = torch.device("cpu")
-    cfg = get_config(AUDIO_ARCH + "-smoke")
-    v, b, s, n = cfg.vocab_size, 2, 32, 4
-    params = T.init_params(cfg, torch.Generator().manual_seed(0))
-    _set_gates(params)
-    rs = np.random.RandomState(0)
-    toks = torch.from_numpy(rs.randint(1, v, (b, s + n)))
-    fr_full, fr = (torch.from_numpy(rs.randn(
-        *steps.frames_shape(cfg, b, t)).astype(np.float32))
-        for t in (s + n, s))
+    v, b, n = cfg.vocab_size, toks.shape[0], toks.shape[1] - s
+    (key, x_full), (_, x_pre) = (next(iter(a.items()))
+                                 for a in (aux_full, aux_pre))
     outs = []
     for d in (dev, cpu):
         p = tree_map(lambda t: t.to(d), params)
         tk = toks.to(d)
         with torch.no_grad():
             full, _, _ = T.forward(cfg, p, tk,
-                                   aux_inputs={"frames": fr_full.to(d)})
+                                   aux_inputs={key: x_full.to(d)})
             cache = T.init_cache(cfg, b, s + n, dtype=torch.float32,
                                  device=d,
                                  ctx_len=steps.enc_ctx_len(cfg, s + n))
             lg, cache, _ = T.forward(cfg, p, tk[:, :s], mode="prefill",
                                      cache=cache,
-                                     aux_inputs={"frames": fr.to(d)})
+                                     aux_inputs={key: x_pre.to(d)})
             logits = [lg[:, -1]]
             for i in range(n):
                 lg, cache, _ = T.forward(
@@ -4303,7 +4394,7 @@ def audio_cross_check(dev):
                     cache=cache, positions=torch.full((b,), s + i, device=d))
                 logits.append(lg[:, 0])
             same, _, _ = T.forward(cfg, p, tk,
-                                   aux_inputs={"frames": fr.to(d)})
+                                   aux_inputs={key: x_pre.to(d)})
         served = torch.stack(logits, 1)[..., :v]
         outs.append((full[..., :v].cpu(), served.cpu(),
                      _max_err(served, same[:, s - 1:, :v]),
@@ -4313,48 +4404,110 @@ def audio_cross_check(dev):
     cache_err = max([_max_err(cc["kv"][k], ch["kv"][k]) for k in ("k", "v")]
                     + [_max_err(cc["ctx"], ch["ctx"])])
     same_pos = torch.equal(cc["kv"]["pos"], ch["kv"]["pos"])
-    print(f"[audio] {cfg.name} float32, gates {AUDIO_GATES}: forward "
-          f"{b}x{s + n} with {fr_full.shape[1]} frames, prefill {b}x{s} "
-          f"with {fr.shape[1]} frames into {cc['kv']['k'].shape[2]} slots "
-          f"+ {n} decode steps: card vs cpu forward logits max abs "
-          f"{full_err:.3e}, prefill and decode logits {err:.3e}, cache "
-          f"leaves (k, v, ctx {tuple(cc['ctx'].shape)}) {cache_err:.3e}, "
-          f"positions equal {same_pos}; decode vs the full forward with "
-          f"the prefill's frames {dc:.3e} (card), {dh:.3e} (cpu) (tol "
-          f"{ZOO_CROSS_TOL})", flush=True)
+    print(f"{tag} {cfg.name} ({cfg.n_layers} layers) float32, gates "
+          f"{CROSS_GATES}: forward {b}x{s + n} with {key} "
+          f"{tuple(x_full.shape)}, prefill {b}x{s} with {key} "
+          f"{tuple(x_pre.shape)} into {cc['kv']['k'].shape[2]} slots of "
+          f"{cc['kv']['k'].shape[0]} layers + {n} decode steps: card vs cpu "
+          f"forward logits max abs {full_err:.3e}, prefill and decode logits "
+          f"{err:.3e}, cache leaves (k, v, ctx {tuple(cc['ctx'].shape)}) "
+          f"{cache_err:.3e}, positions equal {same_pos}; decode vs the full "
+          f"forward with the prefill's {key} {dc:.3e} (card), {dh:.3e} "
+          f"(cpu) (tol {ZOO_CROSS_TOL})", flush=True)
     if not (max(full_err, err, cache_err, dc, dh) <= ZOO_CROSS_TOL
             and same_pos):
-        raise AssertionError(f"[audio] smoke card vs cpu: forward "
+        raise AssertionError(f"{tag} smoke card vs cpu: forward "
                              f"{full_err}, logits {err}, cache {cache_err}, "
                              f"decode vs full {dc} {dh}, positions "
                              f"{same_pos}")
+
+
+def audio_cross_check(dev):
+    """``seamless-m4t-large-v2-smoke`` with CROSS_GATES card vs CPU
+    (`_ctx_cross_check`): a forward of 36 positions with 9 frames, a
+    prefill of 32 with 8 frames into 36 slots and 4 decode steps; then
+    an ``lm`` step in 2 micro-batches and a ``dt`` step with frames
+    through `train_cross_check`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(AUDIO_ARCH + "-smoke")
+    v, b, s, n = cfg.vocab_size, 2, 32, 4
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    _set_gates(params)
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(1, v, (b, s + n)))
+    fr_full, fr = (torch.from_numpy(rs.randn(
+        *steps.frames_shape(cfg, b, t)).astype(np.float32))
+        for t in (s + n, s))
+    _ctx_cross_check(dev, "[audio]", cfg, params, toks, s,
+                     {"frames": fr_full}, {"frames": fr})
     train_cross_check(dev, AUDIO_ARCH, (("lm", 2, 4, 40), ("dt", 1, 4, 37)),
                       tag="[audio]", dt_loss_spec=True)
 
 
-def audio_serve(dev, cfg, batch: int, prompt: int, n_dec: int,
-                check_b: int) -> dict:
-    """seamless served by `_serve_run` with AUDIO_GATES and frames
-    (batch, max(prompt // 4, 8), d_audio) drawn on the card from seed 5,
-    one decode step under `no_implicit_transfers` (no host sync), the
-    decode of `check_b` sequences held against a full forward with the
-    same frames (`_decode_vs_full`), the prefill and 4 decode steps
-    profiled with the AUDIO_RANGES. Returns the launches."""
+def vlm_cross_check(dev):
+    """``llama-3.2-vision-90b-smoke`` at VLM_NESTED (2 super-layers of 2
+    decoder blocks, the rings 4 flat layers) with CROSS_GATES card vs
+    CPU (`_ctx_cross_check`): a forward of 36 positions with patches, a
+    prefill of 32 with other patches into 36 slots and 4 decode steps
+    that read the projected patches from the cache; then an ``lm`` step
+    in 2 micro-batches and a ``dt`` step with patches through
+    `train_cross_check`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH + "-smoke"), **VLM_NESTED)
+    v, b, s, n = cfg.vocab_size, 2, 32, 4
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    _set_gates(params)
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(1, v, (b, s + n)))
+    pt_full, pt = (torch.from_numpy(rs.randn(
+        *steps.patches_shape(cfg, b)).astype(np.float32)) for _ in range(2))
+    _ctx_cross_check(dev, "[vlm]", cfg, params, toks, s,
+                     {"patches": pt_full}, {"patches": pt})
+    train_cross_check(dev, VLM_ARCH, (("lm", 2, 4, 40), ("dt", 1, 4, 37)),
+                      tag="[vlm]", dt_loss_spec=True, **VLM_NESTED)
+
+
+def ctx_serve(dev, cfg, batch: int, prompt: int, n_dec: int,
+              check_b: int) -> dict:
+    """A model with a context (``audio``: frames (batch, max(prompt //
+    4, 8), d_audio); ``vlm``: patches (batch, n_vision_tokens,
+    d_vision); drawn on the card from seed 5) served by `_serve_run`
+    with CROSS_GATES, one decode step under `no_implicit_transfers` (no
+    host sync), the decode of `check_b` sequences held against a full
+    forward with the same context inputs (`_decode_vs_full`), the
+    prefill and 4 decode steps profiled with the family's ranges
+    (AUDIO_RANGES, VLM_RANGES). Returns the launches."""
     import torch
 
     from repro_torch.analysis.guards import no_implicit_transfers
     from repro_torch.convert import tree_map
     from repro_torch.launch import steps
 
+    tag = f"[{cfg.family}]"
+    key, shape = _ctx_input(cfg, batch, prompt)
+    ranges = AUDIO_RANGES if cfg.family == "audio" else VLM_RANGES
     g = torch.Generator(device=dev).manual_seed(5)
-    frames = torch.randn(steps.frames_shape(cfg, batch, prompt),
-                         generator=g, device=dev)
-    run = _serve_run(dev, cfg, batch, prompt, n_dec, "[audio]",
-                     frames=frames, prepare=_set_gates)
+    ctx_in = torch.randn(shape, generator=g, device=dev)
+    run = _serve_run(dev, cfg, batch, prompt, n_dec, tag,
+                     aux={key: ctx_in}, prepare=_set_gates)
     gates = [round(float(run.params["cross_blocks"][k][0]), 6)
              for k in ("gate_attn", "gate_mlp")]
-    print(f"[audio] {cfg.name} gates (gate_attn, gate_mlp) {gates} in "
-          f"every cross block; frames {tuple(frames.shape)}; cache after "
+    print(f"{tag} {cfg.name} gates (gate_attn, gate_mlp) {gates} in "
+          f"every cross block; {key} {tuple(ctx_in.shape)}; cache after "
           f"the prefill: rings {tuple(run.cache['kv']['k'].shape)}, ctx "
           f"{tuple(run.cache['ctx'].shape)} {run.cache['ctx'].dtype}",
           flush=True)
@@ -4365,24 +4518,24 @@ def audio_serve(dev, cfg, batch: int, prompt: int, n_dec: int,
             "positions": torch.full((batch,), prompt, device=dev)})
     torch.cuda.synchronize()
     if not bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()):
-        raise AssertionError(f"[audio] {cfg.name}: guarded decode logits "
+        raise AssertionError(f"{tag} {cfg.name}: guarded decode logits "
                              f"are not finite")
-    print(f"[audio] {cfg.name} a decode step under no_implicit_transfers "
+    print(f"{tag} {cfg.name} a decode step under no_implicit_transfers "
           f"ran with no host sync", flush=True)
     del lg
     cache = {"kv": tree_map(lambda t: t[:, :check_b], run.cache["kv"]),
              "ctx": run.cache["ctx"][:check_b]}
-    _decode_vs_full("[audio]", cfg, run.params, run.prompts[:check_b],
+    _decode_vs_full(tag, cfg, run.params, run.prompts[:check_b],
                     run.last[:check_b], cache, run.toks[:check_b],
                     note=f" of {check_b} sequences",
-                    frames=frames[:check_b])
-    _serve_profiles("[audio]", cfg, run, ranges=AUDIO_RANGES)
+                    aux={key: ctx_in[:check_b]})
+    _serve_profiles(tag, cfg, run, ranges=ranges)
     return run.launches
 
 
 def audio_full_width(dev) -> dict:
-    """seamless-m4t-large-v2 at full width and depth with AUDIO_GATES,
-    served (`audio_serve` at AUDIO_SERVE), then its ``lm`` steps at
+    """seamless-m4t-large-v2 at full width and depth with CROSS_GATES,
+    served (`ctx_serve` at AUDIO_SERVE), then its ``lm`` steps at
     AUDIO_LM at full depth and its ``dt`` steps at AUDIO_DT (the DT
     kernel's wide form at D = 1024, one launch a step) with the decoder's
     n_layers cut to AUDIO_DT_LAYERS, both through `launch/train.py`'s
@@ -4396,11 +4549,7 @@ def audio_full_width(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch import decode as dec
 
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    free()
+    _free()
     print(f"[audio] full width: {torch.cuda.memory_allocated() / 2**30:.2f}"
           f" GiB allocated before the phase", flush=True)
     cfg = get_config(AUDIO_ARCH)
@@ -4419,12 +4568,12 @@ def audio_full_width(dev) -> dict:
           f"would take about 46 GB at full depth beside 20.4 GB of step "
           f"state); lm's warm-up and profiled steps take one micro-batch "
           f"of {AUDIO_LM[0] // AUDIO_LM[2]} x {AUDIO_LM[1]}; gates "
-          f"{AUDIO_GATES} (the reference's init of 0 keeps the context out "
+          f"{CROSS_GATES} (the reference's init of 0 keeps the context out "
           f"of the logits)", flush=True)
     t = time.time()
-    total = audio_serve(dev, cfg, *AUDIO_SERVE, check_b=AUDIO_CHECK_B)
+    total = ctx_serve(dev, cfg, *AUDIO_SERVE, check_b=AUDIO_CHECK_B)
     print(f"[audio] serving {time.time() - t:.1f} s", flush=True)
-    free()
+    _free()
     for objective, (b, s, nm), n, layers in (
             ("lm", AUDIO_LM, AUDIO_LM_STEPS, cfg.n_layers),
             ("dt", AUDIO_DT, AUDIO_DT_STEPS, AUDIO_DT_LAYERS)):
@@ -4437,8 +4586,76 @@ def audio_full_width(dev) -> dict:
                                one_micro=nm > 1)
         total = _add(total, counts)
         del params
-        free()
+        _free()
         print(f"[audio] {objective} {time.time() - t:.1f} s", flush=True)
+    return total
+
+
+def vlm_full_width(dev) -> dict:
+    """llama-3.2-vision-90b at full width with CROSS_GATES: served
+    (`ctx_serve` at VLM_SERVE) with n_layers cut to VLM_SERVE_LAYERS,
+    then its ``lm`` steps at VLM_LM and its ``dt`` steps at VLM_DT (the
+    DT kernel's wide form at D = 8192, one launch a step) at VLM_TRAIN's
+    depth, through `launch/train.py`'s functions (patches from
+    `make_batch`), profiled with VLM_RANGES. Prints each cut with its
+    reason. Returns the launches of the timed steps and the serving
+    runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import decode as dec
+
+    _free()
+    print(f"[vlm] full width: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated before the phase", flush=True)
+    cfg = get_config(VLM_ARCH)
+    serve_cfg = dataclasses.replace(cfg, n_layers=VLM_SERVE_LAYERS)
+    train_cfg = dataclasses.replace(cfg, **VLM_TRAIN)
+    b, p_len, n_dec = VLM_SERVE
+    print(f"[vlm] cuts: {cfg.name} ({cfg.n_layers} layers, a cross block "
+          f"every {cfg.cross_attn_period}th, 181 GB of bf16 weights) served "
+          f"at full width with n_layers {cfg.n_layers} -> "
+          f"{VLM_SERVE_LAYERS} (one period: 4 decoder blocks and one cross "
+          f"block, 12.8 GB), {b} prompts x {p_len} tokens with patches "
+          f"({b}, {cfg.n_vision_tokens}, {cfg.d_vision}) + {n_dec} decode "
+          f"steps (prefill_32k's 32 x 32,768 and decode_32k's 128 sequences "
+          f"cut to one card's run; 16 prompts would pass PEAK_GIB: the "
+          f"cross block's direct path over {cfg.n_vision_tokens} rows holds "
+          f"about 4.4 GB of float32 scores a prompt); trained at full width "
+          f"with n_layers {cfg.n_layers} -> {VLM_TRAIN['n_layers']} and a "
+          f"cross block every {VLM_TRAIN['cross_attn_period']}nd (the "
+          f"reference's reduced() layout: one decoder block and one cross "
+          f"block; at 5 layers the step state alone would be 64 GB), lm "
+          f"train_4k's batch 256 -> {VLM_LM[0]} x {VLM_LM[1]} in "
+          f"{VLM_LM[2]} micro-batches (reckoned peak about 55 GB), dt "
+          f"{VLM_DT[0]} x {VLM_DT[1]}; lm's warm-up and profiled steps take "
+          f"one micro-batch of {VLM_LM[0] // VLM_LM[2]} x {VLM_LM[1]}; "
+          f"gates {CROSS_GATES} (the reference's init of 0 keeps the patches "
+          f"out of the logits)", flush=True)
+    t = time.time()
+    total = ctx_serve(dev, serve_cfg, *VLM_SERVE, check_b=VLM_CHECK_B)
+    print(f"[vlm] serving {time.time() - t:.1f} s", flush=True)
+    _free()
+    def gated():
+        params = dec.init_model(train_cfg, 0, torch.bfloat16, dev)
+        _set_gates(params)
+        return params
+
+    for objective, (b, s, nm), n in (("lm", VLM_LM, VLM_LM_STEPS),
+                                     ("dt", VLM_DT, VLM_DT_STEPS)):
+        t = time.time()
+        # no copy of the params outlives its use here (`gated` made
+        # inside, the run's params dropped): a stale 7.1 GiB copy beside
+        # the dt step's state and the update's float32 temporaries ran
+        # the card out of memory
+        counts = _train_run(train_cfg, gated, objective, b, s, nm, n, dev,
+                            ranges=VLM_RANGES, tag="[vlm]",
+                            one_micro=nm > 1)[1]
+        total = _add(total, counts)
+        _free()
+        print(f"[vlm] {objective} {time.time() - t:.1f} s", flush=True)
     return total
 
 
@@ -4555,8 +4772,7 @@ def run() -> int:
     # the FL paths' data, states and store are done with: free them for
     # the zoo's full-width phases
     del main_sc, main_state, sc, state, store
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     rows.append(rwkv6_kernel_check(dev))
     zoo_cross_check(dev)
     paths["zoo"] = zoo_launches = zoo_full_width(dev)
@@ -4564,24 +4780,23 @@ def run() -> int:
     rows.append(dt_wide_check(dev))
     train_cross_check(dev)
     paths["train"] = train_launches = train_full_width(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     dense_cross_check(dev)
     paths["dense"] = dense_full_width(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     moe_cross_check(dev)
     moe_block_check(dev)
     paths["moe"] = moe_full_width(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     hybrid_cross_check(dev)
     hybrid_ssm_check(dev)
     paths["hybrid"] = hybrid_full_width(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     audio_cross_check(dev)
     paths["audio"] = audio_full_width(dev)
+    _free()
+    vlm_cross_check(dev)
+    paths["vlm"] = vlm_full_width(dev)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
                 else zoo_launches if r["name"] == "rwkv6"

@@ -9,11 +9,11 @@ architecture ``rwkv6-1.6b`` (configs/rwkv6_1_6b.py) and its four
 ``dense`` ones (``tinyllama-1.1b``, ``qwen2-0.5b``, ``gemma2-27b``,
 ``deepseek-67b``) and its two ``moe`` ones (``olmoe-1b-7b``,
 ``kimi-k2-1t-a32b``), its ``hybrid`` one, ``hymba-1.5b``
-(configs/hymba_1_5b.py), and its ``audio`` one,
-``seamless-m4t-large-v2`` (configs/seamless_m4t_large_v2.py). The
-reference's other architecture (the ``vlm`` family's
-``llama-3.2-vision-90b``) raises NotImplementedError naming the
-ROADMAP.md entry that ports it.
+(configs/hymba_1_5b.py), its ``audio`` one, ``seamless-m4t-large-v2``
+(configs/seamless_m4t_large_v2.py), and its ``vlm`` one,
+``llama-3.2-vision-90b`` (configs/llama_3_2_vision_90b.py): every
+architecture of the reference's registry. An unknown name raises
+KeyError, as the reference's `get_config` does.
 """
 from __future__ import annotations
 
@@ -23,31 +23,23 @@ from dataclasses import dataclass
 
 VOCAB_PAD_MULTIPLE = 2048
 
-# The reference's registry (repro/configs/) beyond what the port runs.
-UNPORTED_ARCHS = ("llama-3.2-vision-90b",)
-PORTED_FAMILIES = ("resnet", "ssm", "dense", "moe", "hybrid", "audio")
-ROADMAP_ZOO = "ROADMAP.md Queue A, item 12 (the other zoo families)"
+PORTED_FAMILIES = ("resnet", "ssm", "dense", "moe", "hybrid", "audio",
+                   "vlm")
 
 
 def pad_vocab(v: int, multiple: int = VOCAB_PAD_MULTIPLE) -> int:
     return int(math.ceil(v / multiple) * multiple)
 
 
-def family_not_ported(family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"family={family!r} is not ported to repro_torch yet; see "
-        f"{ROADMAP_ZOO}")
-
-
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters: the fields of the reference's
     `ModelConfig` that the ResNet, ``ssm`` (RWKV6), ``dense``, ``moe``,
-    ``hybrid`` (Hymba) and ``audio`` (SeamlessM4T) families read, with
-    the reference's defaults."""
+    ``hybrid`` (Hymba), ``audio`` (SeamlessM4T) and ``vlm``
+    (Llama-3.2-Vision) families read, with the reference's defaults."""
 
     name: str
-    family: str      # resnet | ssm | dense | moe | hybrid | audio (vlm: not ported)
+    family: str      # resnet | ssm | dense | moe | hybrid | audio | vlm
     n_layers: int
     d_model: int
     d_ff: int
@@ -76,6 +68,9 @@ class ModelConfig:
     moe_impl: str = "auto"              # auto | scatter | ep (layers.moe_apply)
     n_shared_experts: int = 0           # kimi-k2: 1 shared expert
     moe_first_dense_layers: int = 0     # kimi-k2: first layer dense
+    cross_attn_period: int = 0          # llama3.2-vision: every 5th layer
+    n_vision_tokens: int = 0
+    d_vision: int = 0
     n_encoder_layers: int = 0           # seamless: 24
     d_audio: int = 0                    # frontend frame-embedding dim
     norm: str = "rmsnorm"
@@ -103,6 +98,7 @@ class ModelConfig:
         reference's rule: 2 layers, d_model <= 256, <= 4 heads of 64,
         <= 2 kv heads, d_ff <= 512, vocab <= 1024; 4 experts, 2 active,
         <= 1 shared and <= 1 leading dense layer; 2 encoder layers; a
+        cross block every 2nd layer over 16 vision tokens 64 wide; a
         sliding window becomes 32, the long-context window 64 and the
         frame embedding 64 wide)."""
         kw = dict(name=self.name + "-smoke", n_layers=2,
@@ -118,6 +114,8 @@ class ModelConfig:
                                                  1))
         if self.n_encoder_layers:
             kw.update(n_encoder_layers=2)
+        if self.cross_attn_period:
+            kw.update(cross_attn_period=2, n_vision_tokens=16, d_vision=64)
         if self.sliding_window:
             kw.update(sliding_window=32)
         if self.long_context_window:
@@ -158,14 +156,10 @@ def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         from repro_torch.configs import (  # noqa: F401
             deepseek_67b, gemma2_27b, hymba_1_5b, kimi_k2_1t_a32b,
-            olmoe_1b_7b, qwen2_0_5b, resnet18_cifar, rwkv6_1_6b,
-            seamless_m4t_large_v2, tinyllama_1_1b)
+            llama_3_2_vision_90b, olmoe_1b_7b, qwen2_0_5b, resnet18_cifar,
+            rwkv6_1_6b, seamless_m4t_large_v2, tinyllama_1_1b)
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
-    if name in UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch={name!r} is not ported to repro_torch yet; see "
-            f"{ROADMAP_ZOO}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown config {name!r}; the port registers "
                        f"{sorted(_REGISTRY)}")

@@ -4,8 +4,10 @@ a recurrent cache), ``dense`` family (tinyllama-1.1b, qwen2-0.5b,
 gemma2-27b, deepseek-67b; a ring-buffer KV cache), ``moe`` family
 (olmoe-1b-7b, kimi-k2-1t-a32b; the dense family's caches), ``hybrid``
 family (hymba-1.5b; the ring of its 1024 window beside the SSM and conv
-states) and ``audio`` family (seamless-m4t-large-v2; the decoder's
-rings beside the encoder's context).
+states), ``audio`` family (seamless-m4t-large-v2; the decoder's
+rings beside the encoder's context) and ``vlm`` family
+(llama-3.2-vision-90b; the decoder blocks' rings beside the projected
+patches).
 
 The reference runs ``--reduced`` end to end on the CPU and, without it,
 only lowers and compiles the decode step for a TPU mesh. The port runs
@@ -38,6 +40,15 @@ does: its cross blocks then attend over a zero context of max(S // 4,
 
     PYTHONPATH=src python -m repro_torch.launch.decode \\
         --arch seamless-m4t-large-v2 --reduced --device cpu
+
+The command line prefills llama-3.2-vision-90b without patches too: its
+cross blocks attend over a zero context of n_vision_tokens rows.
+`run_prefill` takes patches. At full width its 100 layers (181 GB in
+bf16) do not fit one card; chip_smoke.py serves it with n_layers cut to
+5, one period.
+
+    PYTHONPATH=src python -m repro_torch.launch.decode \\
+        --arch llama-3.2-vision-90b --reduced --device cpu
 
 Prints the prefill time, the decode time per step and decode tok/s.
 """
@@ -79,16 +90,18 @@ def greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
 
 
 def run_prefill(cfg, params, prompts, total_len: int, param_dtype,
-                frames=None):
+                frames=None, patches=None):
     """Prefill `prompts` (with the ``audio`` family's `frames` (B, Te,
-    d_audio) when given); returns (last-position logits (B, V), cache,
+    d_audio) or the ``vlm`` family's `patches` (B, n_vision_tokens,
+    d_vision) when given); returns (last-position logits (B, V), cache,
     seconds on the host clock, synchronised)."""
     b = prompts.shape[0]
     prefill = st.make_prefill_step(
         cfg, InputShape("prefill", total_len, b, "prefill"), param_dtype)
     batch = {"tokens": prompts}
-    if frames is not None:
-        batch["frames"] = frames
+    for k, v in (("frames", frames), ("patches", patches)):
+        if v is not None:
+            batch[k] = v
     _sync(prompts.device)
     t0 = time.perf_counter()
     last, cache = prefill(params, batch)

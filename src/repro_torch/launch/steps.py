@@ -14,8 +14,10 @@ weight (`_flsimco_example_weights`). On a mesh that sum is the weighted
 all-reduce GSPMD emits; on one card it is the sum over the batch.
 Micro-batches accumulate their gradients in float32, as the reference's
 scan does. The ``audio`` family's batches carry ``frames`` (B,
-`enc_ctx_len`, d_audio) beside the tokens, split into the micro-batches
-with them, and its prefill writes the encoder's context into the cache.
+`enc_ctx_len`, d_audio) and the ``vlm`` family's ``patches`` (B,
+n_vision_tokens, d_vision) beside the tokens, split into the
+micro-batches with them, and their prefills write the context into the
+cache.
 """
 from __future__ import annotations
 
@@ -30,12 +32,16 @@ from repro_torch.models import transformer as T
 MASK_TOKEN = 0  # token id used for DT-objective masking views
 DROP_P = 0.15   # the DT objective's token drop rate, a view each
 AGGREGATIONS = ("flsimco", "fedavg", "discard")
+AUX_KEYS = ("frames", "patches")   # the context inputs: audio's, vlm's
 
 
 def enc_ctx_len(cfg, seq_len: int) -> int:
-    """Context rows of the ``audio`` family for `seq_len` tokens (the
-    reference's frames length, max(S // 4, 8)); 0 for the other
+    """Context rows for `seq_len` tokens: the ``audio`` family's
+    (the reference's frames length, max(S // 4, 8)), the ``vlm``
+    family's n_vision_tokens whatever `seq_len` is; 0 for the other
     families."""
+    if cfg.family == "vlm":
+        return cfg.n_vision_tokens
     return max(seq_len // 4, 8) if cfg.family == "audio" else 0
 
 
@@ -45,10 +51,17 @@ def frames_shape(cfg, batch: int, seq_len: int) -> tuple:
     return (batch, enc_ctx_len(cfg, seq_len), cfg.d_audio)
 
 
+def patches_shape(cfg, batch: int) -> tuple:
+    """(B, n_vision_tokens, d_vision): the ``vlm`` family's patch
+    embeddings for `batch` sequences (of any length)."""
+    return (batch, cfg.n_vision_tokens, cfg.d_vision)
+
+
 def _aux_inputs(batch: dict):
-    """The forward's aux_inputs of a batch: ``{"frames"}`` where the
-    batch has frames, else None."""
-    return {"frames": batch["frames"]} if "frames" in batch else None
+    """The forward's aux_inputs of a batch: its ``frames`` and
+    ``patches`` (AUX_KEYS), or None where it has neither, as the
+    reference's."""
+    return {k: batch[k] for k in AUX_KEYS if k in batch} or None
 
 
 # --------------------------------------------------------------------------
@@ -136,7 +149,8 @@ def make_grad_fn(cfg, *, objective: str = "lm",
     tensor per leaf in `leaves_with_paths` order. ``batch`` holds
     ``tokens`` (B, S) and ``blur`` (B,) float32; for ``dt`` also
     ``drops`` (2, B, S) bool (`draw_drop_masks`); for ``audio`` also
-    ``frames`` (`frames_shape`). The LM loss is weighted by
+    ``frames`` (`frames_shape`), for ``vlm`` ``patches``
+    (`patches_shape`), split with the tokens. The LM loss is weighted by
     `example_weights` over the global batch; the DT loss is not, as the
     reference's."""
     if objective not in ("lm", "dt"):
@@ -161,8 +175,9 @@ def make_grad_fn(cfg, *, objective: str = "lm",
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{n_micro} micro-batches")
         parts = {"tokens": tokens.chunk(n_micro)}
-        if "frames" in batch:
-            parts["frames"] = batch["frames"].chunk(n_micro)
+        for k in AUX_KEYS:
+            if k in batch:
+                parts[k] = batch[k].chunk(n_micro)
         if objective == "dt":
             if "drops" not in batch:
                 raise ValueError("the dt objective takes its views' drop "
@@ -249,12 +264,13 @@ def _long_context(shape: InputShape) -> bool:
 
 
 def make_prefill_step(cfg, shape: InputShape, param_dtype=torch.bfloat16):
-    """prefill(params, {"tokens": (B, S)[, "frames"]}) -> (logits of the
-    last position (B, V) float32, cache). The cache starts empty, for
-    positions below ``shape.seq_len``, in `param_dtype`, as the
-    reference's; an ``audio`` cache starts with a zero context of
-    `enc_ctx_len` (``shape.seq_len``) rows, which the encoder's output
-    replaces when the batch has ``frames``. The head
+    """prefill(params, {"tokens": (B, S)[, "frames" | "patches"]}) ->
+    (logits of the last position (B, V) float32, cache). The cache
+    starts empty, for positions below ``shape.seq_len``, in
+    `param_dtype`, as the reference's; an ``audio`` or ``vlm`` cache
+    starts with a zero context of `enc_ctx_len` (``shape.seq_len``)
+    rows, which the encoder's output (``frames``) or the projected
+    ``patches`` replace when the batch has them. The head
     runs on the last position only: the reference computes (B, S, V)
     logits and returns ``logits[:, -1]``, the same values, and at full
     width (B = 16, S = 2048, V = 65536) the full logits would take 8.6 GB

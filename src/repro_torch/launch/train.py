@@ -27,6 +27,11 @@ through `MobilityModel`.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch seamless-m4t-large-v2 --batch 8 --seq-len 4096 \\
         --n-micro 8 --steps 2                              # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llama-3.2-vision-90b --reduced --device cpu --steps 2
+
+Full-width llama-3.2-vision-90b (9.07e10 parameters, 181 GB in bf16)
+does not fit one card; chip_smoke.py trains it with n_layers cut to 2.
 
 ``--mode sim`` — the host-level FL simulation, a `Scenario` driven
 through `run_round`, with whole-`FLState` checkpoints and resume:
@@ -111,8 +116,10 @@ def make_batch(cfg, shape: InputShape, step: int, seed: int, device,
     """Step `step`'s batch: tokens (B, S) in [1, vocab_size) and blur (B,)
     (`MobilityModel` velocities through Eq. 2), from a CPU generator
     seeded with (seed, step); for the ``audio`` family also the frame
-    embeddings (B, max(S // 4, 8), d_audio), standard normal float32, as
-    the reference's; for ``dt`` also the two views' drop masks.
+    embeddings (B, max(S // 4, 8), d_audio), for the ``vlm`` family the
+    patch embeddings (B, n_vision_tokens, d_vision), standard normal
+    float32, as the reference's; for ``dt`` also the two views' drop
+    masks.
     Everything is drawn first, then moved to `device`."""
     gen = torch.Generator().manual_seed(seed * 1_000_003 + step)
     b, s = shape.global_batch, shape.seq_len
@@ -123,6 +130,9 @@ def make_batch(cfg, shape: InputShape, step: int, seed: int, device,
     if cfg.family == "audio":
         batch["frames"] = torch.randn(st.frames_shape(cfg, b, s),
                                       generator=gen)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(st.patches_shape(cfg, b),
+                                       generator=gen)
     if objective == "dt":
         batch["drops"] = st.draw_drop_masks((b, s), gen)
     return {k: v.to(device) for k, v in batch.items()}

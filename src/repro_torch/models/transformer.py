@@ -1,6 +1,7 @@
 """Model assembly of the zoo, ``dense``, ``moe``, ``ssm`` (RWKV6),
-``hybrid`` (Hymba) and ``audio`` (SeamlessM4T) families — counterpart
-of `repro.models.transformer` (`_init_decoder_block`, `_decoder_block`,
+``hybrid`` (Hymba), ``audio`` (SeamlessM4T) and ``vlm``
+(Llama-3.2-Vision) families — counterpart of
+`repro.models.transformer` (`_init_decoder_block`, `_decoder_block`,
 `_init_cross_block`, `_cross_block`, `_encoder_block` (its init is
 `_init_decoder_block`), `_init_rwkv_block`, `_init_hymba_block`,
 `_hymba_block`, `init_params`, `layer_windows`, `cache_width`,
@@ -32,7 +33,17 @@ over the context, its attention and MLP outputs scaled by
 tanh(``gate_attn``) and tanh(``gate_mlp``), float32 scalars that start
 at 0, so at init the context does not reach the logits (the
 reference's init). The ranges ``audio.encoder`` and ``audio.cross``
-mark the encoder stack and each cross block for the profiler.
+mark the encoder stack and each cross block for the profiler. The
+``vlm`` family interleaves the same gated cross blocks with the decoder
+blocks: every ``cross_attn_period``-th layer is a cross block, so the
+model is n_super = n_layers // period super-layers of n_self = period -
+1 decoder blocks and one cross block. ``params["blocks"]`` is stacked
+nested, (n_super, n_self, ...), ``cross_blocks`` (n_super, ...), and
+the context is the patch embeddings (``aux_inputs["patches"]`` (B,
+n_vision_tokens, d_vision)) through ``vision_proj`` (d_vision, d), with
+no norm (the vision encoder is a stub, as in the reference). The ranges
+``vlm.vision_proj`` and ``vlm.cross`` mark the projection and each
+cross block.
 
 Caches: ``dense``: ``{"kv": {"k", "v": (L, B, W, KH, hd), "pos": (L, B,
 W) int32}}`` ring buffers of width `cache_width` (int8 k and v add
@@ -46,13 +57,15 @@ the last 3 inputs of its conv); ``audio``: ``{"kv": the dense ring
 buffers of its decoder layers, "ctx": (B, Te, d)}``, the encoder's
 output, which a prefill with frames writes (Te = the frames' length)
 and decode reads (the cross blocks project its k and v again every
-step, as the reference's). A ``hybrid`` prefill needs a cache, as
+step, as the reference's); ``vlm``: ``{"kv": the rings of its n_super *
+n_self decoder blocks in one flat stack (block j of super-layer s at s *
+n_self + j), "ctx": (B, n_vision_tokens, d)}``, the projected patches,
+written and read as ``audio``'s. A ``hybrid`` prefill needs a cache, as
 the reference's; one longer than the ring (W = 1024 slots for
 hymba-1.5b) keeps only its last W positions' keys, so its earlier
 queries lose keys of their window, and the next layer's SSM carries
 that on: even the last logits then differ from a full forward's, as
-the reference's do. The ``vlm`` family raises NotImplementedError
-naming ROADMAP.md.
+the reference's do.
 """
 from __future__ import annotations
 
@@ -60,17 +73,20 @@ import math
 
 import torch
 
-from repro_torch.configs.base import family_not_ported
 from repro_torch.convert import tree_map
 from repro_torch.models import layers as L
 
 
 ATTENTION_FAMILIES = ("dense", "moe")
+ZOO_FAMILIES = ATTENTION_FAMILIES + ("ssm", "hybrid", "audio", "vlm")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ATTENTION_FAMILIES + ("ssm", "hybrid", "audio"):
-        raise family_not_ported(cfg.family)
+    """ValueError for a family this module does not build, as the
+    reference's `init_params` raises for an unknown one."""
+    if cfg.family not in ZOO_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}; the zoo's "
+                         f"families are {ZOO_FAMILIES}")
 
 
 def _init_decoder_block(cfg, gen, dtype, moe: bool = False):
@@ -122,8 +138,10 @@ def _init_cross_block(cfg, gen, dtype):
 def _cross_block(cfg, p, x, q_pos, ctx):
     """Gated cross-attention over the context `ctx` (B, Te, d), then a
     gated MLP, with residuals: x + tanh(gate) * h, the gate rounded to
-    x's dtype before the product, as the reference's ``.astype``."""
-    with torch.profiler.record_function("audio.cross"):
+    x's dtype before the product, as the reference's ``.astype``. Runs
+    in the profiler range ``<family>.cross`` (``audio.cross``,
+    ``vlm.cross``)."""
+    with torch.profiler.record_function(f"{cfg.family}.cross"):
         h, _ = L.attention_block(cfg, p["xattn"],
                                  L.apply_norm(cfg, p["ln1"], x), q_pos,
                                  kv_src=ctx, use_rope=False)
@@ -212,6 +230,13 @@ def _init_stack(n: int, make) -> dict:
     return out
 
 
+def _vlm_shape(cfg) -> tuple:
+    """``vlm``: (n_super, n_self), the super-layers and the decoder
+    blocks in each (a cross block follows them)."""
+    per = cfg.cross_attn_period
+    return cfg.n_layers // per, per - 1
+
+
 def _n_dense(cfg) -> int:
     """Leading dense layers: the ``moe`` family's, 0 otherwise."""
     return cfg.moe_first_dense_layers if cfg.family == "moe" else 0
@@ -227,7 +252,9 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
     ``dense_blocks`` for its leading dense layers, and its ``blocks``
     hold the MoE layers; ``audio`` adds ``enc_blocks``,
     ``cross_blocks`` (one a decoder layer), ``audio_adapter`` (d_audio,
-    d) and ``enc_norm``. The draws are the
+    d) and ``enc_norm``; ``vlm`` stacks its ``blocks`` nested (n_super,
+    n_self, ...) and adds ``cross_blocks`` (one a super-layer, their
+    gates float32 too) and ``vision_proj`` (d_vision, d). The draws are the
     port's own: tests carry the reference's weights across with
     `convert.zoo_params_from_numpy`."""
     _check_family(cfg)
@@ -252,6 +279,14 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
             cfg.n_layers, lambda: _init_cross_block(cfg, gen, dtype))
         p["audio_adapter"] = L.fan_in_init(gen, (cfg.d_audio, d), dtype)
         p["enc_norm"] = L.init_norm(cfg, dtype=dtype, device=gen.device)
+        return p
+    if cfg.family == "vlm":
+        n_super, n_self = _vlm_shape(cfg)
+        p["blocks"] = _init_stack(n_super, lambda: _init_stack(
+            n_self, lambda: _init_decoder_block(cfg, gen, dtype)))
+        p["cross_blocks"] = _init_stack(
+            n_super, lambda: _init_cross_block(cfg, gen, dtype))
+        p["vision_proj"] = L.fan_in_init(gen, (cfg.d_vision, d), dtype)
         return p
     moe = cfg.family == "moe"
     n_dense = _n_dense(cfg)
@@ -296,8 +331,20 @@ def init_cache(cfg, batch: int, seq_len: int = 0, dtype=torch.bfloat16,
     dense layers; ``ssm``, the recurrent state (its size does not depend
     on `seq_len`); ``hybrid``, the ring buffers, the SSM states in
     float32 and the conv states in `dtype`; ``audio``, the ring buffers
-    and a zero context of `ctx_len` rows in `dtype`."""
+    and a zero context of `ctx_len` rows in `dtype`; ``vlm``, the ring
+    buffers of its decoder blocks in one flat stack and a zero context
+    of n_vision_tokens rows in `dtype` (`ctx_len` is ignored, as the
+    reference's)."""
     _check_family(cfg)
+    if cfg.family == "vlm":
+        n_super, n_self = _vlm_shape(cfg)
+        return {"kv": L.make_cache(cfg, batch,
+                                   cache_width(cfg, seq_len, long_context),
+                                   dtype, n_layers=n_super * n_self,
+                                   device=device),
+                "ctx": torch.zeros((batch, cfg.n_vision_tokens,
+                                    cfg.d_model), dtype=dtype,
+                                   device=device)}
     if cfg.family == "audio":
         return {"kv": L.make_cache(cfg, batch,
                                    cache_width(cfg, seq_len, long_context),
@@ -474,17 +521,53 @@ def _audio_layers(cfg, p, x, positions, cache, long_context, aux_inputs):
                                            "ctx": ctx}), aux
 
 
+def _vlm_layers(cfg, p, x, positions, cache, long_context, aux_inputs):
+    """``vlm``: the context from ``aux_inputs["patches"]`` when given
+    (``patches @ vision_proj``, range ``vlm.vision_proj``), else the
+    cache's ``ctx``; then each super-layer s: its n_self decoder blocks
+    (the long-context window under `long_context`, else none), block j
+    with the flat cache layer s * n_self + j, followed by cross block s
+    over the context. Returns (x, the new cache ``{"kv", "ctx"}`` (this
+    call's context) or None, a float32 zero aux loss)."""
+    if aux_inputs is not None:
+        with torch.profiler.record_function("vlm.vision_proj"):
+            ctx = aux_inputs["patches"].to(x.dtype) @ p["vision_proj"]
+    elif cache is not None:
+        ctx = cache["ctx"]
+    else:
+        raise ValueError("the vlm family needs aux_inputs['patches'] (B, "
+                         "n_vision_tokens, d_vision) for its context, or a "
+                         "cache holding the projected ctx")
+    n_super, n_self = _vlm_shape(cfg)
+    win = cfg.long_context_window if long_context else L.BIG_WINDOW
+    outs = []
+    for s in range(n_super):
+        for j in range(n_self):
+            c = None if cache is None else {
+                k: v[s * n_self + j] for k, v in cache["kv"].items()}
+            x, new, _ = _decoder_block(
+                cfg, tree_map(lambda t: t[s, j], p["blocks"]), x,
+                positions, window=win, cache=c)
+            outs.append(new)
+        x = _cross_block(cfg, tree_map(lambda t: t[s], p["cross_blocks"]),
+                         x, positions, ctx)
+    aux = torch.zeros((), device=x.device)
+    return x, (None if cache is None else {"kv": _stack(outs),
+                                           "ctx": ctx}), aux
+
+
 def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
                     aux_inputs=None, long_context=False):
     """Backbone: embeddings -> blocks. Returns (hidden, new_cache,
     aux_losses float32); the new cache is None in train mode without a
-    cache, as the reference's. ``dense``, ``moe``, ``hybrid`` and
-    ``audio``: `positions` None (0..S-1), (B,) (each row's first
-    position) or (B, S); a ``dense``, ``moe`` or ``audio`` prefill
-    without a cache returns None, a ``hybrid`` one raises ValueError, as
-    the reference's. `aux_inputs`: ``{"frames": (B, Te, d_audio)}`` for
-    ``audio`` (without it, and without a cache, ``audio`` raises
-    ValueError), ignored by the other families."""
+    cache, as the reference's. ``dense``, ``moe``, ``hybrid``,
+    ``audio`` and ``vlm``: `positions` None (0..S-1), (B,) (each row's
+    first position) or (B, S); a ``dense``, ``moe``, ``audio`` or
+    ``vlm`` prefill without a cache returns None, a ``hybrid`` one
+    raises ValueError, as the reference's. `aux_inputs`: ``{"frames":
+    (B, Te, d_audio)}`` for ``audio``, ``{"patches": (B,
+    n_vision_tokens, d_vision)}`` for ``vlm`` (without it, and without a
+    cache, either raises ValueError), ignored by the other families."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -499,9 +582,10 @@ def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
             positions = steps.expand(b, s)
         elif positions.dim() == 1:
             positions = positions[:, None] + steps[None]
-        if cfg.family == "audio":
-            return _audio_layers(cfg, p, x, positions, cache, long_context,
-                                 aux_inputs)
+        if cfg.family in ("audio", "vlm"):
+            layers = _audio_layers if cfg.family == "audio" else _vlm_layers
+            return layers(cfg, p, x, positions, cache, long_context,
+                          aux_inputs)
         layers = (_hymba_layers if cfg.family == "hybrid"
                   else _attention_layers)
         return layers(cfg, p, x, positions, cache, long_context)
@@ -524,9 +608,10 @@ def forward(cfg, p, tokens, *, mode: str = "train", cache=None,
     tokens: (B, S) int64. decode: S == 1 against `cache` and `positions`
     (B,) absolute. The ``ssm`` recurrence reads neither `positions` nor
     `long_context` (the ``hybrid`` family's attention reads both).
-    `aux_inputs`: the ``audio`` family's ``{"frames"}``
-    (`_forward_hidden`). aux_losses (float32) is the sum of the MoE
-    blocks' load-balance losses, 0 for the other families."""
+    `aux_inputs`: the ``audio`` family's ``{"frames"}`` or the ``vlm``
+    family's ``{"patches"}`` (`_forward_hidden`). aux_losses (float32)
+    is the sum of the MoE blocks' load-balance losses, 0 for the other
+    families."""
     x, new_cache, aux = _forward_hidden(cfg, p, tokens, mode=mode,
                                         cache=cache, positions=positions,
                                         aux_inputs=aux_inputs,
@@ -537,7 +622,9 @@ def forward(cfg, p, tokens, *, mode: str = "train", cache=None,
 def forward_features(cfg, p, tokens, *, aux_inputs=None):
     """Mean-pooled, L2-normalised final hidden state (B, d_model) float32
     — the representation the dual-temperature loss takes for token
-    architectures — and aux_losses, as `forward`'s."""
+    architectures — and aux_losses, as `forward`'s. `aux_inputs`: the
+    ``audio`` family's ``{"frames"}`` or the ``vlm`` family's
+    ``{"patches"}``, which both DT views read."""
     x, _, aux = _forward_hidden(cfg, p, tokens, mode="train", cache=None,
                                 aux_inputs=aux_inputs)
     x = L.apply_norm(cfg, p["final_norm"], x)

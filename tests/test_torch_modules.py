@@ -369,6 +369,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.configs.deepseek_67b\n"
         "import repro_torch.configs.olmoe_1b_7b\n"
         "import repro_torch.configs.kimi_k2_1t_a32b\n"
+        "import repro_torch.configs.hymba_1_5b\n"
+        "import repro_torch.configs.seamless_m4t_large_v2\n"
+        "import repro_torch.configs.llama_3_2_vision_90b\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -412,18 +415,31 @@ def test_unported_choices_raise_not_implemented(kw):
     assert (cfg.aggregator, cfg.client) == (want.aggregator, want.client)
 
 
-@pytest.mark.parametrize("what", ["llama-3.2-vision-90b", "family:vlm"])
-def test_unported_archs_and_families_raise_not_implemented(what):
+@pytest.mark.parametrize("what", ["no-such-arch", "family:no-such"])
+def test_unknown_archs_and_families_raise(what):
+    """Every arch and family of the reference is ported: an unknown name
+    raises KeyError from `get_config` and an unknown family ValueError
+    from `init_params`, in both packages."""
     import dataclasses
 
+    from repro.configs.base import get_config as j_get_config
+    from repro.models import transformer as JT
     from repro_torch.models import transformer as TT
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what.startswith("family:"):
-            cfg = dataclasses.replace(get_config("rwkv6-1.6b-smoke"),
-                                      family=what.split(":")[1])
-            TT.init_params(cfg, torch.Generator())
-        else:
+    if what.startswith("family:"):
+        fam = what.split(":")[1]
+        j_cfg = dataclasses.replace(j_get_config("rwkv6-1.6b-smoke"),
+                                    family=fam)
+        t_cfg = dataclasses.replace(get_config("rwkv6-1.6b-smoke"),
+                                    family=fam)
+        with pytest.raises(ValueError, match="unknown family"):
+            JT.init_params(j_cfg, jax.random.PRNGKey(0))
+        with pytest.raises(ValueError, match="unknown family"):
+            TT.init_params(t_cfg, torch.Generator())
+    else:
+        with pytest.raises(KeyError):
+            j_get_config(what)
+        with pytest.raises(KeyError, match=what):
             get_config(what)
 
 
