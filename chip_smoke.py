@@ -204,12 +204,16 @@ the JAX package `repro`. Phases, each of which must pass:
      4096, 64) (one full-width sequence) and at a ragged S with a state,
      one kernel launch each, within RWKV6_GRAD_REL of each leaf's max.
    * The DT kernel's wide form (256 < D <= 8192, the zoo's features)
-     against `ref.dt_loss_fwd_ref` at (8, 2048), (2, 8, 2048), (512,
-     2048), (8, 4608), (8, 8192), (2, 8, 8192) and (512, 8192) (and
-     hymba's D = 1600 and seamless's D = 1024, at 8 and 512 rows),
-     DT_FWD_TOL, one launch of it and none of the narrow kernel, two
-     calls bitwise equal, D = 8196 and 8190 refused; timed at (8, 2048),
-     a DT micro-batch.
+     against `ref.dt_loss_fwd_ref` at every DT_WIDE_SHAPES shape (the
+     micro-batches of chip_smoke's `dt` steps, M = 8 at D = 1024-8192;
+     the published micro-batches (16, 896), (16, 1024), (2, 4608), (1,
+     7168), (1, 8192); the cohort form; M = 512, where the cluster's
+     ranks split the keys and not D), DT_FWD_TOL, one launch of it and
+     none of the narrow kernel, two calls bitwise equal, D = 8196 and
+     8190 refused, 0 spill bytes; device ms at every (M, D) shape against
+     the bound, beside the float32 cuBLAS q @ k.T (``gram_ms``) and a
+     one-element fill (``floor_ms``); card ms at (8, 2048), a DT
+     micro-batch.
    * Cross-check: ``rwkv6-1.6b-smoke`` in float32, one ``lm`` step (2
      micro-batches) and one ``dt`` step (S = 37, the last chunk ragged)
      on the card and with ``device="cpu"``: loss, every gradient leaf,
@@ -415,6 +419,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 on the tensor cores (dense)
 
 WAGG_P = 11_506_624         # ResNet-18-CIFAR params + BN stats
 BQ = 256                    # q8 block: parameters sharing one scale
@@ -766,12 +771,32 @@ def _device_ms(fn, kernel: str, iters: int = 50) -> float:
     return total_us / n / 1e3
 
 
+def _device_ms_all(fn, iters: int = 50) -> float:
+    """The device time of everything `fn()` launches, in ms a call: the
+    self device time of all device events of `iters` calls under
+    torch.profiler over `iters` (a yardstick that is not one kernel:
+    cuBLAS may split a product into several). Raises on an empty trace."""
+    from torch.autograd import DeviceType
+
+    fn()                                   # warm-up, outside the trace
+
+    def work():
+        for _ in range(iters):
+            fn()
+    _, events = _profiled(work)
+    total_us = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA)
+    if not total_us > 0:
+        raise AssertionError("profiler: no device time in the trace")
+    return total_us / iters / 1e3
+
+
 def _max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def _bound(nbytes: float, flops: float):
-    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def _bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
+    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
                                        else "operations")
 
@@ -924,8 +949,11 @@ def _unit_rows(g, dev, shape):
 
 def _dt_bound(c: int, m: int, d: int):
     """(ms, what bounds it) for the DT loss of c clients: q and k read
-    once, four (c, m) outputs written, 2 m^2 d operations a client."""
-    return _bound(4 * c * (2 * m * d + 4 * m), 2 * c * m * m * d)
+    once, four (c, m) outputs written, and 2 m^2 d operations a client
+    three times (both DT kernels form the similarity in 3xTF32 on the
+    tensor cores: hi*hi, lo*hi, hi*lo) at the TF32 rate."""
+    return _bound(4 * c * (2 * m * d + 4 * m), 3 * 2 * c * m * m * d,
+                  TF32_FLOP_PER_S)
 
 
 def _dt_cohort_checks(dev, g) -> list:
@@ -3054,18 +3082,31 @@ def rwkv6_grad_check(dev):
     return worst
 
 
+# The DT wide form's held shapes: the zoo's `dt` micro-batches (M = 8 at
+# D = 1024-8192 as chip_smoke's steps run them, and the published M = 1,
+# 2 and 16 of `pick_n_micro` at train_4k: kimi-k2, deepseek-67b and
+# llama-3.2-vision at 1, gemma2-27b at 2, qwen2-0.5b and seamless at 16),
+# the cohort form, M = 512 (the ranks split the keys) and 37 rows at D =
+# 260 (two clusters of the D split) in the card tests.
+DT_WIDE_SHAPES = ((8, 2048), (2, 8, 2048), (512, 2048), (8, 4608),
+                  (8, 8192), (2, 8, 8192), (512, 8192), (8, 1600),
+                  (512, 1600), (8, 1024), (512, 1024), (16, 896),
+                  (16, 1024), (2, 4608), (1, 7168), (1, 8192),
+                  (5, 8, 2048))
+
+
 def dt_wide_check(dev):
     """The DT kernel's wide form (256 < D <= 8192) against
-    `ref.dt_loss_fwd_ref` on unit rows at (8, 2048) (a DT micro-batch of
-    rwkv6-1.6b and tinyllama-1.1b), (2, 8, 2048) (the cohort form), (512,
-    2048), and at the dense family's widest: (8, 4608) (gemma2-27b), (8,
-    8192), (2, 8, 8192) and (512, 8192) (deepseek-67b), at hymba-1.5b's
-    (8, 1600) and (512, 1600) (a multiple of 4, not of 128), and at
-    seamless-m4t-large-v2's (8, 1024) and (512, 1024); one launch each,
-    none of the narrow kernel; two calls bitwise equal; D = 8196 and a D
-    not a multiple of 4 refused. Timed at (8, 2048); device time and
-    bound at (512, 2048), (8, 8192), (512, 8192), (8, 1600), (512, 1600),
-    (8, 1024) and (512, 1024) too. Returns its kernels-line row."""
+    `ref.dt_loss_fwd_ref` (the cohort form against
+    `dt_loss_fwd_cohort_ref`) on unit rows at every DT_WIDE_SHAPES shape:
+    one launch each and none of the narrow kernel, all four outputs within
+    DT_FWD_TOL, two calls bitwise equal; D = 8196 and D = 8190 refused;
+    its registers and spill bytes (0, or it fails). Device ms at every
+    (M, D) shape against `_dt_bound` and two yardsticks that are not the
+    same function: ``gram_ms``, the device time of the float32 product
+    q @ k.T in cuBLAS (TF32 off), and ``floor_ms``, that of a one-element
+    fill (a launch's floor). Card ms and the plain version at (8, 2048).
+    Returns its kernels-line row."""
     import torch
 
     from repro_torch.kernels import dt_loss as dt_kernel
@@ -3074,11 +3115,7 @@ def dt_wide_check(dev):
     g = torch.Generator(device=dev).manual_seed(6)
     errs, d, at = [], TRAIN_D, {}
     m = TRAIN_DT[0]
-    timed = ((512, d), (m, 8192), (512, 8192), (m, 1600), (512, 1600),
-             (m, 1024), (512, 1024))
-    for shape in ((m, d), (2, m, d), (512, d), (m, 4608), (m, 8192),
-                  (2, m, 8192), (512, 8192), (m, 1600), (512, 1600),
-                  (m, 1024), (512, 1024)):
+    for shape in DT_WIDE_SHAPES:
         q, k = _unit_rows(g, dev, shape), _unit_rows(g, dev, shape)
         _zero_counts()
         got = ops.dt_loss_fwd(q, k, 0.1, 1.0)
@@ -3096,10 +3133,11 @@ def dt_wide_check(dev):
             raise AssertionError(f"dt_loss wide {shape}: err {err}, "
                                  f"launches {counts}, bitwise {same}")
         errs.append(err)
-        if shape in timed:
+        if len(shape) == 2:
             at[shape] = (_device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
                                     "dt_fwd_wide", iters=50),
-                         _dt_bound(1, *shape))
+                         _dt_bound(1, *shape),
+                         _device_ms_all(lambda: q @ k.T, iters=50))
     for bad in (8196, 8190):
         x = _unit_rows(g, dev, (m, bad))
         try:
@@ -3107,39 +3145,47 @@ def dt_wide_check(dev):
         except ValueError:
             continue
         raise AssertionError(f"dt_loss wide: D = {bad} was not refused")
-    q, k = (_unit_rows(g, dev, (TRAIN_DT[0], d)) for _ in range(2))
+    one = torch.empty(1, device=dev)
+    floor_ms = _device_ms_all(lambda: one.fill_(0.0), iters=200)
+    attrs = dt_kernel.wide_kernel_attributes(d)
+    print(f"[train] dt_loss wide: {attrs['regs']} registers and "
+          f"{attrs['local_bytes']} local bytes a thread, "
+          f"{attrs['shared_bytes']} shared bytes and {attrs['threads']} "
+          f"threads a CTA, {attrs['blocks_per_sm']} CTAs an SM, clusters of "
+          f"{attrs['cluster']} CTAs", flush=True)
+    if attrs["local_bytes"] != 0:
+        raise AssertionError(f"dt_loss wide spills: {attrs}")
+    for (mm, dd), (t, (b, by), gram) in at.items():
+        print(f"[train] dt_loss wide ({mm}, {dd}): device {t:.5f} ms, bound "
+              f"{b:.5f} ms ({by}), {100 * b / t:.1f}% of it; gram (q @ k.T, "
+              f"cuBLAS float32) {gram:.5f} ms; launch floor {floor_ms:.5f} "
+              f"ms", flush=True)
+    q, k = (_unit_rows(g, dev, (m, d)) for _ in range(2))
     ms = _time_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0), iters=200)
     dev_ms = _device_ms(lambda: ops.dt_loss_fwd(q, k, 0.1, 1.0),
                         "dt_fwd_wide", iters=200)
     plain_ms = _time_ms(lambda: ref.dt_loss_fwd_ref(q, k, 0.1, 1.0),
                         iters=50)
-    bound_ms, bound_by = _dt_bound(1, TRAIN_DT[0], d)
-    print(f"[train] dt_loss wide ({TRAIN_DT[0]}, {d}): kernel {ms:.4f} ms "
+    bound_ms, bound_by = _dt_bound(1, m, d)
+    print(f"[train] dt_loss wide ({m}, {d}): kernel {ms:.4f} ms "
           f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}); "
-          + "; ".join(f"at {sh}: device {t:.4f} ms, bound {b[0]:.4f} ms "
-                      f"({b[1]})" for sh, (t, b) in at.items())
-          + "; D = 8196 and 8190 refused", flush=True)
-    return {"name": "dt_loss_wide", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/dt_loss.cu",
-            "replaces": "src/repro/kernels/dt_loss.py:33",
-            "shape": [TRAIN_DT[0], d], "max_abs_err": max(errs), "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "device_ms_512": at[(512, d)][0],
-            "bound_ms_512": at[(512, d)][1][0],
-            "device_ms_8_8192": at[(m, 8192)][0],
-            "bound_ms_8_8192": at[(m, 8192)][1][0],
-            "device_ms_512_8192": at[(512, 8192)][0],
-            "bound_ms_512_8192": at[(512, 8192)][1][0],
-            "device_ms_8_1600": at[(m, 1600)][0],
-            "bound_ms_8_1600": at[(m, 1600)][1][0],
-            "device_ms_512_1600": at[(512, 1600)][0],
-            "bound_ms_512_1600": at[(512, 1600)][1][0],
-            "device_ms_8_1024": at[(m, 1024)][0],
-            "bound_ms_8_1024": at[(m, 1024)][1][0],
-            "device_ms_512_1024": at[(512, 1024)][0],
-            "bound_ms_512_1024": at[(512, 1024)][1][0]}
+          f"{bound_ms:.5f} ms ({bound_by}); D = 8196 and 8190 refused",
+          flush=True)
+    row = {"name": "dt_loss_wide", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/dt_loss.cu",
+           "replaces": "src/repro/kernels/dt_loss.py:33",
+           "shape": [m, d], "max_abs_err": max(errs), "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None,
+           "device_ms_512": at[(512, d)][0],
+           "bound_ms_512": at[(512, d)][1][0], "floor_ms": floor_ms}
+    for (mm, dd), (t, (b, _), gram) in at.items():
+        row[f"device_ms_{mm}_{dd}"] = t
+        row[f"bound_ms_{mm}_{dd}"] = b
+        row[f"gram_ms_{mm}_{dd}"] = gram
+    row.update({k: attrs[k] for k in ("regs", "local_bytes", "shared_bytes",
+                                      "blocks_per_sm", "cluster")})
+    return row
 
 
 def _dt_kernel_spread(cfg, params, tokens, drops, aux_inputs=None) -> dict:

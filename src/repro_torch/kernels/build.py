@@ -111,14 +111,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def attributes(name: str, fields, d: int) -> dict:
-    """What ``<name>_attributes(d, out)`` of ``csrc/<name>.cu`` reports of
-    its kernel at width `d` on the current device, named by `fields`."""
-    fn = getattr(load(name), f"{name}_attributes")
+def attributes(name: str, fields, d: int, entry: str | None = None) -> dict:
+    """What ``<name>_attributes(d, out)`` (or the entry point `entry`) of
+    ``csrc/<name>.cu`` reports of its kernel at width `d` on the current
+    device, named by `fields`."""
+    entry = entry or f"{name}_attributes"
+    fn = getattr(load(name), entry)
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(fields))()
-    check(fn(d, out), f"{name}_attributes")
+    check(fn(d, out), entry)
     return dict(zip(fields, out))
 
 

@@ -5,11 +5,13 @@ kernel `_dt_fwd_kernel`). `dt_loss_fwd_cuda` launches the hand-written
 CUDA kernel on CUDA tensors and nothing else: one (M, D) pair, or a
 cohort of C pairs (C, M, D) in one launch. Two hand-written kernels of
 the same file: the Hopper design for D <= MAX_D (the FL path's
-ResNet features, D = 128) and a simple wide form for MAX_D < D <=
-WIDE_MAX_D (the zoo's features, D = d_model: 896 to 8192); the wrapper picks
-by D and raises above WIDE_MAX_D. The device dispatch, the plain version
-and the gradient live in `kernels.ops`. `kernel_attributes` reports the
-first kernel's registers, spills and CTAs per SM.
+ResNet features, D = 128) and the wide form for MAX_D < D <= WIDE_MAX_D
+(the zoo's features, D = d_model: 896 to 8192; a cluster's CTAs split D
+where the keys fit one key tile, and split the keys otherwise); the
+wrapper picks by D and raises above WIDE_MAX_D. The device dispatch, the
+plain version and the gradient live in `kernels.ops`. `kernel_attributes`
+and `wide_kernel_attributes` report each kernel's registers, spills and
+CTAs per SM.
 
 `LAUNCHES` and `WIDE_LAUNCHES` count launches of the two kernels (and
 nothing else).
@@ -45,6 +47,10 @@ def _lib(entry: str = "dt_loss_fwd_launch"):
     return fn
 
 
+def _is_wide(d: int) -> bool:
+    return MAX_D < d <= WIDE_MAX_D and d % 4 == 0
+
+
 def _check_d(d: int) -> None:
     if not 1 <= d <= MAX_D or d % 4:
         raise ValueError(f"dt_loss kernel takes D % 4 == 0 with D <= {MAX_D} "
@@ -58,6 +64,16 @@ def kernel_attributes(d: int = 128) -> dict:
     the calculator declines), threads a CTA, CTAs a cluster."""
     _check_d(d)
     return build.attributes("dt_loss", ATTRIBUTES, d)
+
+
+def wide_kernel_attributes(d: int = 2048) -> dict:
+    """`kernel_attributes` of the wide form at width `d` (MAX_D < d <=
+    WIDE_MAX_D, d % 4 == 0); its shared memory does not depend on d."""
+    if not _is_wide(d):
+        raise ValueError(f"dt_loss wide form takes D % 4 == 0 with {MAX_D} "
+                         f"< D <= {WIDE_MAX_D}, got D = {d}")
+    return build.attributes("dt_loss", ATTRIBUTES, d,
+                            entry="dt_loss_wide_attributes")
 
 
 def dt_loss_fwd_cuda(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
@@ -85,7 +101,7 @@ def dt_loss_fwd_cuda(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
     if m < 1 or not 1 <= c <= 65535:
         raise ValueError(f"dt_loss kernel takes M >= 1 and 1 <= C <= 65535, "
                          f"got {tuple(q.shape)}")
-    wide = MAX_D < d <= WIDE_MAX_D and d % 4 == 0
+    wide = _is_wide(d)
     if not wide:
         _check_d(d)
     if q.data_ptr() % 16 or k.data_ptr() % 16:

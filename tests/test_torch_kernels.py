@@ -41,6 +41,11 @@ RWKV6_TOL = 2e-4
 # steps per slab of csrc/rwkv6.cu (its constant T); the card tests put S
 # on the slab edges
 RWKV6_SLAB = 8
+# the DT kernel's wide form (csrc/dt_loss.cu kWide*): CTAs a cluster,
+# anchor rows a cluster, keys a CTA tile, consumer warps (two a key block
+# of 16), ring stages, columns of D a stage at M >= 32, the widest D
+WIDE_CLUSTER, WIDE_ROWS, WIDE_KEYS, WIDE_WARPS = 8, 32, 64, 8
+WIDE_STAGES, WIDE_STAGE_COLS, WIDE_MAX_D = 4, 64, 8192
 
 
 @pytest.fixture
@@ -135,6 +140,29 @@ def test_rwkv6_source_knobs_match_the_tests():
     assert f"constexpr int T = {RWKV6_SLAB};" in src
 
 
+def test_dt_loss_wide_source_knobs_match_the_tests():
+    """The wide form's tiles, ring and cluster are the ones that
+    `_wide_sim` and the note assume, and its widest D is the wrapper's."""
+    src = (build.CSRC / "dt_loss.cu").read_text()
+    for name, value in (("kWideCluster", WIDE_CLUSTER),
+                        ("kWideRows", WIDE_ROWS), ("kWideKeys", WIDE_KEYS),
+                        ("kWideWarps", WIDE_WARPS),
+                        ("kWideStages", WIDE_STAGES),
+                        ("kWideStageCols", WIDE_STAGE_COLS),
+                        ("kWideMaxD", WIDE_MAX_D)):
+        assert f"constexpr int {name} = {value};" in src, name
+    assert dt_kernel.WIDE_MAX_D == WIDE_MAX_D
+    assert "n_valid <= kWideKeys ?" in src     # the split rule
+
+
+@pytest.mark.parametrize("d", [256, 1026, 8196])
+def test_dt_loss_wide_attributes_refuse_widths_the_form_does_not_take(d):
+    """The wide form's attributes are asked only for 256 < D <= 8192 with
+    D % 4 == 0; another D is refused before any build."""
+    with pytest.raises(ValueError, match="dt_loss wide form takes D"):
+        dt_kernel.wide_kernel_attributes(d)
+
+
 def test_rwkv6_attributes_refuse_other_head_dims():
     """Only the kernel's template instances (D = 32, 64) are asked for
     their attributes; another D is refused before any build."""
@@ -205,12 +233,56 @@ def _sim_tf32(q: torch.Tensor, k: torch.Tensor, passes: int) -> torch.Tensor:
     return big + (ql @ kh.T + qh @ kl.T)
 
 
+def _wide_sim(q: torch.Tensor, k: torch.Tensor, passes: int) -> torch.Tensor:
+    """q k^T as the wide form forms it. The nph warps that share a key
+    block take every nph-th k8 step of each stage; a similarity is their
+    partials summed in phase order, each one 3xTF32 (`_sim_tf32`) over
+    its columns. More keys than one key tile: the ranks split the keys and
+    a key block's two warps split each 64-column stage (nph = 2). Else the
+    split rule gives rank r the stages [r * per, (r + 1) * per), per =
+    ceil(stages / WIDE_CLUSTER), a stage taking as many WIDE_STAGE_COLS
+    columns as fit a ring slot at this M's tile but no more than give
+    every rank a stage; each rank sums its phases, then rank 0 sums the
+    ranks in order, in float32. (The wide form accumulates lo*hi and
+    hi*lo in one accumulator: the same small sum, in another order.)"""
+    m, d = q.shape
+
+    def phases(stage_cols, stages, nph):
+        out = None
+        for p in range(nph):
+            cols = [c for st in stages for kk in range(p, stage_cols // 8, nph)
+                    for c in range(st * stage_cols + 8 * kk,
+                                   st * stage_cols + 8 * kk + 8) if c < d]
+            part = (_sim_tf32(q[:, cols], k[:, cols], passes) if cols
+                    else torch.zeros((m, m), dtype=torch.float32))
+            out = part if out is None else out + part
+        return out
+
+    if m > WIDE_KEYS:
+        return phases(WIDE_STAGE_COLS, range(-(-d // WIDE_STAGE_COLS)), 2)
+    qr, kr = -(-min(m, WIDE_ROWS) // 8) * 8, -(-min(m, WIDE_KEYS) // 8) * 8
+    fit = WIDE_STAGE_COLS * (WIDE_ROWS + WIDE_KEYS) // (WIDE_STAGE_COLS
+                                                        * (qr + kr))
+    spread = -(-d // (WIDE_CLUSTER * WIDE_STAGE_COLS))
+    stage_cols = WIDE_STAGE_COLS * (max(fit, 1) if fit < spread else spread)
+    stages = -(-d // stage_cols)
+    per = -(-stages // WIDE_CLUSTER)
+    nkb = 1 if m <= 16 else 2 if m <= 32 else 4     # key blocks of 16
+    sim = torch.zeros((m, m), dtype=torch.float32)
+    for r in range(WIDE_CLUSTER):
+        sim = sim + phases(stage_cols, range(r * per, min(stages,
+                                                          (r + 1) * per)),
+                           WIDE_WARPS // nkb)
+    return sim
+
+
 def _dt_err_vs_f64(M, D, passes, taus):
     rs = np.random.RandomState(M * 7 + D)
     q, k = _unit(rs, (M, D)), _unit(rs, (M, D))
     qt, kt = torch.from_numpy(q), torch.from_numpy(k)
     want = ref.dt_loss_from_sim(qt.double() @ kt.double().T, *taus)
-    got = ref.dt_loss_from_sim(_sim_tf32(qt, kt, passes), *taus)
+    sim = (_wide_sim if dt_kernel.MAX_D < D else _sim_tf32)(qt, kt, passes)
+    got = ref.dt_loss_from_sim(sim, *taus)
     return max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
 
 
@@ -222,15 +294,17 @@ def test_rna_tf32_rounds_to_nearest_away():
     assert _rna_tf32(x).tolist() == [one, -one, 1.0, one]
 
 
-@pytest.mark.parametrize("M,D", [(512, 128), (64, 256)])
+@pytest.mark.parametrize("M,D", [(512, 128), (64, 256), (8, 8192), (16, 896),
+                                 (1, 7168), (512, 2048)])
 @pytest.mark.parametrize("taus", DT_TAUS)
 def test_dt_loss_3xtf32_sim_within_fwd_tol(M, D, taus):
     """The kernel's 3xTF32 similarity, fed through the plain version's
-    arithmetic, stays within DT_FWD_TOL of the float64 result."""
+    arithmetic, stays within DT_FWD_TOL of the float64 result; for the
+    wide form (D > 256) summed over its D split as rank 0 sums it."""
     assert _dt_err_vs_f64(M, D, 3, taus) <= DT_FWD_TOL
 
 
-@pytest.mark.parametrize("M,D", [(512, 128), (64, 256)])
+@pytest.mark.parametrize("M,D", [(512, 128), (64, 256), (16, 896)])
 def test_dt_loss_1xtf32_sim_misses_fwd_tol(M, D):
     """One TF32 product (about 11 bits) does not: why the kernel pays for
     three."""
@@ -522,11 +596,16 @@ def test_rwkv6_function_on_card_matches_plain_gradients(cuda, BH, S,
 @pytest.mark.parametrize("shape", [(8, 2048), (2, 8, 2048), (512, 2048),
                                    (37, 260), (3, 17, 1024), (8, 8192),
                                    (3, 17, 4608), (8, 1600), (512, 1600),
-                                   (8, 1024), (512, 1024)])
+                                   (8, 1024), (512, 1024),
+                                   # the published micro-batches
+                                   (16, 896), (16, 1024), (2, 4608),
+                                   (1, 7168), (1, 8192), (5, 8, 2048)])
 def test_dt_loss_wide_kernel_matches_plain_on_card(cuda, shape):
     """The wide form (256 < D <= 8192) against the plain version on unit
     rows: one launch of it and none of the narrow kernel, two calls
-    bitwise equal; D % 4 != 0 and D above 8192 refused."""
+    bitwise equal; D % 4 != 0 and D above 8192 refused. The ranks split
+    D at M <= 64 and the keys above (37 rows: two clusters of the D
+    split; 512: 16 clusters of the key split)."""
     rs = np.random.RandomState(sum(shape))
     q = torch.from_numpy(_unit(rs, shape)).to(cuda)
     k = torch.from_numpy(_unit(rs, shape)).to(cuda)
@@ -546,6 +625,19 @@ def test_dt_loss_wide_kernel_matches_plain_on_card(cuda, shape):
     big = torch.zeros((*shape[:-1], 8196), device=cuda)
     with pytest.raises(ValueError, match="dt_loss kernel takes D"):
         ops.dt_loss_fwd(big, big, 0.1, 1.0)
+
+
+@pytest.mark.cuda
+def test_dt_loss_wide_kernel_spills_nothing(cuda):
+    """The wide form keeps its accumulators and states in registers (0
+    local bytes) at the zoo's widths, and launches clusters of 8 CTAs of
+    8 consumer warps and a producer that an SM can hold."""
+    for d in (1024, 4608, 8192):
+        attrs = dt_kernel.wide_kernel_attributes(d)
+        assert attrs["local_bytes"] == 0, attrs
+        assert attrs["cluster"] == WIDE_CLUSTER, attrs
+        assert attrs["threads"] == 32 * (WIDE_WARPS + 1), attrs
+        assert attrs["blocks_per_sm"] >= 1, attrs
 
 
 @pytest.mark.cuda
