@@ -706,6 +706,23 @@ VLM_LM, VLM_LM_STEPS = (8, 4096, 8), 1
 VLM_DT, VLM_DT_STEPS = (8, 512, 1), 1
 VLM_RANGES = ("vlm.vision_proj", "vlm.cross", "attention.ctx_kv")
 
+# [zoo_mesh]: the zoo's mesh mode (launch/steps.py with a mesh: params,
+# momentum, batches and caches as DTensors placed by launch/sharding.py,
+# activations under its rules) at world size 1 over NCCL, a (data=1,
+# model=1) zoo mesh, held bitwise against the same steps without a mesh
+# from the same params and inputs: tinyllama-1.1b's dt step (the DT
+# kernel's wide form on the features gathered over the batch axes, one
+# launch), olmoe-1b-7b's lm step with n_layers cut to MOE_TRAIN_LAYERS
+# (as [moe]), and each model's prefill of ZOO_MESH_SERVE[0] x [1] tokens
+# and ZOO_MESH_SERVE[2] greedy decode steps (the logits and the caches).
+# Both sides run under torch.use_deterministic_algorithms, since the
+# MoE's backward accumulates with index_put, whose default CUDA kernel
+# adds with atomics, so two one-device runs need not agree bitwise.
+ZOO_MESH_DT = (8, 512, 1)
+ZOO_MESH_LM = MOE_LM
+ZOO_MESH_SERVE = (8, 1024, 16)
+ZOO_MESH_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b")
+
 
 def _smi() -> str:
     out = subprocess.run(
@@ -730,6 +747,13 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# CUPTI may hand back a window with no device record at all (seen once in
+# a PR 29 run: every launch of a kernel that the windows before it had
+# recorded): the window is profiled again, at most this many times in
+# all, and a kernel that no window records still fails
+PROFILE_WINDOWS = 3
+
+
 def _profiled(work):
     """(work()'s result, key_averages()) of `work` under torch.profiler,
     CPU and CUDA activity, synchronised before and after."""
@@ -750,8 +774,9 @@ def _device_ms(fn, kernel: str, iters: int = 50) -> float:
     under torch.profiler, then the self device time of the device events
     whose name holds `kernel`, summed and divided by their count (CUPTI's
     kernel start and end stamps, not the host clock; the trace may drop a
-    few records, so the count is the trace's). Raises unless the trace
-    holds between 1 and `iters` such launches with device time."""
+    few records, so the count is the trace's, and a window with none is
+    profiled again, PROFILE_WINDOWS in all). Raises unless a trace holds
+    between 1 and `iters` such launches with device time."""
     from torch.autograd import DeviceType
 
     fn()                                   # warm-up, outside the trace
@@ -759,11 +784,16 @@ def _device_ms(fn, kernel: str, iters: int = 50) -> float:
     def work():
         for _ in range(iters):
             fn()
-    _, events = _profiled(work)
-    hits = [e for e in events if e.device_type == DeviceType.CUDA
-            and kernel in e.key]
-    n = sum(e.count for e in hits)
-    total_us = sum(e.self_device_time_total for e in hits)
+    for _ in range(PROFILE_WINDOWS):
+        _, events = _profiled(work)
+        hits = [e for e in events if e.device_type == DeviceType.CUDA
+                and kernel in e.key]
+        n = sum(e.count for e in hits)
+        total_us = sum(e.self_device_time_total for e in hits)
+        if n:
+            break
+        print(f"[profiler] no device record of {kernel!r} in a window of "
+              f"{iters} calls; profiling again", flush=True)
     if not 0 < n <= iters or not total_us > 0:
         raise AssertionError(f"profiler: {n} launches of {kernel!r} with "
                              f"{total_us} us of device time, expected 1 to "
@@ -783,9 +813,14 @@ def _device_ms_all(fn, iters: int = 50) -> float:
     def work():
         for _ in range(iters):
             fn()
-    _, events = _profiled(work)
-    total_us = sum(e.self_device_time_total for e in events
-                   if e.device_type == DeviceType.CUDA)
+    for _ in range(PROFILE_WINDOWS):
+        _, events = _profiled(work)
+        total_us = sum(e.self_device_time_total for e in events
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            break
+        print(f"[profiler] no device record in a window of {iters} calls; "
+              f"profiling again", flush=True)
     if not total_us > 0:
         raise AssertionError("profiler: no device time in the trace")
     return total_us / iters / 1e3
@@ -4705,6 +4740,176 @@ def vlm_full_width(dev) -> dict:
     return total
 
 
+def _zoo_mesh_same(tag, a, b) -> None:
+    """Every leaf of tree (or tensor) `a`, gathered from its DTensors,
+    bitwise the plain `b`."""
+    from repro_torch.convert import leaves_with_paths
+    from repro_torch.launch import sharding as sh
+
+    a, b = sh.gather_tree({"x": a}), {"x": b}
+    for (path, x), (_, y) in zip(leaves_with_paths(a), leaves_with_paths(b)):
+        if x.dtype != y.dtype or x.shape != y.shape or not bool(
+                (x == y).all()):
+            raise AssertionError(f"[zoo_mesh] {tag} {'/'.join(path[1:])}: "
+                                 f"the mesh step differs from the one-card "
+                                 f"step by {_max_err(x, y)}")
+
+
+def _zoo_mesh_timed(fn):
+    """(fn()'s result, seconds on the host clock, synchronised)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def zoo_mesh_path(dev) -> dict:
+    """[zoo_mesh]: the mesh steps at world size 1 (ZOO_MESH_*), each
+    against the same step without a mesh, bitwise: the first mesh call
+    (DTensor's sharding propagation fills its caches) and a second one
+    timed, the one-card step timed once (its shapes warmed by [dense]
+    and [moe]), the peak memory of the mesh calls, the one-card step's
+    result held meanwhile. Launches are counted over the mesh calls
+    only; returns them, a call's worth."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import decode as dec
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train as tr
+
+    t_phase = time.time()
+    _free()
+    mesh = M.zoo_mesh(1, 1, device=dev)
+    print(f"[zoo_mesh] (data=1, model=1) zoo mesh over the "
+          f"{torch.distributed.get_backend()} group of "
+          f"{torch.distributed.get_world_size()} rank(s); one card, no "
+          f"speed-up is claimed for the sharding; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+          f"before the phase", flush=True)
+    total: dict = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch in ZOO_MESH_ARCHS:
+            cfg = get_config(arch)
+            if cfg.family == "moe":
+                cfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+                objective, (b, s, nm) = "lm", ZOO_MESH_LM
+            else:
+                objective, (b, s, nm) = "dt", ZOO_MESH_DT
+            params = dec.init_model(cfg, 0, torch.bfloat16, dev)
+            placed = st.shard_params(cfg, params, mesh)
+            shape = InputShape(objective, s, b, "train")
+            batch = tr.make_batch(cfg, shape, 0, 0, dev, objective)
+            one, _ = st.make_train_step(cfg, shape, objective=objective,
+                                        n_micro=nm)
+            on_mesh, _ = st.make_train_step(cfg, shape, mesh,
+                                            objective=objective, n_micro=nm)
+            (p1, m1, met1), t_one = _zoo_mesh_timed(
+                lambda: one(params, st.init_momentum(params), batch))
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            _, t_first = _zoo_mesh_timed(
+                lambda: on_mesh(placed, st.init_momentum(placed), batch))
+            (p2, m2, met2), t_mesh = _zoo_mesh_timed(
+                lambda: on_mesh(placed, st.init_momentum(placed), batch))
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _zoo_mesh_same(f"{arch} {objective} loss", met2["loss"],
+                           met1["loss"])
+            _zoo_mesh_same(f"{arch} {objective} params", p2, p1)
+            _zoo_mesh_same(f"{arch} {objective} momentum", m2, m1)
+            want = {k: 0 for k in counts}
+            want["dt_loss_wide"] = 2 * nm if objective == "dt" else 0
+            if counts != want:
+                raise AssertionError(f"[zoo_mesh] {arch} {objective} "
+                                     f"launches {counts}, want {want}")
+            total = _add(total, {k: v // 2 for k, v in counts.items()})
+            print(f"[zoo_mesh] {arch} {objective} bfloat16 {b} x {s} in "
+                  f"{nm} micro-batch(es), {cfg.n_layers} layers: mesh step "
+                  f"{t_mesh:.4f} s (first {t_first:.4f} s), one-card step "
+                  f"{t_one:.4f} s; loss {float(met2['loss']):.6f}, params "
+                  f"and momentum bitwise the one-card step's; peak "
+                  f"{peak:.2f} GiB; launches a mesh step "
+                  f"{ {k: v // 2 for k, v in counts.items() if v} }",
+                  flush=True)
+            del p1, m1, p2, m2, batch
+            _free()
+            total = _add(total, _zoo_mesh_serve(dev, cfg, params, placed,
+                                                mesh))
+            del params, placed
+            _free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[zoo_mesh] {time.time() - t_phase:.1f} s in the phase; "
+          f"launches on the mesh {total}", flush=True)
+    return total
+
+
+def _zoo_mesh_serve(dev, cfg, params, placed, mesh) -> dict:
+    """ZOO_MESH_SERVE's prefill and greedy decode steps with and without
+    the mesh: each step's logits and the final cache bitwise. Returns
+    the mesh run's launches."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import decode as dec
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as st
+
+    b, p_len, n_dec = ZOO_MESH_SERVE
+    total = p_len + n_dec
+    prompts = dec.random_prompts(cfg, b, p_len, 0, dev)
+
+    def serve(mesh_):
+        pre = st.make_prefill_step(cfg, InputShape("p", total, b, "prefill"),
+                                   torch.bfloat16, mesh=mesh_)
+        decode = st.make_decode_step(cfg, InputShape("d", total, b, "decode"),
+                                     mesh=mesh_)
+        p = params if mesh_ is None else placed
+        (last, cache), t_pre = _zoo_mesh_timed(
+            lambda: pre(p, {"tokens": prompts}))
+        logits, secs = [last], []
+        tok = dec.greedy(cfg, sh.full(last))
+        for i in range(n_dec):
+            pos = torch.full((b,), p_len + i, dtype=torch.int64, device=dev)
+            (lg, cache), t_ = _zoo_mesh_timed(lambda: decode(p, {
+                "tokens": tok, "positions": pos, "cache": cache}))
+            logits.append(lg)
+            secs.append(t_)
+            tok = dec.greedy(cfg, sh.full(lg))
+        return logits, cache, t_pre, secs
+
+    one = serve(None)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    first = serve(mesh)
+    got = serve(mesh)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (x, y) in enumerate(zip(got[0], one[0])):
+        _zoo_mesh_same(f"{cfg.name} serve logits {i}", x, y)
+    _zoo_mesh_same(f"{cfg.name} serve cache", got[1], one[1])
+    if any(counts.values()):
+        raise AssertionError(f"[zoo_mesh] {cfg.name} serve launched "
+                             f"{counts}, want none")
+    med = sorted(got[3])[len(got[3]) // 2]
+    print(f"[zoo_mesh] {cfg.name} served {b} x {p_len} + {n_dec} decode "
+          f"steps on the mesh: prefill {got[2]:.4f} s (first "
+          f"{first[2]:.4f} s; one-card {one[2]:.4f} s), decode median "
+          f"{med * 1e3:.2f} ms a step (one-card "
+          f"{sorted(one[3])[len(one[3]) // 2] * 1e3:.2f} ms); every "
+          f"logit and the cache bitwise the one-card run's; peak "
+          f"{peak:.2f} GiB", flush=True)
+    return {k: v // 2 for k, v in counts.items()}
+
+
 def analysis_path(dev, first_build) -> None:
     """[analysis]: the guards live on the card, the registries' contracts
     and the port's lint clean. `first_build` is the tracker around the
@@ -4843,6 +5048,8 @@ def run() -> int:
     _free()
     vlm_cross_check(dev)
     paths["vlm"] = vlm_full_width(dev)
+    _free()
+    paths["zoo_mesh"] = zoo_mesh_path(dev)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
                 else zoo_launches if r["name"] == "rwkv6"

@@ -4,4 +4,4 @@ DeepSeek-67B, the MoE OLMoE-1B-7B and Kimi-K2-1T-A32B, the hybrid
 Hymba-1.5B, the audio encoder-decoder SeamlessM4T-large-v2 and the
 vision-language Llama-3.2-Vision-90B)."""
 from repro_torch.configs.base import (  # noqa: F401
-    InputShape, ModelConfig, get_config)
+    InputShape, ModelConfig, get_config, list_configs)

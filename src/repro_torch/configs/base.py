@@ -1,5 +1,6 @@
 """Config registry — counterpart of `repro.configs.base` (`ModelConfig`,
-`pad_vocab`, `InputShape`, `INPUT_SHAPES`, `get_config`).
+`pad_vocab`, `InputShape`, `INPUT_SHAPES`, `get_config`,
+`list_configs`).
 
 The port keeps its own copy of the `ModelConfig` fields its models read,
 of `INPUT_SHAPES` and of `get_config`, with the reference's ``-smoke``
@@ -151,16 +152,27 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
+def _load_all() -> None:
+    from repro_torch.configs import (  # noqa: F401
+        deepseek_67b, gemma2_27b, hymba_1_5b, kimi_k2_1t_a32b,
+        llama_3_2_vision_90b, olmoe_1b_7b, qwen2_0_5b, resnet18_cifar,
+        rwkv6_1_6b, seamless_m4t_large_v2, tinyllama_1_1b)
+
+
 def get_config(name: str) -> ModelConfig:
     """The registered config `name`; ``<name>-smoke`` is its `reduced()`."""
     if not _REGISTRY:
-        from repro_torch.configs import (  # noqa: F401
-            deepseek_67b, gemma2_27b, hymba_1_5b, kimi_k2_1t_a32b,
-            llama_3_2_vision_90b, olmoe_1b_7b, qwen2_0_5b, resnet18_cifar,
-            rwkv6_1_6b, seamless_m4t_large_v2, tinyllama_1_1b)
+        _load_all()
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).reduced()
     if name not in _REGISTRY:
         raise KeyError(f"unknown config {name!r}; the port registers "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_configs() -> list[str]:
+    """Every registered name, sorted, as the reference's."""
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)

@@ -2,7 +2,9 @@
 
 Counterpart of `repro.core.aggregation` (`SCHEME_WEIGHTS`,
 `AGGREGATORS`, `cohort_weighted_sum`, `_weighted_stacked_sum`,
-`_weighted_tree_sum`, `aggregate_fedavg`, the weight functions). Every
+`_weighted_tree_sum`, the weight functions and the list API
+`aggregate_fedavg`, `aggregate_flsimco`, `aggregate_discard`,
+`aggregate_softmax`, `aggregate_inverse`). Every
 entry has the dispatch signature
 
     aggregate(cohort: CohortBatch, cfg) -> tree
@@ -69,6 +71,29 @@ def aggregate_fedavg(trees, data_sizes=None) -> dict:
         s = torch.as_tensor(data_sizes, dtype=torch.float32)
         w = s / s.sum()
     return _weighted_tree_sum(trees, w)
+
+
+def aggregate_flsimco(trees, blur_levels, normalize: bool = True) -> dict:
+    """Blur-level-weighted aggregation (Eq. 11) over a list of trees."""
+    return _weighted_tree_sum(trees, flsimco_weights(blur_levels, normalize))
+
+
+def aggregate_discard(trees, blur_levels, threshold: float) -> dict:
+    """Baseline2 over a list of trees: clients whose blur level exceeds
+    `threshold` dropped, FedAvg over the rest (all of them if none
+    remains)."""
+    return _weighted_tree_sum(trees, discard_weights(blur_levels, threshold))
+
+
+def aggregate_softmax(trees, blur_levels, temperature: float = 5.0) -> dict:
+    """w = softmax(-L / T) over a list of trees."""
+    return _weighted_tree_sum(trees, softmax_weights(blur_levels,
+                                                     temperature))
+
+
+def aggregate_inverse(trees, blur_levels, eps: float = 1.0) -> dict:
+    """w proportional to 1 / (L + eps) over a list of trees."""
+    return _weighted_tree_sum(trees, inverse_weights(blur_levels, eps))
 
 
 def cohort_weighted_row(cohort, w_valid) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """FLSimCo Sec. 4 Step 2 image augmentations and the MoCo/FedCo
 machinery — counterpart of `repro.core.ssl` (`pi1`, `pi2`, `_grayscale`,
-`_color_jitter`, `MoCoState`, `init_moco_state`, `momentum_update`,
-`queue_push`, `fedco_merge_queues`).
+`_color_jitter`, `token_view`, `MoCoState`, `init_moco_state`,
+`momentum_update`, `queue_push`, `fedco_merge_queues`).
 
     pi1: horizontal flip (p=.5) -> grayscale (p=.2)
     pi2: color jitter (brightness/contrast/saturation/hue, range .4,
@@ -11,7 +11,8 @@ The reference draws inside each view from a jax key. Here each view is a
 draw (`draw_pi1` / `draw_pi2`, from a CPU `torch.Generator`, returning
 the masks and factors) and an apply (`pi1` / `pi2`, pure functions of the
 images and the draws), so a round's plan can hold its draws and a test
-can hand the port the reference's draws. Images stay NHWC, as in the
+can hand the port the reference's draws; a token view likewise
+(`draw_token_view`, `token_view`). Images stay NHWC, as in the
 reference.
 """
 from __future__ import annotations
@@ -103,6 +104,18 @@ def pi2(x: torch.Tensor, d: dict) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # MoCo / FedCo machinery
 # --------------------------------------------------------------------------
+
+def draw_token_view(gen: torch.Generator, shape, drop_p: float = 0.15):
+    """A token view's drop mask: (B, S) bool, each position dropped with
+    probability `drop_p`, from the CPU generator `gen`."""
+    return torch.rand(tuple(shape), generator=gen) < drop_p
+
+
+def token_view(tokens: torch.Tensor, mask_id: int, drop: torch.Tensor):
+    """The masking view of a token batch (B, S): `mask_id` where `drop`
+    (`draw_token_view`, moved to the tokens' device) is set."""
+    return torch.where(drop, mask_id, tokens)
+
 
 class MoCoState(NamedTuple):
     key_params: dict        # momentum (EMA) encoder params

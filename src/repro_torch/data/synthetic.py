@@ -96,3 +96,17 @@ def partition_dirichlet(labels, n_clients: int, alpha: float,
                 client_idx[ci].append(client_idx[d].pop())
         return [np.array(sorted(ix)) for ix in client_idx]
     raise RuntimeError("dirichlet partition failed")
+
+
+def category_histogram(labels, parts, n_classes: int = N_CLASSES):
+    """Per-client class histogram (the paper's Fig. 3 data)."""
+    return np.stack([np.bincount(labels[p], minlength=n_classes)
+                     for p in parts])
+
+
+def token_batch(rng: np.random.RandomState, batch: int, seq: int,
+                vocab: int):
+    """Synthetic Zipf-like token stream (batch, seq) int32 in [1,
+    vocab - 2], for the LM training paths."""
+    z = rng.zipf(1.3, size=(batch, seq))
+    return (z % (vocab - 2) + 1).astype(np.int32)

@@ -1,13 +1,15 @@
 """Public wrappers around the port's kernels — counterpart of
-`repro.kernels.ops` (`wagg_flat`, `dt_loss`, `q8_encode_flat`,
-`q8_decode_flat`).
+`repro.kernels.ops` (`wagg_flat`, `wagg_tree`, `wagg_stacked`, `dt_loss`,
+`q8_encode_flat`, `q8_decode_flat`, `rwkv6`).
 
 Each wrapper runs the hand-written CUDA kernel when its tensors lie on a
 CUDA device and the plain version (kernels/ref.py) when they lie on the
 CPU. There is no other path: a CUDA input the kernel refuses raises, and
 a failed build or launch raises too.
 
-* ``wagg_flat(stacked (m, P), w (m,), mask=None)`` — Eq.-11 weighted sum.
+* ``wagg_flat(stacked (m, P), w (m,), mask=None)`` — Eq.-11 weighted sum;
+  ``wagg_tree(trees, w)`` the same over a list of model trees,
+  ``wagg_stacked(stacked_tree, w, mask=None)`` over a stacked tree.
 * ``dt_loss(q, k, tau_alpha, tau_beta)`` — mean DT loss, differentiable:
   a `torch.autograd.Function` whose forward is the DT kernel (its wide
   form for 256 < D <= 8192, the zoo's features) and whose
@@ -40,6 +42,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.convert import (flat_spec, leaves_with_paths, ravel_into,
+                                 tree_map, unflatten, unravel)
 from repro_torch.kernels import ref
 from repro_torch.kernels import dt_loss as _dt_kernel
 from repro_torch.kernels import qdelta as _q8_kernel
@@ -89,6 +93,44 @@ def wagg_flat(stacked: torch.Tensor, w: torch.Tensor,
     if _on_cuda(stacked, w, mask):
         return _wagg_kernel.wagg_cuda(stacked, w, mask)
     return ref.wagg_ref(stacked, w, mask)
+
+
+def _unravel_like(out: torch.Tensor, like) -> dict:
+    """(P,) float32 -> `like`'s structure, shapes and leaf dtypes."""
+    leaves = leaves_with_paths(like)
+    got = leaves_with_paths(unravel(out, flat_spec(like)))
+    return unflatten([x.to(l.dtype) for (_, x), (_, l) in zip(got, leaves)],
+                     like)
+
+
+def wagg_tree(trees, w) -> dict:
+    """Weighted sum of a list of model trees (the list-API boundary):
+    each tree raveled into a row of one (n, P) float32 buffer, then
+    `wagg_flat`, and the (P,) result in the first tree's structure,
+    each leaf cast back to its dtype."""
+    spec = flat_spec(trees[0])
+    first = leaves_with_paths(trees[0])[0][1]
+    stacked = torch.empty((len(trees), spec.size), dtype=torch.float32,
+                          device=first.device)
+    for row, tree in zip(stacked, trees):
+        ravel_into(tree, row, spec)
+    # analysis: allow=retrace-fresh-array -- the list boundary's n weights
+    w = torch.as_tensor(w, dtype=torch.float32, device=stacked.device)
+    return _unravel_like(wagg_flat(stacked, w), trees[0])
+
+
+def wagg_stacked(stacked_tree, w, mask=None) -> dict:
+    """Weighted sum over the leading cohort axis of a stacked tree (every
+    leaf (N, ...)): the leaves raveled into one (N, P) float32 matrix,
+    one `wagg_flat` (`mask` zeroes rows), and the (P,) result in one
+    row's structure and leaf dtypes."""
+    leaves = [t for _, t in leaves_with_paths(stacked_tree)]
+    n = leaves[0].shape[0]
+    flat = torch.cat([t.reshape(n, -1).float() for t in leaves], dim=1)
+    # analysis: allow=retrace-fresh-array -- float32 at the kernel boundary
+    w = torch.as_tensor(w, dtype=torch.float32, device=flat.device)
+    return _unravel_like(wagg_flat(flat, w, mask),
+                         tree_map(lambda t: t[0], stacked_tree))
 
 
 def dt_loss_fwd(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels — counterpart of
-`repro.kernels.ref` (`dt_loss_fwd_ref`, and its cohort form
-`dt_loss_fwd_cohort_ref`, `wagg_ref`, `q8_encode_ref`,
+`repro.kernels.ref` (`dt_loss_fwd_ref`, its mean `dt_loss_ref` and
+its cohort form `dt_loss_fwd_cohort_ref`, `wagg_ref`, `q8_encode_ref`,
 `q8_decode_ref`, `rwkv6_ref`).
 
 They define what the CUDA kernels compute. The CPU path of every wrapper
@@ -28,6 +28,12 @@ def dt_loss_fwd_ref(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
     over the in-batch similarity row sim_i = q_i @ k^T (positive = diag).
     """
     return dt_loss_from_sim(q.float() @ k.float().T, tau_alpha, tau_beta)
+
+
+def dt_loss_ref(q: torch.Tensor, k: torch.Tensor, tau_alpha: float = 0.1,
+                tau_beta: float = 1.0) -> torch.Tensor:
+    """The mean of `dt_loss_fwd_ref`'s per-row losses."""
+    return dt_loss_fwd_ref(q, k, tau_alpha, tau_beta)[0].mean()
 
 
 def dt_loss_fwd_cohort_ref(q: torch.Tensor, k: torch.Tensor,

@@ -11,7 +11,10 @@ patches).
 
 The reference runs ``--reduced`` end to end on the CPU and, without it,
 only lowers and compiles the decode step for a TPU mesh. The port runs
-both: ``--reduced`` is the reference's run (the ``-smoke`` config, B = 2,
+both on one card, or on the zoo mesh under ``torchrun --nproc-per-node
+N`` (or with ``--model-parallel M``, as `launch.train`'s mesh mode: the
+``dense`` and ``moe`` families; params, prompts and caches sharded,
+rank 0 prints): ``--reduced`` is the reference's run (the ``-smoke`` config, B = 2,
 S = 32, float32 parameters and cache); without it the full-width config
 runs on the card with bfloat16 parameters and cache (the reference's
 serve-step default), at ``--batch`` prompts of ``--prompt-len`` random
@@ -50,6 +53,12 @@ bf16) do not fit one card; chip_smoke.py serves it with n_layers cut to
     PYTHONPATH=src python -m repro_torch.launch.decode \\
         --arch llama-3.2-vision-90b --reduced --device cpu
 
+On 8 gloo ranks of the CPU, model-parallel over 4:
+
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.decode \
+        --arch tinyllama-1.1b --reduced --device cpu --batch 8 \
+        --model-parallel 4
+
 Prints the prefill time, the decode time per step and decode tok/s.
 """
 from __future__ import annotations
@@ -58,11 +67,13 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import InputShape, get_config
+from repro_torch.launch import sharding as sh
 from repro_torch.launch import steps as st
 from repro_torch.models import transformer as T
-from repro_torch.runtime import resolve_device, set_parity_mode
+from repro_torch.runtime import set_parity_mode
 
 
 def _sync(device: torch.device) -> None:
@@ -90,14 +101,16 @@ def greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
 
 
 def run_prefill(cfg, params, prompts, total_len: int, param_dtype,
-                frames=None, patches=None):
+                frames=None, patches=None, mesh=None):
     """Prefill `prompts` (with the ``audio`` family's `frames` (B, Te,
     d_audio) or the ``vlm`` family's `patches` (B, n_vision_tokens,
     d_vision) when given); returns (last-position logits (B, V), cache,
-    seconds on the host clock, synchronised)."""
+    seconds on the host clock, synchronised). On a zoo `mesh` the params
+    are DTensors and the logits and cache come back as DTensors."""
     b = prompts.shape[0]
     prefill = st.make_prefill_step(
-        cfg, InputShape("prefill", total_len, b, "prefill"), param_dtype)
+        cfg, InputShape("prefill", total_len, b, "prefill"), param_dtype,
+        mesh=mesh)
     batch = {"tokens": prompts}
     for k, v in (("frames", frames), ("patches", patches)):
         if v is not None:
@@ -109,12 +122,16 @@ def run_prefill(cfg, params, prompts, total_len: int, param_dtype,
     return last, cache, time.perf_counter() - t0
 
 
-def run_decode(cfg, params, last, cache, start: int, n_tokens: int):
+def run_decode(cfg, params, last, cache, start: int, n_tokens: int,
+               mesh=None):
     """`n_tokens` greedy decode steps from the prefill's `last` logits at
     absolute position `start`. Returns (tokens (B, n_tokens + 1): the
-    prefill's pick then each step's, cache, seconds, synchronised)."""
-    decode = st.make_decode_step(cfg)
+    prefill's pick then each step's, cache, seconds, synchronised). On a
+    zoo `mesh` each step's logits are gathered for the pick."""
     b = last.shape[0]
+    decode = st.make_decode_step(
+        cfg, InputShape("decode", start + n_tokens, b, "decode"), mesh=mesh)
+    last = sh.full(last)
     tok = greedy(cfg, last)
     out = [tok]
     _sync(tok.device)
@@ -125,7 +142,7 @@ def run_decode(cfg, params, last, cache, start: int, n_tokens: int):
         pos = torch.full((b,), start + i, dtype=torch.int64, device=tok.device)
         logits, cache = decode(params, {"tokens": tok, "positions": pos,
                                         "cache": cache})
-        tok = greedy(cfg, logits)
+        tok = greedy(cfg, sh.full(logits))
         out.append(tok)
     _sync(tok.device)
     return torch.cat(out, dim=1), cache, time.perf_counter() - t0
@@ -143,25 +160,41 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="mesh: two pods, (pod, data, model)")
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="mesh: ranks a model-parallel group; given, the "
+                         "zoo mesh runs even at world size 1")
     a = ap.parse_args(argv)
 
-    device = resolve_device(a.device)
-    set_parity_mode()
     cfg = get_config(a.arch)
+    device, mesh = st.launch_zoo_mesh(cfg, a.device, a.model_parallel,
+                                      a.multi_pod)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    set_parity_mode()
     if a.reduced:
         cfg = cfg.reduced()
         dtype, b, s = torch.float32, a.batch or 2, a.prompt_len or 32
     else:
         dtype, b, s = torch.bfloat16, a.batch or 16, a.prompt_len or 2048
     params = init_model(cfg, a.seed, dtype, device)
+    if mesh is not None:
+        params = st.shard_params(cfg, params, mesh)
     prompts = random_prompts(cfg, b, s, a.seed, device)
     # warm-up: builds the kernel and the library handles before timing
-    last, cache, _ = run_prefill(cfg, params, prompts, s + a.tokens, dtype)
-    run_decode(cfg, params, last, cache, s, min(a.tokens, 2))
-    last, cache, t_pre = run_prefill(cfg, params, prompts, s + a.tokens, dtype)
-    toks, _, t_dec = run_decode(cfg, params, last, cache, s, a.tokens)
-    if not bool(torch.isfinite(last[:, :cfg.vocab_size]).all()):
+    last, cache, _ = run_prefill(cfg, params, prompts, s + a.tokens, dtype,
+                                 mesh=mesh)
+    run_decode(cfg, params, last, cache, s, min(a.tokens, 2), mesh)
+    last, cache, t_pre = run_prefill(cfg, params, prompts, s + a.tokens, dtype,
+                                     mesh=mesh)
+    toks, _, t_dec = run_decode(cfg, params, last, cache, s, a.tokens, mesh)
+    if not bool(torch.isfinite(sh.full(last)[:, :cfg.vocab_size]).all()):
         raise SystemExit("prefill logits are not finite")
+    if not lead:
+        return
+    if mesh is not None:
+        device = (f"the {dict(zip(mesh.mesh_dim_names, mesh.shape))} mesh "
+                  f"of {device.type} ranks")
     print(f"{cfg.name} on {device}: prefill {b}x{s} in {t_pre * 1e3:.1f} ms "
           f"({b * s / t_pre:.0f} tok/s); {a.tokens} decode steps x {b} seqs "
           f"in {t_dec * 1e3:.1f} ms ({t_dec * 1e3 / max(a.tokens, 1):.2f} "

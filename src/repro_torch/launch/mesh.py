@@ -19,13 +19,23 @@ run on one card with no launcher. NCCL takes one rank a device, and
 gloo cannot gather CUDA tensors, so a one-card machine runs the mesh at
 world size 1.
 
-The reference's `make_production_mesh` and `make_host_mesh` are TPU pod
-shapes (ROADMAP.md Queue A, item 12, mesh lowering) and are not here.
+Zoo meshes: the zoo's mesh mode (launch/steps.py with a mesh) runs over
+a `DeviceMesh` named ("data", "model"), or ("pod", "data", "model")
+across pods, that spans every rank (`zoo_mesh`, cached like the cohort
+meshes). `make_production_mesh` is the reference's (16, 16) or (2, 16,
+16) over 256 or 512 launched ranks, and `make_host_mesh` its (1, 1)
+mesh at world size 1. `ShapeMesh` carries the axis names and sizes only,
+as jax's `AbstractMesh` does: the sharding rules take it, so the specs
+of a production mesh are computed on one CPU. `axis_names` and
+`axis_sizes` read either kind.
+
 The collectives a sharded form runs on a mesh (`psum`, `all_gather_rows`,
 `cohort_rank`) are in core/collectives.py, beside the modules that call
 them; this module builds meshes and groups.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -33,9 +43,14 @@ import torch.distributed as dist
 from repro_torch.core.collectives import COHORT_AXES, axis_size, world_size
 from repro_torch.runtime import resolve_device
 
-__all__ = ["COHORT_AXES", "axis_size", "batch_axes", "cohort_axis_divisor",
-           "cohort_mesh", "init_from_launcher", "maybe_cohort_mesh",
-           "reset_meshes", "world_size"]
+__all__ = ["COHORT_AXES", "ShapeMesh", "ZOO_AXES", "ZOO_AXES_MULTI_POD",
+           "axis_names", "axis_size", "axis_sizes", "batch_axes",
+           "cohort_axis_divisor", "cohort_mesh", "init_from_launcher",
+           "make_host_mesh", "make_production_mesh", "maybe_cohort_mesh",
+           "reset_meshes", "world_size", "zoo_mesh"]
+
+ZOO_AXES = ("data", "model")
+ZOO_AXES_MULTI_POD = ("pod", "data", "model")
 
 _LAUNCH_HINT = ("launch one process a device, e.g. `torchrun "
                 "--nproc-per-node N` (NCCL on CUDA, gloo on the CPU), or "
@@ -85,37 +100,94 @@ def init_from_launcher(device=None) -> torch.device:
     return device
 
 
-def cohort_mesh(pods: int, data: int, device=None):
-    """The (pod=pods, data=data) `DeviceMesh` a cohort shards over, on
-    `device`'s type (None means CUDA), cached on its shape. Raises an
-    actionable ValueError when the group has too few ranks, or more ranks
-    than the mesh spans."""
-    if pods < 1 or data < 1:
-        raise ValueError(f"cohort mesh axes must be >= 1, got "
-                         f"(pod={pods}, data={data})")
-    need, have = pods * data, world_size()
+def _spanning_mesh(shape: tuple, names: tuple, device, what: str):
+    """A `DeviceMesh` of `shape` with dims `names` over every rank of the
+    default group (a one-rank group made where there is none), on
+    `device`'s type (None means CUDA), cached on (shape, names, device
+    type). Raises an actionable ValueError when the group has too few
+    ranks, or more ranks than the mesh spans."""
+    if any(n < 1 for n in shape):
+        raise ValueError(f"{what} axes must be >= 1, got {shape}")
+    need, have = math.prod(shape), world_size()
     if have < need:
-        raise ValueError(
-            f"cohort mesh (pod={pods}, data={data}) needs {need} ranks; "
-            f"have {have} — {_LAUNCH_HINT}")
+        raise ValueError(f"{what} needs {need} ranks; have {have} — "
+                         f"{_LAUNCH_HINT}")
     if have > need:
         raise ValueError(
-            f"cohort mesh (pod={pods}, data={data}) spans {need} ranks; "
-            f"the process group has {have} — every rank holds a block of "
-            f"the cohort, so launch {need} processes "
+            f"{what} spans {need} ranks; the process group has {have} — "
+            f"a mesh spans every rank, so launch {need} processes "
             f"(`torchrun --nproc-per-node {need}`)")
     device = resolve_device(device)
-    key = (pods, data, device.type)
+    key = (shape, names, device.type)
     mesh = _MESHES.get(key)
     if mesh is None:
         from torch.distributed.device_mesh import init_device_mesh
         _ensure_group(device)
-        # analysis: allow=retrace-ctor -- cached in _MESHES on (pods, data,
-        # device type)
-        mesh = init_device_mesh(device.type, (pods, data),
-                                mesh_dim_names=COHORT_AXES)
+        # analysis: allow=retrace-ctor -- cached in _MESHES on (shape,
+        # names, device type)
+        mesh = init_device_mesh(device.type, shape, mesh_dim_names=names)
         _MESHES[key] = mesh
     return mesh
+
+
+def cohort_mesh(pods: int, data: int, device=None):
+    """The (pod=pods, data=data) `DeviceMesh` a cohort shards over, on
+    `device`'s type (None means CUDA), cached on its shape."""
+    return _spanning_mesh((pods, data), COHORT_AXES, device,
+                          f"cohort mesh (pod={pods}, data={data})")
+
+
+def zoo_mesh(data: int, model: int, pods: int = 0, device=None):
+    """The zoo's `DeviceMesh` over every rank: (data, model) named
+    ZOO_AXES, or (pods, data, model) named ZOO_AXES_MULTI_POD when `pods`
+    is given; on `device`'s type (None means CUDA), cached on its
+    shape."""
+    if pods:
+        return _spanning_mesh((pods, data, model), ZOO_AXES_MULTI_POD,
+                              device, f"zoo mesh (pod={pods}, data={data}, "
+                                      f"model={model})")
+    return _spanning_mesh((data, model), ZOO_AXES, device,
+                          f"zoo mesh (data={data}, model={model})")
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The reference's production mesh over the launched ranks: (data=16,
+    model=16), or (pod=2, data=16, model=16) with `multi_pod`."""
+    return zoo_mesh(16, 16, 2 if multi_pod else 0, device)
+
+
+def make_host_mesh(device=None):
+    """The (data=1, model=1) zoo mesh at world size 1: the production
+    axis names on one device, as the reference's."""
+    return zoo_mesh(1, 1, 0, device)
+
+
+class ShapeMesh:
+    """Axis names and sizes without devices, as jax's `AbstractMesh`:
+    ``ShapeMesh((2, 16, 16), ("pod", "data", "model"))``. The sharding
+    rules read nothing else of a mesh."""
+
+    def __init__(self, shape: tuple, names: tuple):
+        if len(shape) != len(names):
+            raise ValueError(f"shape {shape} and names {names} differ in "
+                             f"length")
+        self.shape = dict(zip(names, shape))
+        self.mesh_dim_names = tuple(names)
+
+    def __repr__(self):
+        return f"ShapeMesh({self.shape})"
+
+
+def axis_names(mesh) -> tuple:
+    """The dim names of a `DeviceMesh` or a `ShapeMesh`."""
+    return tuple(mesh.mesh_dim_names)
+
+
+def axis_sizes(mesh) -> dict:
+    """{name: size} of a `DeviceMesh` or a `ShapeMesh`."""
+    if isinstance(mesh, ShapeMesh):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def reset_meshes() -> None:
@@ -153,5 +225,5 @@ def maybe_cohort_mesh(pods: int, rows_per_pod: int, device=None):
 
 
 def batch_axes(mesh) -> tuple:
-    """Mesh dims the cohort shards over."""
-    return tuple(a for a in mesh.mesh_dim_names if a in COHORT_AXES)
+    """Mesh dims the cohort, or a zoo batch, shards over."""
+    return tuple(a for a in axis_names(mesh) if a in COHORT_AXES)

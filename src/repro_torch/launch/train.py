@@ -5,8 +5,17 @@ Two modes, as the reference's:
 
 ``--mode mesh`` (default) — the zoo's federated train step
 (`launch.steps.make_train_step`: the blur-weighted LM loss or the
-token-view DT objective) on one card. The reference builds a TPU mesh
-here; the port runs on the device the params lie on. ``--reduced`` is
+token-view DT objective). At world size 1 without
+``--model-parallel`` it runs on one card, the device the params lie
+on. Under ``torchrun --nproc-per-node N`` (or with
+``--model-parallel M``) it runs on the zoo mesh (launch/mesh.py
+`zoo_mesh`: ("data", "model") = (N / M, M), or with ``--multi-pod``
+("pod", "data", "model") = (2, N / 2M, M)), one rank a card (gloo
+ranks with ``--device cpu``): every rank draws the same params and
+batches from ``--seed``, keeps its shards (launch/sharding.py) and
+runs the sharded step; rank 0 prints. The mesh steps take the
+``dense`` and ``moe`` families; the others raise NotImplementedError
+naming their ROADMAP item (`steps.MESH_ITEM`). ``--reduced`` is
 the reference's CPU run: the ``-smoke`` config in float32, 4 sequences
 of 64 tokens a step (its ``InputShape("cpu", 64, 4, "train")``).
 Without it the full-width config runs real steps on the card with
@@ -32,6 +41,11 @@ through `MobilityModel`.
 
 Full-width llama-3.2-vision-90b (9.07e10 parameters, 181 GB in bf16)
 does not fit one card; chip_smoke.py trains it with n_layers cut to 2.
+
+The mesh mode on 8 gloo ranks of the CPU, model-parallel over 4:
+
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch olmoe-1b-7b --reduced --device cpu --model-parallel 4
 
 ``--mode sim`` — the host-level FL simulation, a `Scenario` driven
 through `run_round`, with whole-`FLState` checkpoints and resume:
@@ -64,11 +78,10 @@ from repro_torch.configs.base import InputShape, get_config
 from repro_torch.core.mobility import MobilityModel
 from repro_torch.launch import steps as st
 from repro_torch.launch.decode import init_model
-from repro_torch.runtime import resolve_device, set_parity_mode
+from repro_torch.runtime import set_parity_mode
 
 REDUCED_SHAPE = InputShape("cpu", 64, 4, "train")
-MESH_ITEM = ("ROADMAP.md Queue A, item 12 (mesh lowering: dryrun.py and "
-             "sharding.py)")
+MESH_ITEM = st.MESH_ITEM
 
 
 def run_sim(a) -> None:
@@ -166,7 +179,12 @@ def main(argv=None):
     ap.add_argument("--aggregation", default="flsimco",
                     choices=["flsimco", "fedavg", "discard"])
     ap.add_argument("--lr", type=float, default=1e-2)
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="mesh: two pods, (pod, data, model)")
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="mesh: ranks a model-parallel group (the mesh's "
+                         "model axis); given, the zoo mesh runs even at "
+                         "world size 1")
     ap.add_argument("--seq-len", type=int, default=None,
                     help="tokens a sequence (default: 64 reduced, 4096)")
     ap.add_argument("--n-micro", type=int, default=None,
@@ -198,13 +216,11 @@ def main(argv=None):
         a.batch = a.batch or 16
         run_sim(a)
         return
-    if a.multi_pod:
-        raise NotImplementedError(
-            f"--multi-pod lowers for a multi-pod TPU mesh, which the "
-            f"one-card port has no counterpart of; see {MESH_ITEM}")
-    device = resolve_device(a.device)
-    set_parity_mode()
     cfg = get_config(a.arch)
+    device, mesh = st.launch_zoo_mesh(cfg, a.device, a.model_parallel,
+                                      a.multi_pod)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    set_parity_mode()
     if a.reduced:
         cfg = cfg.reduced()
         dtype = torch.float32
@@ -214,12 +230,19 @@ def main(argv=None):
         dtype = torch.bfloat16
         shape = InputShape("card", a.seq_len or 4096, a.batch or 8, "train")
     n_micro = a.n_micro or (None if a.reduced else shape.global_batch)
-    fn, nm = st.make_train_step(cfg, shape, objective=a.objective, lr=a.lr,
-                                aggregation=a.aggregation, n_micro=n_micro)
-    print(f"train {cfg.name} on {device}: {shape.global_batch} x "
-          f"{shape.seq_len} tokens a step, micro={nm} "
-          f"objective={a.objective} agg={a.aggregation}")
+    fn, nm = st.make_train_step(cfg, shape, mesh, objective=a.objective,
+                                lr=a.lr, aggregation=a.aggregation,
+                                n_micro=n_micro)
+    where = device if mesh is None else (
+        f"the {dict(zip(mesh.mesh_dim_names, mesh.shape))} mesh of "
+        f"{device.type} ranks")
+    if lead:
+        print(f"train {cfg.name} on {where}: {shape.global_batch} x "
+              f"{shape.seq_len} tokens a step, micro={nm} "
+              f"objective={a.objective} agg={a.aggregation}")
     params = init_model(cfg, a.seed, dtype, device)
+    if mesh is not None:
+        params = st.shard_params(cfg, params, mesh)
     mom = st.init_momentum(params)
     mob = MobilityModel()
     tokens = shape.global_batch * shape.seq_len
@@ -227,11 +250,12 @@ def main(argv=None):
         batch = make_batch(cfg, shape, i, a.seed, device, a.objective, mob)
         params, mom, [(loss, secs)] = run_steps(fn, params, mom, [batch],
                                                 device)
-        print(f"step {i}: loss={loss:.4f} ({secs:.2f}s, "
-              f"{tokens / secs:.0f} tok/s)")
+        if lead:
+            print(f"step {i}: loss={loss:.4f} ({secs:.2f}s, "
+                  f"{tokens / secs:.0f} tok/s)")
         if not math.isfinite(loss):
             raise SystemExit(f"step {i}: loss is not finite")
-    if device.type == "cuda":
+    if device.type == "cuda" and lead:
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         print(f"peak memory {peak:.2f} GiB "
               f"({torch.cuda.get_device_name(device)})")

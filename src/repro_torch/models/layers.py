@@ -7,7 +7,8 @@ families — counterpart of
 `flash_attention` with its custom VJP, `attention_core`,
 `init_attention`, `attention_block`, `make_cache`, `_quantize_kv`,
 `_dequantize_kv`, `init_mlp`, `mlp_block`, `init_moe`, `moe_block`,
-`_moe_dispatch_local`, `moe_apply`, `moe_block_dense_ref`,
+`_moe_dispatch_local`, `moe_block_ep`, `moe_apply`,
+`moe_block_dense_ref`,
 `init_rwkv_tmix`, `_rwkv_project`, `rwkv_tmix_chunked`, `rwkv_tmix_step`,
 `init_rwkv_cmix`, `rwkv_cmix`, `init_ssm`, `_ssm_conv`, `ssm_block`,
 `ssm_step`).
@@ -49,6 +50,38 @@ whose last slot takes every dropped one (and is cut off), the expert
 products as batched matmuls, then gather, unsort and the gate-weighted
 sum. Every size comes from shapes, so a block makes no host sync.
 
+On a mesh (the zoo's mesh steps, launch/steps.py) the same functions
+take DTensors, and DTensor's sharding propagation carries the products,
+norms and elementwise ops. The `constrain` hooks (models/
+sharding_hooks.py) sit at the reference's sites: ``attn_bshd`` on q,
+``cache_kv`` on the written rings, ``tokens_bsf`` on the MLP hidden,
+``moe_ecd`` on the capacity buffer. Where DTensor has no strategy, or
+one that cannot serve, the op's inputs are placed by hand, at the op,
+as GSPMD places the reference's:
+- `_whole_on`: a head shard that does not cover whole kv groups is
+  replicated before the head split and the GQA view;
+- `attention_core` (`_local_attention`): each rank attends on its
+  (batch, head) shards, a W-sharded cache gathered (the flash Function
+  allocates plain tiles; the direct path's 5-D products cost DTensor
+  seconds of strategy search a shape);
+- `_ring_put`: the cache writes are local `index_put`s (no strategy for
+  index tensors), each rank its rows and, on a W shard, its slots;
+- `moe_block`: the dispatch (argsort, `searchsorted`, the scatter,
+  gather and unsort) on the tokens and router logits replicated over
+  the batch (no `searchsorted` strategy; the reference's global argsort
+  is replicated by GSPMD too), the expert products on the DTensors;
+- `moe_block_ep`: the `shard_map` counterpart on local shards, with
+  its own differentiable all_to_all and all-reduce;
+- `attention_block`'s output projection is one 2-D product (a decode
+  step's (B, 1, H hd) DTensor view can carry a stride that sends
+  `matmul` to `bmm`, off the one-device step's bits).
+Constants the functions make (rotary frequencies) are replicated over
+the mesh (`replicated_like`), as GSPMD replicates a constant. A local
+result re-enters DTensor contiguous (`local_to_mesh`), and so does the
+gradient of a local input (`mesh_to_local`): DTensor's views assume the
+layout its strides claim, and a local product's gradient is often a
+transposed view.
+
 The selective SSM (Hymba's parallel branch) is plain torch, as the
 reference's is jnp: projections in the weights' dtype, the width-4 conv,
 dt, B, C and the recurrence in float32. The reference walks its chunks
@@ -68,6 +101,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.sharding_hooks import (constrain, is_dtensor,
+                                               local_to_mesh, mesh_to_local,
+                                               replicated_like)
 
 NEG_INF = -1e30
 BIG_WINDOW = 1 << 30  # "no sliding window"
@@ -155,7 +191,8 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: broadcastable to (..., S). Rotates
     the two halves of D (not interleaved pairs), in float32."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    inv = replicated_like(rope_freqs(x.shape[-1], theta, x.device),
+                          positions)                          # (D/2,)
     ang = positions[..., None].float() * inv                  # (..., S, D/2)
     sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -302,12 +339,54 @@ def flash_attention(qg, k, v, q_pos, kv_pos, window, causal, scale, softcap,
                                  scale, softcap, chunk)
 
 
+def _whole_on(t, dim: int, n: int):
+    """A DTensor `t` with dim `dim` replicated where the mesh dims that
+    shard it do not divide `n`, the outer size `dim` is about to be
+    split into (a reshape of n * m into (n, m) keeps a shard only if
+    it covers whole rows of n: the reshard GSPMD inserts for the
+    reference's reshapes); any other `t` as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = t.device_mesh, tuple(t.placements)
+    k = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(dim))
+    if n % k == 0:
+        return t
+    return t.redistribute(mesh, [Replicate() if p == Shard(dim) else p
+                                 for p in pl])
+
+
+def _local_attention(q, k, v, q_pos, kv_pos, **kw):
+    """`attention_core` on DTensors, run on each rank's shards: each rank
+    takes its batch rows and heads (q's batch and head placements; k, v
+    the same, a cache's W shard gathered, and the positions the
+    batch's), attends alone as each (batch, head) shard does under
+    GSPMD's ``attn_bshd`` layout, and the output keeps q's placements.
+    The flash Function allocates its tiles as plain tensors, and
+    DTensor's strategy search for the direct path's 5-D products takes
+    seconds a shape."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    pl = [p if p in (Shard(0), Shard(2)) else Replicate()
+          for p in q.placements]
+    pos_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    ql, kl, vl = (mesh_to_local(t, pl) for t in (q, k, v))
+    qp, kp = (mesh_to_local(t, pos_pl) for t in (q_pos, kv_pos))
+    o = attention_core(ql, kl, vl, qp, kp, **kw)
+    return local_to_mesh(o, mesh, pl, q.shape)
+
+
 def attention_core(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
                    scale=None, softcap=0.0):
     """GQA attention. q: (B,Sq,H,D) -> (B,Sq,H,D); k/v: (B,Sk,KH,D); head
     h reads kv head h // (H / KH). Sq >= FLASH_MIN_SQ with Sk a multiple
     of FLASH_CHUNK takes the flash path, otherwise the direct one (decode
-    steps, short sequences), as the reference's."""
+    steps, short sequences), as the reference's. On DTensors each rank
+    attends on its shards (`_local_attention`)."""
+    if is_dtensor(q):          # heads whole for the GQA view's (KH, G)
+        return _local_attention(_whole_on(q, 2, k.shape[2]), k, v, q_pos,
+                                kv_pos, causal=causal, window=window,
+                                scale=scale, softcap=softcap)
     if window is None:
         window = BIG_WINDOW
     b, sq, h, d = q.shape
@@ -376,9 +455,9 @@ def attention_block(cfg, p, x, q_pos, *, causal=True, window=None,
             k, v = kv_src @ p["wk"], kv_src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, sq, h, hd)
-    k = k.reshape(b, sk, kh, hd)
-    v = v.reshape(b, sk, kh, hd)
+    q = constrain(_whole_on(q, 2, h).reshape(b, sq, h, hd), "attn_bshd")
+    k = _whole_on(k, 2, kh).reshape(b, sk, kh, hd)
+    v = _whole_on(v, 2, kh).reshape(b, sk, kh, hd)
     if use_rope and kv_src is None:
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
@@ -396,27 +475,76 @@ def attention_block(cfg, p, x, q_pos, *, causal=True, window=None,
     else:
         w = cache["k"].shape[1]
         pos_w, k_w, v_w = q_pos[:, -w:], k[:, -w:], v[:, -w:]
-        at = (torch.arange(b, device=x.device)[:, None], pos_w % w)
-        new_cache = {"pos": cache["pos"].index_put(
-            at, pos_w.to(cache["pos"].dtype))}
+        new_cache = {"pos": _ring_put(cache["pos"], pos_w,
+                                     pos_w.to(cache["pos"].dtype))}
         if cache["k"].dtype == torch.int8:
             for name, t in (("k", k_w), ("v", v_w)):
                 codes, scale = _quantize_kv(t)
-                new_cache[name] = cache[name].index_put(at, codes)
-                new_cache[f"{name}_scale"] = cache[f"{name}_scale"].index_put(
-                    at, scale)
+                new_cache[name] = constrain(_ring_put(cache[name], pos_w,
+                                                     codes), "cache_kv")
+                new_cache[f"{name}_scale"] = _ring_put(
+                    cache[f"{name}_scale"], pos_w, scale)
             k_use = _dequantize_kv(new_cache["k"], new_cache["k_scale"],
                                    k.dtype)
             v_use = _dequantize_kv(new_cache["v"], new_cache["v_scale"],
                                    v.dtype)
         else:
             for name, t in (("k", k_w), ("v", v_w)):
-                new_cache[name] = cache[name].index_put(
-                    at, t.to(cache[name].dtype))
+                new_cache[name] = constrain(_ring_put(
+                    cache[name], pos_w, t.to(cache[name].dtype)),
+                    "cache_kv")
             k_use, v_use = new_cache["k"], new_cache["v"]
         o = attention_core(q, k_use, v_use, q_pos, new_cache["pos"],
                            causal=causal, window=window, **kw)
-    return o.reshape(b, sq, h * hd) @ p["wo"], new_cache
+    # one (B Sq, H hd) product, the fold plain `matmul` makes; under
+    # DTensor a decode step's (B, 1, H hd) view can carry a non-canonical
+    # stride on its size-1 dim, and `matmul` would then take `bmm`
+    out = (o.reshape(b * sq, h * hd) @ p["wo"]).reshape(b, sq, -1)
+    return out, new_cache
+
+
+def _ring_put(buf, pos, vals):
+    """`buf` (B, W, ...) with row b's values `vals[b, j]` written at slot
+    pos[b, j] % W (`pos` (B, Sw), Sw <= W, so no slot is written twice):
+    a new tensor, `buf` unchanged.
+
+    On a mesh (a DTensor `buf`) the write is local, since DTensor has no
+    strategy for `index_put` with index tensors: `vals` and `pos` take
+    `buf`'s batch placement (and its head or head_dim one), each rank
+    writes its rows into its own slice, and where `buf` shards W over a
+    mesh dim each rank keeps the positions that fall in its slots
+    (the others go to an overflow slot that is cut off). The result has
+    `buf`'s placements, as GSPMD keeps a cache in its layout."""
+    if not is_dtensor(buf):
+        at = (torch.arange(buf.shape[0], device=buf.device)[:, None],
+              pos % buf.shape[1])
+        return buf.index_put(at, vals)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = buf.device_mesh, tuple(buf.placements)
+    w = buf.shape[1]
+    # vals and pos: buf's placements, with W's replaced by Replicate (the
+    # written positions are not W-aligned); pos has no dims past 1
+    v_pl = [Replicate() if p == Shard(1) else p for p in pl]
+    p_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    vl = vals.redistribute(mesh, v_pl).to_local()
+    slot = pos.redistribute(mesh, p_pl).to_local() % w
+    bl = buf.to_local()
+    rows = torch.arange(bl.shape[0], device=bl.device)[:, None]
+    w_dims = [i for i, p in enumerate(pl) if p == Shard(1)]
+    if not w_dims:
+        out = bl.index_put((rows, slot), vl)
+    else:
+        wl = bl.shape[1]
+        w0 = 0
+        for i in w_dims:                      # the major W split first
+            w0 = w0 * mesh.size(i) + mesh.get_local_rank(i)
+        slot = slot - w0 * wl
+        keep = (slot >= 0) & (slot < wl)
+        slot = torch.where(keep, slot, wl)
+        ext = torch.cat([bl, bl.new_zeros((bl.shape[0], 1)
+                                          + tuple(bl.shape[2:]))], dim=1)
+        out = ext.index_put((rows, slot), vl)[:, :wl]
+    return local_to_mesh(out, mesh, pl, buf.shape)
 
 
 def make_cache(cfg, batch: int, width: int, dtype=torch.bfloat16,
@@ -467,7 +595,7 @@ def mlp_block(cfg, p, x):
     a = act_fn(cfg.act)
     h = x @ p["w_up"]
     h = a(x @ p["w_gate"]) * h if "w_gate" in p else a(h)
-    return h @ p["w_down"]
+    return constrain(h, "tokens_bsf") @ p["w_down"]
 
 
 # --------------------------------------------------------------------------
@@ -481,6 +609,8 @@ def _expert_init(gen: torch.Generator, n: int, shape, std, dtype):
     """(n, *shape) N(0, std^2) in `dtype`, drawn one expert at a time, so
     a full-width stack never holds float32 draws of all its experts."""
     out = torch.empty((n, *shape), dtype=dtype, device=gen.device)
+    if out.is_meta:                # shapes only (`transformer.param_shapes`)
+        return out
     for i in range(n):
         out[i] = normal_init(gen, shape, std, dtype)
     return out
@@ -571,37 +701,214 @@ def moe_block(cfg, p, x):
     aux is the Switch load-balance loss E * sum(me * ce) *
     router_aux_loss_coef. Assignments beyond an expert's capacity
     (`moe_capacity`) are dropped: they add nothing, and the token keeps
-    its other experts' and the shared expert's contributions."""
+    its other experts' and the shared expert's contributions.
+
+    On a mesh (a DTensor `x`) the dispatch sorts every token of the
+    batch: DTensor has no strategy for `searchsorted` and the others,
+    so the tokens and their router logits are gathered to every rank
+    (replicated over the batch, as GSPMD places the reference's global
+    argsort), the routing, scatter, gather and unsort run on those local
+    copies, and the expert products run on the DTensor weights with the
+    capacity buffer's experts on ``model`` (``moe_ecd``)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
     t = b * s
     xf = x.reshape(t, d)
     logits = xf.float() @ p["router"]
+    on_mesh = is_dtensor(xf)
+    x_mesh = xf
+    if on_mesh:
+        xf, logits = xf.full_tensor(), logits.full_tensor()
     c = moe_capacity(cfg, t)
     buf, slot_e, slot_c, order, gate_vals, (me, ce) = _moe_dispatch_local(
         cfg, xf, logits, c)
     aux = e * torch.sum(me * ce) * cfg.router_aux_loss_coef
-    out_buf = _experts(cfg, p, buf[:, :c])
+    buf = constrain(replicated_like(buf[:, :c], x_mesh), "moe_ecd")
+    out_buf = _experts(cfg, p, buf)
+    if on_mesh:
+        out_buf = out_buf.full_tensor()
     out_buf = torch.cat([out_buf, out_buf.new_zeros((e, 1, d))], dim=1)
     gathered = out_buf[slot_e, slot_c]               # sorted order
     unsorted = gathered.new_zeros((t * k, d)).index_put((order,), gathered)
     y = torch.einsum("tkd,tk->td", unsorted.reshape(t, k, d),
                      gate_vals.to(x.dtype))
+    y = replicated_like(y, x_mesh)
     if "shared" in p:
-        y = y + mlp_block(cfg, p["shared"], xf)
-    return y.reshape(b, s, d), aux
+        y = y + mlp_block(cfg, p["shared"], x_mesh)
+    return y.reshape(b, s, d), replicated_like(aux, x_mesh)
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity, whose backward multiplies the gradient by `scale`."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _model_axis(mesh):
+    """(the ``model`` mesh dim, its size), or (None, 1) without one."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return None, 1
+    i = names.index("model")
+    return i, mesh.size(i)
+
+
+def _batch_dims(mesh) -> list:
+    return [i for i, n in enumerate(mesh.mesh_dim_names or ())
+            if n in ("pod", "data")]
+
+
+def _local_in(t, placements):
+    """`t`'s local shard at `placements`, differentiable: its gradient is
+    declared partial (summed over ranks) on every mesh dim `t` is
+    replicated on, since each rank adds its own tokens' share."""
+    from torch.distributed.tensor import Partial, Replicate
+    g_pl = [Partial() if isinstance(p, Replicate) else p for p in placements]
+    return mesh_to_local(t, placements, g_pl)
+
+
+class _AllToAll(torch.autograd.Function):
+    """x (M, ...) -> (M, ...) over a group of M ranks: chunk i of dim 0
+    goes to rank i, chunk j of the result came from rank j
+    (`lax.all_to_all` with split and concat axis 0). Its transpose is
+    the same exchange, so the backward runs it on the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        torch.distributed.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g, ctx.group), None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """x summed over the ranks of a group; the gradient of each rank's
+    x is the sum of the ranks' output gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduceSum.apply(g, ctx.group), None
+
+
+def moe_block_ep(cfg, p, x):
+    """Expert-parallel MoE: each rank routes its own tokens and the
+    capacity buffer's expert blocks go to their ``model`` ranks and back
+    with two all_to_alls, as the reference's `shard_map` does (its
+    §Perf iteration 2: the global argsort of `moe_block` replicates the
+    token buffers under GSPMD).
+
+    The tokens are sharded over the batch axes when B divides over them
+    (else replicated) and replicated over ``model``, so each ``model``
+    rank of a batch shard routes the same tokens, as in the reference;
+    the capacity is `moe_capacity` of the local token count; each
+    ``model`` rank holds E / M experts, all-gathered over the batch
+    axes (the FSDP gather). The aux loss averages each shard's me and ce
+    over the batch axes. Runs on local shards (``to_local``) with a
+    differentiable all_to_all over the ``model`` group: every
+    local input's gradient is partial over the mesh dims it is
+    replicated on, and each output's incoming gradient is divided by its
+    number of replicas, so the sums are the true gradients.
+
+    Falls back to `moe_block` where `x` is no DTensor, the mesh has no
+    ``model`` dim larger than 1, or E does not divide over it."""
+    dim, m = _model_axis(x.device_mesh) if is_dtensor(x) else (None, 1)
+    e, k = cfg.n_experts, cfg.n_experts_active
+    if m == 1 or e % m:
+        return moe_block(cfg, p, x)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    e_loc = e // m
+    b, s, d = x.shape
+    bdims = _batch_dims(mesh)
+    n_b = math.prod(mesh.size(i) for i in bdims)
+    split = bool(bdims) and b % n_b == 0
+    x_pl = [Shard(0) if split and i in bdims else Replicate()
+            for i in range(mesh.ndim)]
+    w_pl = [Shard(0) if i == dim else Replicate() for i in range(mesh.ndim)]
+    xl = _local_in(x, x_pl)
+    router = _local_in(p["router"], [Replicate()] * mesh.ndim)
+    w = {n: _local_in(p[n], w_pl)
+         for n in ("w_up", "w_gate", "w_down") if n in p}
+    group = mesh.get_group(dim)
+
+    bl = xl.shape[0]
+    t = bl * s
+    xf = xl.reshape(t, d)
+    c = moe_capacity(cfg, t)
+    buf, slot_e, slot_c, order, gate_vals, (me, ce) = _moe_dispatch_local(
+        cfg, xf, xf.float() @ router, c)
+    recv = _AllToAll.apply(buf[:, :c].reshape(m, e_loc, c, d), group)
+    toks = recv.transpose(0, 1).reshape(e_loc, m * c, d)
+    out = _experts(cfg, w, toks).reshape(e_loc, m, c, d).transpose(0, 1)
+    out_buf = _AllToAll.apply(out, group).reshape(e, c, d)
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((e, 1, d))], dim=1)
+    gathered = out_buf[slot_e, slot_c]
+    unsorted = gathered.new_zeros((t * k, d)).index_put((order,), gathered)
+    y = torch.einsum("tkd,tk->td", unsorted.reshape(t, k, d),
+                     gate_vals.to(xl.dtype))
+    if bdims:                                  # pmean over the batch axes
+        for i in bdims:
+            me = _AllReduceSum.apply(me, mesh.get_group(i))
+            ce = _AllReduceSum.apply(ce, mesh.get_group(i))
+        me, ce = me / n_b, ce / n_b
+    aux = e * torch.sum(me * ce) * cfg.router_aux_loss_coef
+    reps_y = mesh.size() // (n_b if split else 1)
+    y = local_to_mesh(_GradScale.apply(y.reshape(bl, s, d), 1 / reps_y),
+                      mesh, x_pl, x.shape)
+    aux = DTensor.from_local(_GradScale.apply(aux, 1 / mesh.size()), mesh,
+                             [Replicate()] * mesh.ndim, run_check=False)
+    if "shared" in p:
+        y = y + mlp_block(cfg, p["shared"], x.reshape(-1, d)).reshape(
+            x.shape)
+    return y, aux
+
+
+def _ep_pays(cfg, x) -> bool:
+    """The reference's "auto" rule: the expert-parallel path on a mesh
+    with a ``model`` dim larger than 1 that E divides, and only when each
+    batch shard sends at least one token an expert (at decode-sized
+    token counts the capacity padding and the all_to_alls dominate)."""
+    if not is_dtensor(x):
+        return False
+    mesh = x.device_mesh
+    _, m = _model_axis(mesh)
+    if m == 1 or cfg.n_experts % m:
+        return False
+    n_b = math.prod(mesh.size(i) for i in _batch_dims(mesh))
+    t_loc = x.shape[0] * x.shape[1] / max(n_b, 1)
+    return t_loc * cfg.n_experts_active / cfg.n_experts >= 1.0
 
 
 def moe_apply(cfg, p, x):
-    """The MoE implementation `cfg.moe_impl` names. On one device the
-    reference's every choice runs `moe_block`: "auto" picks the
-    expert-parallel path only under a mesh with a ``model`` axis larger
-    than 1, and "ep" (`moe_block_ep`) falls back without one. That path
-    needs a mesh over the zoo's weights, which the port has not (see
-    ROADMAP.md, mesh lowering), so every choice runs `moe_block`."""
+    """The MoE implementation `cfg.moe_impl` names, as the reference's:
+    "ep" runs `moe_block_ep` (which falls back to `moe_block` off a
+    model-parallel mesh), "auto" runs it where `_ep_pays`, else
+    `moe_block`; "scatter" always runs `moe_block`."""
     if cfg.moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}; valid: "
                          f"{MOE_IMPLS}")
+    if cfg.moe_impl == "ep" or (cfg.moe_impl == "auto"
+                                and _ep_pays(cfg, x)):
+        return moe_block_ep(cfg, p, x)
     return moe_block(cfg, p, x)
 
 

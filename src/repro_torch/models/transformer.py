@@ -6,7 +6,7 @@
 `_init_decoder_block`), `_init_rwkv_block`, `_init_hymba_block`,
 `_hymba_block`, `init_params`, `layer_windows`, `cache_width`,
 `init_cache`, `_embed`, `_head`, `_forward_hidden`, `forward`,
-`forward_features`).
+`forward_features`), and `param_shapes`.
 
 Blocks keep the reference's stacked layout: every leaf of
 ``params["blocks"]`` and of the cache has a leading layer axis. The
@@ -66,15 +66,30 @@ hymba-1.5b) keeps only its last W positions' keys, so its earlier
 queries lose keys of their window, and the next layer's SSM carries
 that on: even the last logits then differ from a full forward's, as
 the reference's do.
+
+On a mesh (launch/steps.py's mesh steps) the params, tokens and caches
+are DTensors; the blocks end in `constrain(x, "tokens_bsd")` and the
+head in `constrain(logits, "logits_bsv")`, as the reference's.
+`param_shapes` gives `init_params`' tree as meta tensors (the
+counterpart of `jax.eval_shape`). Placed by hand, at the op: `_embed`
+looks up each rank's ids in the gathered table (DTensor's vocab-sharded
+lookup leaves masked partial sums its backward cannot redistribute);
+the positions take the tokens' placements, and the constants (the
+padded-vocab mask, the embedding scale, the aux accumulator) are
+replicated (`sharding_hooks.replicated_like`).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.convert import tree_map
+from repro_torch.convert import leaves_with_paths, tree_map
 from repro_torch.models import layers as L
+from repro_torch.models.sharding_hooks import (constrain, is_dtensor,
+                                               local_to_mesh, mesh_to_local,
+                                               replicated_like, sharded_like)
 
 
 ATTENTION_FAMILIES = ("dense", "moe")
@@ -120,7 +135,7 @@ def _decoder_block(cfg, p, x, q_pos, *, window, cache=None):
         h, aux = L.mlp_block(cfg, p["mlp"], hin), 0.0
     if cfg.post_norm:
         h = L.apply_norm(cfg, p["ln2_post"], h)
-    return x + h, new_cache, aux
+    return constrain(x + h, "tokens_bsd"), new_cache, aux
 
 
 def _init_cross_block(cfg, gen, dtype):
@@ -194,7 +209,7 @@ def _hymba_block(cfg, p, x, q_pos, *, window, cache=None, ssm_state=None,
     h = 0.5 * (L.rmsnorm(p["norm_attn"], ha) + L.rmsnorm(p["norm_ssm"], hs))
     x = x + h
     x = x + L.mlp_block(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
-    return x, new_cache, new_ssm, new_conv
+    return constrain(x, "tokens_bsd"), new_cache, new_ssm, new_conv
 
 
 def _stack(blocks: list) -> dict:
@@ -223,6 +238,8 @@ def _init_stack(n: int, make) -> dict:
             else:
                 dst[k][i] = v
 
+    if next(iter(leaves_with_paths(first)))[1].is_meta:
+        return out                 # shapes only (`param_shapes`)
     put(out, first, 0)
     del first
     for i in range(1, n):
@@ -297,6 +314,22 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
         cfg.n_layers - n_dense,
         lambda: _init_decoder_block(cfg, gen, dtype, moe))
     return p
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose device is ``meta``: the init functions draw
+    on ``gen.device``, so they build shape-only tensors."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_shapes(cfg, dtype=torch.bfloat16) -> dict:
+    """`init_params`'s tree as meta tensors (shapes and dtypes, no
+    storage, nothing drawn): the counterpart of `jax.eval_shape` of the
+    reference's init, which the sharding rules read at full width."""
+    return init_params(cfg, _MetaGenerator(), dtype)
 
 
 def layer_windows(cfg, n_layers: int, long_context: bool) -> list:
@@ -383,9 +416,31 @@ def init_cache(cfg, batch: int, seq_len: int = 0, dtype=torch.bfloat16,
 
 
 def _embed(cfg, p, tokens):
-    x = p["embed"][tokens]
+    """The tokens' embedding rows (times sqrt(d) where the config scales
+    them), through `F.embedding`: the same rows as indexing, and on a
+    mesh the same backward op as on one device (indexing's backward
+    under DTensor sums repeated tokens in another order).
+
+    On a mesh the lookup runs on each rank's ids against the whole
+    table, gathered (DTensor's vocab-sharded lookup leaves masked
+    partial sums that its backward cannot redistribute): the rows keep
+    the ids' placements, and the table's gradient is partial over the
+    mesh dims that split the ids."""
+    w = p["embed"]
+    if not is_dtensor(w):
+        x = F.embedding(tokens, w)
+    else:
+        from torch.distributed.tensor import Partial, Replicate
+        mesh, pl = w.device_mesh, tuple(tokens.placements)
+        table = mesh_to_local(w, [Replicate()] * mesh.ndim,
+                              [Replicate() if q == Replicate() else Partial()
+                               for q in pl])
+        rows = F.embedding(tokens.to_local(), table)
+        x = local_to_mesh(rows, mesh, pl, (*tokens.shape, w.shape[1]))
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        x = x * replicated_like(torch.tensor(math.sqrt(cfg.d_model),
+                                             dtype=x.dtype, device=x.device),
+                                x)
     return x
 
 
@@ -401,8 +456,9 @@ def _head(cfg, p, x):
     if cfg.padded_vocab != cfg.vocab_size:
         mask = torch.arange(cfg.padded_vocab, device=logits.device) \
             < cfg.vocab_size
-        logits = torch.where(mask, logits, L.NEG_INF)
-    return logits
+        logits = torch.where(replicated_like(mask, logits), logits,
+                             L.NEG_INF)
+    return constrain(logits, "logits_bsv")
 
 
 def _rwkv_block(cfg, blk, x, mode, st):
@@ -419,7 +475,8 @@ def _rwkv_block(cfg, blk, x, mode, st):
     xn2 = L.layernorm(blk["ln2"], x)
     o2, xl_c = L.rwkv_cmix(cfg, blk["cmix"], xn2,
                            x_last=st["x_last_c"] if st is not None else None)
-    return x + o2, {"state": s_new, "x_last_t": xl_t, "x_last_c": xl_c}
+    return constrain(x + o2, "tokens_bsd"), {"state": s_new, "x_last_t": xl_t,
+                                            "x_last_c": xl_c}
 
 
 def _decoder_stack(cfg, blocks, n, x, positions, kv, long_context, aux):
@@ -442,7 +499,7 @@ def _attention_layers(cfg, p, x, positions, cache, long_context):
     """``dense`` and ``moe``: the leading dense stack (``dense_blocks``,
     cache ``kv_dense``), then ``blocks`` (cache ``kv``). Returns (x, new
     cache or None, the summed aux loss, float32)."""
-    aux = torch.zeros((), device=x.device)
+    aux = replicated_like(torch.zeros((), device=x.device), x)
     new_cache = None if cache is None else {}
     n_dense = _n_dense(cfg)
     for blocks, key, n in (("dense_blocks", "kv_dense", n_dense),
@@ -579,9 +636,10 @@ def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
         b, s = tokens.shape
         steps = torch.arange(s, device=tokens.device)
         if positions is None:
-            positions = steps.expand(b, s)
+            positions = sharded_like(steps.expand(b, s), tokens)
         elif positions.dim() == 1:
-            positions = positions[:, None] + steps[None]
+            positions = positions[:, None] + replicated_like(steps[None],
+                                                             positions)
         if cfg.family in ("audio", "vlm"):
             layers = _audio_layers if cfg.family == "audio" else _vlm_layers
             return layers(cfg, p, x, positions, cache, long_context,

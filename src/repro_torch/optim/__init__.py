@@ -1,1 +1,1 @@
-"""SGD and LR schedules (counterpart of `repro.optim`)."""
+"""SGD, AdamW and LR schedules (counterpart of `repro.optim`)."""

@@ -1,5 +1,6 @@
-"""SGD + LR schedules over dict trees of tensors — counterpart of
-`repro.optim.optimizers` (`sgd`, `cosine_schedule`, `constant_schedule`).
+"""SGD, AdamW and LR schedules over dict trees of tensors — counterpart
+of `repro.optim.optimizers` (`sgd`, `AdamWState`, `adamw`,
+`cosine_schedule`, `constant_schedule`).
 
     init, update = sgd(momentum, weight_decay, nesterov)
     state = init(params)
@@ -54,6 +55,44 @@ def sgd(momentum: float = 0.9, weight_decay: float = 5e-4,
         is_pair = lambda t: isinstance(t, tuple)
         return (_pick(out, 0, is_pair),
                 SGDState(momentum=_pick(out, 1, is_pair)))
+
+    return init, update
+
+
+class AdamWState(NamedTuple):
+    mu: dict
+    nu: dict
+    count: torch.Tensor
+
+
+def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1):
+    """AdamW with bias correction and decoupled weight decay, the
+    moments in float32 whatever the leaves' dtype, as the reference's."""
+    def init(params):
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        return AdamWState(mu=tree_map(zeros, params),
+                          nu=tree_map(zeros, params),
+                          count=torch.zeros((), dtype=torch.int32))
+
+    def update(params, grads, state, lr):
+        c = state.count + 1
+        bc1 = 1 - b1 ** c.float()
+        bc2 = 1 - b2 ** c.float()
+
+        def upd(p, g, mu, nu):
+            g = g.float()
+            mu_n = b1 * mu + (1 - b1) * g
+            nu_n = b2 * nu + (1 - b2) * g * g
+            step = (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + eps)
+            p_new = p.float() - lr * (step + weight_decay * p.float())
+            return p_new.to(p.dtype), mu_n, nu_n
+
+        out = _zip_map(upd, params, grads, state.mu, state.nu)
+        is_triple = lambda t: isinstance(t, tuple)
+        return (_pick(out, 0, is_triple),
+                AdamWState(mu=_pick(out, 1, is_triple),
+                           nu=_pick(out, 2, is_triple), count=c))
 
     return init, update
 

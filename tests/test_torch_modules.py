@@ -361,6 +361,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.checkpoint, repro_torch.checkpoint.store\n"
         "import repro_torch.core.engine, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh, repro_torch.core.collectives\n"
+        "import repro_torch.launch.sharding\n"
+        "import repro_torch.models.sharding_hooks\n"
         "import repro_torch.analysis.lint, repro_torch.analysis.guards\n"
         "import repro_torch.analysis.contracts\n"
         "import repro_torch.configs.tinyllama_1_1b\n"
