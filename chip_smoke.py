@@ -718,10 +718,46 @@ VLM_RANGES = ("vlm.vision_proj", "vlm.cross", "attention.ctx_kv")
 # Both sides run under torch.use_deterministic_algorithms, since the
 # MoE's backward accumulates with index_put, whose default CUDA kernel
 # adds with atomics, so two one-device runs need not agree bitwise.
+# The other four families, at full width with their depth cut
+# (ZOO_MESH_CUTS; rwkv6-1.6b at its full 24 layers), each an lm step of
+# ZOO_MESH_FAMILY_LM (8 x 1024, rwkv6 4 x 1024; seamless with frames
+# (8, 256, 1024), llama-3.2-vision with patches (8, 1601, 1280)) and the
+# same serve run (the context drawn with the prompts), the cross gates
+# at CROSS_GATES:
+# rwkv6's mesh path launches the rwkv6 kernel on its (batch, head)
+# shards, once a layer of every lm step and prefill (24 each), none in
+# decode, as the one-card path does. Memory (H100 80GB HBM3, 700 W):
+# the one-card steps read the mesh's local shards (at world size 1 the
+# whole leaves; `shard_params` copies them), the allocator's cache is
+# given back before each row's mesh calls, and for ZOO_MESH_HOST the
+# one-card step's result waits on the host meanwhile. rwkv6's mesh step
+# at 8 x 1024 (57.94-63.48 GiB at its peak alone) ran the card out of
+# memory late in the script twice, with 16.6-20.5 GiB of the cache free
+# in pieces, so it takes 4 x 1024 (in one micro-batch: 24 launches).
+# llama-3.2-vision's 2 layers hold 3.84e9 parameters: bf16 params,
+# float32 accumulators, bf16 gradients and the new params and momentum
+# take 46 GB; in one micro-batch its cross block's direct path ((8, 64,
+# 1024, 1601) float32 scores, 3.4 GB a tensor) and the (8, 1024,
+# 129024) float32 logits ran the card out of memory, in 2 it peaked at
+# 69.15 GiB alone and in 4 at 56.77, so its step takes 8 micro-batches
+# (one sequence each, as [vlm]'s lm). seamless's
+# (8, 1024, 258048) float32 logits (8.5 GB) and their backward peaked at
+# 60.20 GiB alone: 2 micro-batches.
 ZOO_MESH_DT = (8, 512, 1)
 ZOO_MESH_LM = MOE_LM
+ZOO_MESH_FAMILY_LM = {"*": (8, 1024, 1), "rwkv6-1.6b": (4, 1024, 1),
+                      "seamless-m4t-large-v2": (8, 1024, 2),
+                      "llama-3.2-vision-90b": (8, 1024, 8)}
 ZOO_MESH_SERVE = (8, 1024, 16)
-ZOO_MESH_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b")
+ZOO_MESH_HOST = ("llama-3.2-vision-90b",)
+ZOO_MESH_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b", "rwkv6-1.6b",
+                  "hymba-1.5b", "seamless-m4t-large-v2",
+                  "llama-3.2-vision-90b")
+ZOO_MESH_CUTS = {"olmoe-1b-7b": dict(n_layers=MOE_TRAIN_LAYERS),
+                 "hymba-1.5b": dict(n_layers=4),
+                 "seamless-m4t-large-v2": dict(n_layers=4,
+                                               n_encoder_layers=4),
+                 "llama-3.2-vision-90b": VLM_TRAIN}
 
 
 def _smi() -> str:
@@ -4748,6 +4784,7 @@ def _zoo_mesh_same(tag, a, b) -> None:
 
     a, b = sh.gather_tree({"x": a}), {"x": b}
     for (path, x), (_, y) in zip(leaves_with_paths(a), leaves_with_paths(b)):
+        y = y.to(x.device)                 # a one-card result on the host
         if x.dtype != y.dtype or x.shape != y.shape or not bool(
                 (x == y).all()):
             raise AssertionError(f"[zoo_mesh] {tag} {'/'.join(path[1:])}: "
@@ -4769,16 +4806,18 @@ def zoo_mesh_path(dev) -> dict:
     """[zoo_mesh]: the mesh steps at world size 1 (ZOO_MESH_*), each
     against the same step without a mesh, bitwise: the first mesh call
     (DTensor's sharding propagation fills its caches) and a second one
-    timed, the one-card step timed once (its shapes warmed by [dense]
-    and [moe]), the peak memory of the mesh calls, the one-card step's
-    result held meanwhile. Launches are counted over the mesh calls
-    only; returns them, a call's worth."""
+    timed, the one-card step timed once (tinyllama's and olmoe's shapes
+    warmed by [dense] and [moe]; the other rows' one-card time includes
+    its first call at their shapes), the peak memory of the mesh calls,
+    the one-card step's result held meanwhile. Launches are counted over
+    the mesh calls only; returns them, a call's worth."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
+    from repro_torch.convert import tree_map
     from repro_torch.launch import decode as dec
     from repro_torch.launch import mesh as M
     from repro_torch.launch import steps as st
@@ -4786,6 +4825,7 @@ def zoo_mesh_path(dev) -> dict:
 
     t_phase = time.time()
     _free()
+    smi = _smi()
     mesh = M.zoo_mesh(1, 1, device=dev)
     print(f"[zoo_mesh] (data=1, model=1) zoo mesh over the "
           f"{torch.distributed.get_backend()} group of "
@@ -4797,14 +4837,23 @@ def zoo_mesh_path(dev) -> dict:
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for arch in ZOO_MESH_ARCHS:
-            cfg = get_config(arch)
-            if cfg.family == "moe":
-                cfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+            cfg = dataclasses.replace(get_config(arch),
+                                      **ZOO_MESH_CUTS.get(arch, {}))
+            if cfg.family == "dense":
+                objective, (b, s, nm) = "dt", ZOO_MESH_DT
+            elif cfg.family == "moe":
                 objective, (b, s, nm) = "lm", ZOO_MESH_LM
             else:
-                objective, (b, s, nm) = "dt", ZOO_MESH_DT
+                objective, (b, s, nm) = "lm", ZOO_MESH_FAMILY_LM.get(
+                    arch, ZOO_MESH_FAMILY_LM["*"])
+            t_row = time.time()
             params = dec.init_model(cfg, 0, torch.bfloat16, dev)
+            if "cross_blocks" in params:
+                _set_gates(params)
             placed = st.shard_params(cfg, params, mesh)
+            # at world size 1 each local shard is the whole leaf: the
+            # one-card steps read those, not a second copy of the weights
+            params = tree_map(lambda t: t.to_local(), placed)
             shape = InputShape(objective, s, b, "train")
             batch = tr.make_batch(cfg, shape, 0, 0, dev, objective)
             one, _ = st.make_train_step(cfg, shape, objective=objective,
@@ -4813,10 +4862,15 @@ def zoo_mesh_path(dev) -> dict:
                                             objective=objective, n_micro=nm)
             (p1, m1, met1), t_one = _zoo_mesh_timed(
                 lambda: one(params, st.init_momentum(params), batch))
+            if arch in ZOO_MESH_HOST:     # the one-card result to the host
+                p1, m1 = (tree_map(lambda t: t.cpu(), t) for t in (p1, m1))
+            _free()            # the allocator's cache back before the mesh
+            t_train = time.time()
             torch.cuda.reset_peak_memory_stats()
             _zero_counts()
             _, t_first = _zoo_mesh_timed(
                 lambda: on_mesh(placed, st.init_momentum(placed), batch))
+            _free()
             (p2, m2, met2), t_mesh = _zoo_mesh_timed(
                 lambda: on_mesh(placed, st.init_momentum(placed), batch))
             counts = _counts()
@@ -4827,24 +4881,34 @@ def zoo_mesh_path(dev) -> dict:
             _zoo_mesh_same(f"{arch} {objective} momentum", m2, m1)
             want = {k: 0 for k in counts}
             want["dt_loss_wide"] = 2 * nm if objective == "dt" else 0
+            views = 2 if objective == "dt" else 1
+            want["rwkv6"] = (2 * views * nm * cfg.n_layers
+                             if cfg.family == "ssm" else 0)
             if counts != want:
                 raise AssertionError(f"[zoo_mesh] {arch} {objective} "
                                      f"launches {counts}, want {want}")
             total = _add(total, {k: v // 2 for k, v in counts.items()})
             print(f"[zoo_mesh] {arch} {objective} bfloat16 {b} x {s} in "
-                  f"{nm} micro-batch(es), {cfg.n_layers} layers: mesh step "
+                  f"{nm} micro-batch(es), {_zoo_mesh_depth(cfg)}: mesh step "
                   f"{t_mesh:.4f} s (first {t_first:.4f} s), one-card step "
                   f"{t_one:.4f} s; loss {float(met2['loss']):.6f}, params "
                   f"and momentum bitwise the one-card step's; peak "
                   f"{peak:.2f} GiB; launches a mesh step "
-                  f"{ {k: v // 2 for k, v in counts.items() if v} }",
-                  flush=True)
+                  f"{ {k: v // 2 for k, v in counts.items() if v} }; "
+                  f"{smi}", flush=True)
             del p1, m1, p2, m2, batch
             _free()
+            t_serve = time.time()
             total = _add(total, _zoo_mesh_serve(dev, cfg, params, placed,
-                                                mesh))
+                                                mesh, smi))
             del params, placed
             _free()
+            t_end = time.time()
+            print(f"[zoo_mesh] {arch}: {t_end - t_row:.1f} s for the row "
+                  f"(params and the one-card step "
+                  f"{t_train - t_row:.1f} s, the mesh steps and checks "
+                  f"{t_serve - t_train:.1f} s, serve {t_end - t_serve:.1f} "
+                  f"s)", flush=True)
     finally:
         torch.use_deterministic_algorithms(False)
     print(f"[zoo_mesh] {time.time() - t_phase:.1f} s in the phase; "
@@ -4852,10 +4916,25 @@ def zoo_mesh_path(dev) -> dict:
     return total
 
 
-def _zoo_mesh_serve(dev, cfg, params, placed, mesh) -> dict:
-    """ZOO_MESH_SERVE's prefill and greedy decode steps with and without
-    the mesh: each step's logits and the final cache bitwise. Returns
-    the mesh run's launches."""
+def _zoo_mesh_depth(cfg) -> str:
+    """A row's depth as its print gives it (the cuts of ZOO_MESH_CUTS)."""
+    if cfg.family == "audio":
+        return (f"{cfg.n_layers} decoder and {cfg.n_encoder_layers} "
+                f"encoder layers")
+    if cfg.family == "vlm":
+        return (f"{cfg.n_layers} layers, a cross block every "
+                f"{cfg.cross_attn_period}")
+    return f"{cfg.n_layers} layers"
+
+
+def _zoo_mesh_serve(dev, cfg, params, placed, mesh, smi) -> dict:
+    """ZOO_MESH_SERVE's prefill (with the context input of the audio and
+    vlm families) and greedy decode steps with and without the mesh:
+    each step's logits and the final cache bitwise. The mesh runs twice,
+    first with one decode step (DTensor's sharding propagation fills its
+    caches), then timed. Returns the mesh runs' launches, a run's worth:
+    rwkv6 once a layer of the prefill for the ``ssm`` family, nothing
+    else."""
     import torch
 
     from repro_torch.configs.base import InputShape
@@ -4866,18 +4945,22 @@ def _zoo_mesh_serve(dev, cfg, params, placed, mesh) -> dict:
     b, p_len, n_dec = ZOO_MESH_SERVE
     total = p_len + n_dec
     prompts = dec.random_prompts(cfg, b, p_len, 0, dev)
+    batch = {"tokens": prompts}
+    ctx = _ctx_input(cfg, b, p_len)
+    if ctx is not None:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        batch[ctx[0]] = torch.randn(ctx[1], generator=gen, device=dev)
 
-    def serve(mesh_):
+    def serve(mesh_, n=n_dec):
         pre = st.make_prefill_step(cfg, InputShape("p", total, b, "prefill"),
                                    torch.bfloat16, mesh=mesh_)
         decode = st.make_decode_step(cfg, InputShape("d", total, b, "decode"),
                                      mesh=mesh_)
         p = params if mesh_ is None else placed
-        (last, cache), t_pre = _zoo_mesh_timed(
-            lambda: pre(p, {"tokens": prompts}))
+        (last, cache), t_pre = _zoo_mesh_timed(lambda: pre(p, dict(batch)))
         logits, secs = [last], []
         tok = dec.greedy(cfg, sh.full(last))
-        for i in range(n_dec):
+        for i in range(n):
             pos = torch.full((b,), p_len + i, dtype=torch.int64, device=dev)
             (lg, cache), t_ = _zoo_mesh_timed(lambda: decode(p, {
                 "tokens": tok, "positions": pos, "cache": cache}))
@@ -4889,24 +4972,28 @@ def _zoo_mesh_serve(dev, cfg, params, placed, mesh) -> dict:
     one = serve(None)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    first = serve(mesh)
+    first = serve(mesh, 1)     # fills DTensor's caches: one decode step
     got = serve(mesh)
     counts = _counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, (x, y) in enumerate(zip(got[0], one[0])):
         _zoo_mesh_same(f"{cfg.name} serve logits {i}", x, y)
     _zoo_mesh_same(f"{cfg.name} serve cache", got[1], one[1])
-    if any(counts.values()):
+    want = {k: 0 for k in counts}
+    want["rwkv6"] = 2 * cfg.n_layers if cfg.family == "ssm" else 0
+    if counts != want:
         raise AssertionError(f"[zoo_mesh] {cfg.name} serve launched "
-                             f"{counts}, want none")
+                             f"{counts}, want {want}")
     med = sorted(got[3])[len(got[3]) // 2]
     print(f"[zoo_mesh] {cfg.name} served {b} x {p_len} + {n_dec} decode "
-          f"steps on the mesh: prefill {got[2]:.4f} s (first "
-          f"{first[2]:.4f} s; one-card {one[2]:.4f} s), decode median "
-          f"{med * 1e3:.2f} ms a step (one-card "
-          f"{sorted(one[3])[len(one[3]) // 2] * 1e3:.2f} ms); every "
-          f"logit and the cache bitwise the one-card run's; peak "
-          f"{peak:.2f} GiB", flush=True)
+          f"steps on the mesh{' with ' + ctx[0] if ctx else ''}: prefill "
+          f"{got[2]:.4f} s (first {first[2]:.4f} s; one-card "
+          f"{one[2]:.4f} s), decode median {med * 1e3:.2f} ms a step "
+          f"(one-card {sorted(one[3])[len(one[3]) // 2] * 1e3:.2f} ms); "
+          f"every logit and the cache bitwise the one-card run's; peak "
+          f"{peak:.2f} GiB; launches a run "
+          f"{ {k: v // 2 for k, v in counts.items() if v} }; {smi}",
+          flush=True)
     return {k: v // 2 for k, v in counts.items()}
 
 

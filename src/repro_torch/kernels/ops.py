@@ -50,6 +50,7 @@ from repro_torch.kernels import qdelta as _q8_kernel
 from repro_torch.kernels import rwkv6 as _rwkv6_kernel
 from repro_torch.kernels import wagg as _wagg_kernel
 from repro_torch.kernels.qdelta import BQ
+from repro_torch.models.sharding_hooks import is_dtensor
 
 
 def launch_counts() -> dict:
@@ -260,7 +261,16 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Differentiable: where an input requires a gradient, the call goes
     through `_RWKV6`, whose forward is this same call and whose backward
     differentiates the plain chunked form (`ref.rwkv6_chunked_parallel`).
-    Without gradients (prefill) nothing is saved."""
+    Without gradients (prefill) nothing is saved.
+
+    Plain tensors only: a DTensor argument (a mesh step) raises
+    TypeError, since neither the launch nor the plain version reads a
+    DTensor's shards; `models.layers.rwkv6_on_shards` runs it on each
+    rank's (batch, head) shards."""
+    if any(is_dtensor(t) for t in (r, k, v, logw, u, state0)):
+        raise TypeError("ops.rwkv6 takes plain tensors, got a DTensor: on a "
+                        "mesh call models.layers.rwkv6_on_shards, which "
+                        "launches it on each rank's (batch, head) shards")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (r, k, v, logw, u, state0)):

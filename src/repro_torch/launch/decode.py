@@ -12,9 +12,9 @@ patches).
 The reference runs ``--reduced`` end to end on the CPU and, without it,
 only lowers and compiles the decode step for a TPU mesh. The port runs
 both on one card, or on the zoo mesh under ``torchrun --nproc-per-node
-N`` (or with ``--model-parallel M``, as `launch.train`'s mesh mode: the
-``dense`` and ``moe`` families; params, prompts and caches sharded,
-rank 0 prints): ``--reduced`` is the reference's run (the ``-smoke`` config, B = 2,
+N`` (or with ``--model-parallel M``, as `launch.train`'s mesh mode:
+every family; params, prompts and caches sharded, rank 0 prints):
+``--reduced`` is the reference's run (the ``-smoke`` config, B = 2,
 S = 32, float32 parameters and cache); without it the full-width config
 runs on the card with bfloat16 parameters and cache (the reference's
 serve-step default), at ``--batch`` prompts of ``--prompt-len`` random
@@ -58,6 +58,8 @@ On 8 gloo ranks of the CPU, model-parallel over 4:
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.decode \
         --arch tinyllama-1.1b --reduced --device cpu --batch 8 \
         --model-parallel 4
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.decode \
+        --reduced --device cpu --batch 8 --model-parallel 4   # rwkv6
 
 Prints the prefill time, the decode time per step and decode tok/s.
 """
@@ -168,7 +170,7 @@ def main(argv=None):
     a = ap.parse_args(argv)
 
     cfg = get_config(a.arch)
-    device, mesh = st.launch_zoo_mesh(cfg, a.device, a.model_parallel,
+    device, mesh = st.launch_zoo_mesh(a.device, a.model_parallel,
                                       a.multi_pod)
     lead = not dist.is_initialized() or dist.get_rank() == 0
     set_parity_mode()

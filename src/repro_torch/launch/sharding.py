@@ -242,17 +242,21 @@ def cache_shardings(mesh, cache, global_batch: int):
 # specs as DTensor placements
 # --------------------------------------------------------------------------
 
-def placements_of(mesh, spec: tuple) -> tuple:
+def placements_of(mesh, spec: tuple, shape=None) -> tuple:
     """DTensor placements of `spec` on the `DeviceMesh` `mesh`: mesh dim
     i is ``Shard(d)`` where entry d names it, else ``Replicate()``. A
     dim over several mesh dims takes them in the mesh's order, the first
     the major split, which is the reference's tuple order; a tuple in
-    another order raises ValueError."""
+    another order raises ValueError. Given the tensor's `shape`, a dim
+    of size 1 stays replicated: `sanitize` keeps it only over mesh dims
+    of size 1, where a shard is the whole, and DTensor's view rules
+    drop a size-1 dim, so a product that folds a sharded one (a
+    micro-batch of one sequence at world size 1) finds no strategy."""
     from torch.distributed.tensor import Replicate, Shard
     names = axis_names(mesh)
     out = [Replicate()] * len(names)
     for d, axes in enumerate(spec):
-        if axes is None:
+        if axes is None or (shape is not None and shape[d] == 1):
             continue
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         idx = [names.index(a) for a in axes]
@@ -269,7 +273,7 @@ def shard_like(t: torch.Tensor, mesh, spec: tuple):
     `spec`'s placements: each rank keeps its own slice, nothing is
     sent."""
     from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(t, mesh, placements_of(mesh, spec),
+    return distribute_tensor(t, mesh, placements_of(mesh, spec, t.shape),
                              src_data_rank=None)
 
 
@@ -320,7 +324,7 @@ def make_activation_rules(mesh, global_batch: int):
             spec = sanitize(mesh, table[name], tuple(x.shape))
         else:
             return x
-        want = placements_of(mesh, spec)
+        want = placements_of(mesh, spec, x.shape)
         if tuple(x.placements) == want:
             return x
         return x.redistribute(mesh, want)

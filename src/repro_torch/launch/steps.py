@@ -12,8 +12,11 @@ DTensors or full tensors, the same on every rank, and places the
 latter), the cache by `cache_shardings`, and the model runs on the
 DTensors under `sharding.make_activation_rules` (the hooks of
 `models.sharding_hooks`). The update runs leaf by leaf on the DTensors,
-each gradient placed like its leaf. The mesh steps take the ``dense``
-and ``moe`` families; the others raise NotImplementedError (MESH_ITEM).
+each gradient placed like its leaf. The mesh steps take every zoo
+family (MESH_FAMILIES): the ``ssm`` family's rwkv6 kernel and the
+``hybrid`` family's selective scan run on each rank's shards
+(`models.layers.rwkv6_on_shards`, `_ssm_scan_on_shards`), and the
+``audio`` and ``vlm`` contexts are placed on the batch.
 
 Federated mapping, as the reference's: for one local iteration,
 FLSimCo's Eq.-11 aggregation is exactly a blur-weighted gradient sum,
@@ -56,9 +59,7 @@ MASK_TOKEN = 0  # token id used for DT-objective masking views
 DROP_P = 0.15   # the DT objective's token drop rate, a view each
 AGGREGATIONS = ("flsimco", "fedavg", "discard")
 AUX_KEYS = ("frames", "patches")   # the context inputs: audio's, vlm's
-MESH_FAMILIES = ("dense", "moe")
-MESH_ITEM = ("ROADMAP.md Queue A, item 12, the mesh bullets (rwkv6, "
-             "hybrid, audio and vlm over a mesh)")
+MESH_FAMILIES = T.ZOO_FAMILIES     # the families the mesh steps take
 
 
 def enc_ctx_len(cfg, seq_len: int) -> int:
@@ -166,15 +167,14 @@ def shard_params(cfg, params, mesh):
     return sh.shard_tree(params, mesh, specs)
 
 
-def launch_zoo_mesh(cfg, device=None, model_parallel=None,
+def launch_zoo_mesh(device=None, model_parallel=None,
                     multi_pod: bool = False):
     """(this rank's device, the zoo mesh or None) for the drivers' mesh
     mode: under a launcher with more than one rank, or with
     `model_parallel` given, the zoo mesh over every rank (launch/mesh.py
     `init_from_launcher`, `zoo_mesh`), its ``model`` axis
     `model_parallel` ranks (1 by default), two pods with `multi_pod`;
-    else None (one card). A family whose mesh steps are not ported
-    raises NotImplementedError (MESH_ITEM) before any group is made."""
+    else None (one card)."""
     import os
 
     from repro_torch.core.collectives import world_size
@@ -182,7 +182,6 @@ def launch_zoo_mesh(cfg, device=None, model_parallel=None,
 
     wants = multi_pod or model_parallel is not None or int(
         os.environ.get("WORLD_SIZE", "1")) > 1
-    _check_mesh(cfg, wants)
     device = init_from_launcher(device)
     if not wants:
         return device, None
@@ -196,15 +195,6 @@ def launch_zoo_mesh(cfg, device=None, model_parallel=None,
     return device, zoo_mesh(world_size() // per, model, pods, device)
 
 
-def _check_mesh(cfg, mesh) -> None:
-    """NotImplementedError (MESH_ITEM) for a mesh step of a family whose
-    mesh steps are not ported."""
-    if mesh and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family's mesh steps are not ported yet (the "
-            f"mesh steps take {MESH_FAMILIES}); see {MESH_ITEM}")
-
-
 def _place_batch(batch: dict, mesh) -> dict:
     """Each tensor of `batch` as a DTensor on `mesh` with its batch dim
     (dim 1 of ``drops``, else dim 0) on (pod, data) where it divides
@@ -214,7 +204,7 @@ def _place_batch(batch: dict, mesh) -> dict:
         dim = 1 if k == "drops" else 0
         spec = [None] * t.dim()
         spec[dim] = sh.batch_spec(mesh, t.shape[dim])[0]
-        want = sh.placements_of(mesh, tuple(spec))
+        want = sh.placements_of(mesh, tuple(spec), t.shape)
         if is_dtensor(t):
             out[k] = t if tuple(t.placements) == want else \
                 t.redistribute(mesh, want)
@@ -424,7 +414,6 @@ def make_train_step(cfg, shape: InputShape, mesh=None, *,
     if optimizer not in ("sgdm", "sgd"):
         raise ValueError(f"unknown optimizer {optimizer!r}; valid: sgdm, "
                          f"sgd")
-    _check_mesh(cfg, mesh)
     nm = n_micro or pick_n_micro(cfg, shape, mesh)
     grads_of = make_grad_fn(cfg, objective=objective,
                             aggregation=aggregation, n_micro=nm, mesh=mesh)
@@ -481,7 +470,8 @@ def _mesh_cache(cfg, batch: int, seq_len: int, *, dtype, device,
                         long_context=long_context, ctx_len=ctx_len)
     specs = sh.cache_shardings(mesh, meta, batch)
     leaves = [dfull(t.shape, -1 if path[-1] == "pos" else 0, dtype=t.dtype,
-                    device_mesh=mesh, placements=sh.placements_of(mesh, sp))
+                    device_mesh=mesh,
+                    placements=sh.placements_of(mesh, sp, t.shape))
               for (path, t), (_, sp) in zip(leaves_with_paths(meta),
                                             leaves_with_paths(specs))]
     return unflatten(leaves, meta)
@@ -503,7 +493,6 @@ def make_prefill_step(cfg, shape: InputShape, param_dtype=torch.bfloat16, *,
     (`shard_params`), the batch is placed, the cache starts as DTensors
     placed by `cache_shardings`, and the logits and the cache come back
     as DTensors."""
-    _check_mesh(cfg, mesh)
     long_ctx = _long_context(shape)
     rules = None if mesh is None else sh.make_activation_rules(
         mesh, shape.global_batch)
@@ -536,7 +525,6 @@ def make_decode_step(cfg, shape: InputShape | None = None, *, mesh=None):
     placed, the params and the cache are DTensors (the prefill's), and
     the logits and the new cache come back as DTensors; `shape` must
     then be given (its global batch sets the activation rules)."""
-    _check_mesh(cfg, mesh)
     if mesh is not None and shape is None:
         raise ValueError("a mesh decode step needs its InputShape (the "
                          "global batch sets the activation rules)")

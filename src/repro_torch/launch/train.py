@@ -13,9 +13,11 @@ on. Under ``torchrun --nproc-per-node N`` (or with
 ("pod", "data", "model") = (2, N / 2M, M)), one rank a card (gloo
 ranks with ``--device cpu``): every rank draws the same params and
 batches from ``--seed``, keeps its shards (launch/sharding.py) and
-runs the sharded step; rank 0 prints. The mesh steps take the
-``dense`` and ``moe`` families; the others raise NotImplementedError
-naming their ROADMAP item (`steps.MESH_ITEM`). ``--reduced`` is
+runs the sharded step; rank 0 prints. The mesh steps take every
+zoo family (`steps.MESH_FAMILIES`); the params are drawn whole on every
+rank and sliced (`steps.shard_params`), so a model runs on the mesh
+only where one rank holds all of it (sharded initialisation is ROADMAP
+Queue A, item 12's next mesh bullet). ``--reduced`` is
 the reference's CPU run: the ``-smoke`` config in float32, 4 sequences
 of 64 tokens a step (its ``InputShape("cpu", 64, 4, "train")``).
 Without it the full-width config runs real steps on the card with
@@ -46,6 +48,9 @@ The mesh mode on 8 gloo ranks of the CPU, model-parallel over 4:
 
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --arch olmoe-1b-7b --reduced --device cpu --model-parallel 4
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch hymba-1.5b --reduced --device cpu --model-parallel 4 \
+        --batch 8
 
 ``--mode sim`` — the host-level FL simulation, a `Scenario` driven
 through `run_round`, with whole-`FLState` checkpoints and resume:
@@ -81,7 +86,6 @@ from repro_torch.launch.decode import init_model
 from repro_torch.runtime import set_parity_mode
 
 REDUCED_SHAPE = InputShape("cpu", 64, 4, "train")
-MESH_ITEM = st.MESH_ITEM
 
 
 def run_sim(a) -> None:
@@ -217,7 +221,7 @@ def main(argv=None):
         run_sim(a)
         return
     cfg = get_config(a.arch)
-    device, mesh = st.launch_zoo_mesh(cfg, a.device, a.model_parallel,
+    device, mesh = st.launch_zoo_mesh(a.device, a.model_parallel,
                                       a.multi_pod)
     lead = not dist.is_initialized() or dist.get_rank() == 0
     set_parity_mode()

@@ -74,13 +74,36 @@ as GSPMD places the reference's:
   its own differentiable all_to_all and all-reduce;
 - `attention_block`'s output projection is one 2-D product (a decode
   step's (B, 1, H hd) DTensor view can carry a stride that sends
-  `matmul` to `bmm`, off the one-device step's bits).
+  `matmul` to `bmm`, off the one-device step's bits);
+- `rwkv_tmix_chunked` and `rwkv_tmix_step` (`rwkv6_on_shards`): the
+  rwkv6 kernel, and the decode step's recurrence (DTensor cannot
+  flatten its einsum over the (B, H, D, D) state), on each rank's
+  (batch, head) shards (the recurrence is independent per sequence and
+  head, so no collective): r, k, v and the log-decay on the tokens'
+  batch placement and, where ``model`` divides the heads, d on
+  ``model`` (wr/wk/wv's and w_lora_b's layout), u's local heads sliced
+  from the replicated leaf, the carried state as the cache's (bax,
+  "model") shard; `ops.rwkv6` raises for a DTensor;
+- `ssm_block` (`_ssm_scan_on_shards`): x1 and z placed on di over
+  ``model`` at the split of w_in's output (conv's, A_log's and D's
+  layout); the scan (`_SSMScan`, its recomputing backward too) on each
+  rank's (batch, di) shards, with B and C reduced to replicated over
+  ``model`` first (w_B and w_C are ("model", None), so x1 @ w_B comes
+  out partial, as GSPMD reduces it), a_mat's local rows and the
+  state's (bax, "model") shard, or zeros made as that shard; the
+  conv's zero pad made as a shard of its input;
+- cross attention: the context's key positions take the queries'
+  batch placement (`_local_attention` then attends Sq queries over the
+  Sk context rows on each rank's shards).
 Constants the functions make (rotary frequencies) are replicated over
-the mesh (`replicated_like`), as GSPMD replicates a constant. A local
-result re-enters DTensor contiguous (`local_to_mesh`), and so does the
-gradient of a local input (`mesh_to_local`): DTensor's views assume the
-layout its strides claim, and a local product's gradient is often a
-transposed view.
+the mesh (`replicated_like`), as GSPMD replicates a constant. An input
+that a local op reads whole on a mesh dim its work is split over (u
+on a head split, B and C on a di split, a_mat on a batch split) has its
+gradient declared partial there (`_work_grads`): each rank adds its
+share. A local result re-enters DTensor contiguous (`local_to_mesh`),
+and so does the gradient of a local input (`mesh_to_local`): DTensor's
+views assume the layout its strides claim, and a local product's
+gradient is often a transposed view.
 
 The selective SSM (Hymba's parallel branch) is plain torch, as the
 reference's is jnp: projections in the weights' dtype, the width-4 conv,
@@ -101,9 +124,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.sharding_hooks import (constrain, is_dtensor,
-                                               local_to_mesh, mesh_to_local,
-                                               replicated_like)
+from repro_torch.models.sharding_hooks import (constrain, contiguous_grad,
+                                               is_dtensor, local_to_mesh,
+                                               mesh_to_local, replicated_like,
+                                               sharded_like)
 
 NEG_INF = -1e30
 BIG_WINDOW = 1 << 30  # "no sliding window"
@@ -387,6 +411,12 @@ def attention_core(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
         return _local_attention(_whole_on(q, 2, k.shape[2]), k, v, q_pos,
                                 kv_pos, causal=causal, window=window,
                                 scale=scale, softcap=softcap)
+    # q's, k's and v's gradients leave contiguous, as they leave
+    # `_local_attention` on a mesh (`mesh_to_local`), so the products
+    # behind them take the same layouts on one device and on a mesh: a
+    # one-row batch's k gradient is otherwise a strided view, which the
+    # card's cuBLAS sums in another order
+    q, k, v = (contiguous_grad(t) for t in (q, k, v))
     if window is None:
         window = BIG_WINDOW
     b, sq, h, d = q.shape
@@ -463,8 +493,9 @@ def attention_block(cfg, p, x, q_pos, *, causal=True, window=None,
         k = apply_rope(k, q_pos, cfg.rope_theta)
     kw = dict(scale=cfg.attn_scale_override or None,
               softcap=cfg.attn_logit_softcap)
-    if kv_src is not None:
-        kv_pos = torch.zeros((b, sk), dtype=q_pos.dtype, device=x.device)
+    if kv_src is not None:     # on a mesh: the queries' batch placement
+        kv_pos = sharded_like(torch.zeros((b, sk), dtype=q_pos.dtype,
+                                          device=x.device), q_pos)
         o = attention_core(q, k, v, torch.ones_like(q_pos), kv_pos,
                            causal=False, **kw)
         new_cache = None
@@ -979,41 +1010,122 @@ def _rwkv_project(cfg, p, x, x_prev):
     return r, k, v, g, logw
 
 
+def _shard_placements(ref, model_dim, n: int) -> list:
+    """Placements of a tensor a local op reads or writes on a mesh:
+    `ref`'s batch split (``Shard(0)`` on each mesh dim that shards
+    `ref`'s dim 0, the tokens' placement) and, on the ``model`` dim,
+    ``Shard(model_dim)`` where ``model`` divides `n`, the size of the
+    dim the op splits there (the heads, or di); replicated elsewhere
+    (`model_dim` None: nothing on ``model``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Shard(0) if q == Shard(0) else Replicate() for q in ref.placements]
+    dim, m = _model_axis(ref.device_mesh)
+    if dim is not None:
+        pl[dim] = (Shard(model_dim) if model_dim is not None and n % m == 0
+                   else Replicate())
+    return pl
+
+
+def _work_grads(pl, work) -> list:
+    """Gradient placements of a local op's input at placements `pl`,
+    where the op's work is split as `work` (its output's placements):
+    partial (each rank adds its share) on each mesh dim the work is
+    split over and the input is whole, else the input's own."""
+    from torch.distributed.tensor import Partial, Replicate
+    return [Partial() if p == Replicate() and w != Replicate() else p
+            for p, w in zip(pl, work)]
+
+
+def _rwkv6_heads(r, k, v, logw, u, state, hd: int):
+    """The chunked recurrence of (B, S, d) projections on the rwkv6
+    kernel (`ops.rwkv6`, the plain chunked version on the CPU), read in
+    their (B, S, H, D) layout in place: u (d,), state (B, H, D, D) or
+    None. Returns (o (B, S, d) float32, the new state float32)."""
+    b, s, d = r.shape
+    h = d // hd
+
+    def heads(t):
+        return t.float().contiguous().view(b, s, h, hd)
+
+    if state is not None:
+        state = state.float().contiguous()
+    o, state = ops.rwkv6(heads(r), heads(k), heads(v), heads(logw),
+                         u.float().view(h, hd), state)
+    return o.view(b, s, d), state
+
+
+def _rwkv6_step_heads(r, k, v, logw, u, state, hd: int):
+    """One token of the recurrence in plain torch, as the reference's is
+    jnp: (B, 1, d) projections, u (d,), state (B, H, D, D) float32.
+    Returns (o (B, 1, d) float32, the new state)."""
+    b, _, d = r.shape
+    h = d // hd
+    rh, kh, vh = (t.float().reshape(b, h, hd) for t in (r, k, v))
+    w = torch.exp(logw.reshape(b, h, hd))
+    u = u.float().view(h, hd)
+    kv = kh[..., :, None] * vh[..., None, :]                 # (B, H, D, D)
+    o = torch.einsum("bhd,bhde->bhe", rh, state + u[None, :, :, None] * kv)
+    return o.reshape(b, 1, d), state * w[..., None] + kv
+
+
+def rwkv6_on_shards(ref, fn, r, k, v, logw, u, state, hd: int):
+    """The recurrence `fn` (`_rwkv6_heads`, the rwkv6 kernel's path, or
+    `_rwkv6_step_heads`, the decode step's) on DTensors, run on each
+    rank's shards: the recurrence is independent per (sequence, head),
+    so each rank runs it (launches the kernel) on its own batch rows and
+    heads, with no collective. r, k, v, logw (B, S, d) take the tokens'
+    (`ref`'s) batch placement and, where ``model`` divides the H = d /
+    `hd` heads, d on ``model`` (the layout of wr/wk/wv's (fs, "model")
+    and w_lora_b's (None, "model")); u (d,) is sliced to the local heads
+    (its gradient partial where the work is split); `state` (B, H, D, D)
+    or None is read as the cache's (bax, "model") shard. The gradient
+    goes through `ops._RWKV6` on the local tensors, as on one card.
+    Returns (o (B, S, d) float32 with r's placements, the new state
+    (B, H, D, D) float32 with the cache's), as DTensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = r.device_mesh
+    b, s, d = r.shape
+    h = d // hd
+    pl = _shard_placements(ref, 2, h)                  # (B, S, d)
+    st_pl = _shard_placements(ref, 1, h)               # (B, H, D, D)
+    u_pl = [Shard(0) if q == Shard(2) else Replicate() for q in pl]
+    rl, kl, vl, wl = (mesh_to_local(t, pl) for t in (r, k, v, logw))
+    ul = mesh_to_local(u, u_pl, _work_grads(u_pl, pl))
+    if state is not None:
+        state = mesh_to_local(state, st_pl)
+    o, state = fn(rl, kl, vl, wl, ul, state, hd)
+    return (local_to_mesh(o, mesh, pl, (b, s, d)),
+            local_to_mesh(state, mesh, st_pl, (b, h, hd, hd)))
+
+
 def rwkv_tmix_chunked(cfg, p, x, state=None, x_last=None):
     """RWKV6 time-mix over a full sequence, on the rwkv6 kernel.
 
     x: (B, S, d); state: (B, H, D, D) float32 carry (k-dim, v-dim) or None;
     x_last: (B, d) token before x[:, 0] or None. Returns (out (B, S, d),
-    new_state (B, H, D, D) float32, last_x (B, d))."""
-    b, s, d = x.shape
-    hd = cfg.rwkv_head_dim
-    h = d // hd
+    new_state (B, H, D, D) float32, last_x (B, d)). On a mesh (a DTensor
+    `x`) the kernel runs on each rank's shards (`rwkv6_on_shards`)."""
     r, k, v, g, logw = _rwkv_project(cfg, p, x, _shift(x, x_last))
-
-    def heads(t):
-        return t.float().contiguous().view(b, s, h, hd)
-
-    u = p["u"].float().view(h, hd)
-    if state is not None:
-        state = state.float().contiguous()
-    o, state = ops.rwkv6(heads(r), heads(k), heads(v), heads(logw), u, state)
-    o = (o.view(b, s, d).to(x.dtype) * g) @ p["wo"]
+    args = (r, k, v, logw, p["u"], state, cfg.rwkv_head_dim)
+    if is_dtensor(x):
+        o, state = rwkv6_on_shards(x, _rwkv6_heads, *args)
+    else:
+        o, state = _rwkv6_heads(*args)
+    o = (o.to(x.dtype) * g) @ p["wo"]
     return o, state, x[:, -1]
 
 
 def rwkv_tmix_step(cfg, p, x, state, x_last):
-    """Single-token decode step. x: (B, 1, d); state: (B, H, D, D)."""
-    b, _, d = x.shape
-    hd = cfg.rwkv_head_dim
-    h = d // hd
+    """Single-token decode step. x: (B, 1, d); state: (B, H, D, D). On a
+    mesh it runs on each rank's shards (`rwkv6_on_shards`), as the
+    chunked form does."""
     r, k, v, g, logw = _rwkv_project(cfg, p, x, x_last[:, None])
-    rh, kh, vh = (t.float().reshape(b, h, hd) for t in (r, k, v))
-    w = torch.exp(logw.reshape(b, h, hd))
-    u = p["u"].float().view(h, hd)
-    kv = kh[..., :, None] * vh[..., None, :]                 # (B, H, D, D)
-    o = torch.einsum("bhd,bhde->bhe", rh, state + u[None, :, :, None] * kv)
-    state = state * w[..., None] + kv
-    o = o.reshape(b, 1, h * hd).to(x.dtype) * g
+    args = (r, k, v, logw, p["u"], state, cfg.rwkv_head_dim)
+    if is_dtensor(x):
+        o, state = rwkv6_on_shards(x, _rwkv6_step_heads, *args)
+    else:
+        o, state = _rwkv6_step_heads(*args)
+    o = o.to(x.dtype) * g
     return o @ p["wo"], state, x[:, -1]
 
 
@@ -1081,8 +1193,10 @@ def _ssm_conv(p, x, conv_state=None):
     dtype. The four terms are summed in the reference's order, a Python
     `sum` from 0."""
     w = p["conv"].float()
-    pad = (conv_state if conv_state is not None
-           else x.new_zeros((x.shape[0], 3, x.shape[2])))
+    pad = conv_state
+    if pad is None:            # on a mesh: a shard of x's placements
+        pad = sharded_like(torch.zeros((x.shape[0], 3, x.shape[2]),
+                                       dtype=x.dtype, device=x.device), x)
     xp = torch.cat([pad.float(), x.float()], dim=1)
     s = x.shape[1]
     y = sum(xp[:, i:i + s] * w[i] for i in range(4))
@@ -1253,6 +1367,38 @@ class _SSMScan(torch.autograd.Function):
         return (*grads, g_a, g_h, None)
 
 
+def _ssm_scan_on_shards(ref, dt, x1, bm, cm, a_mat, h0, chunk: int):
+    """`_SSMScan` on DTensors, run on each rank's shards: the scan is
+    independent per channel of di, so each rank scans its batch rows
+    (`ref`'s batch placement) and, where ``model`` divides di, its di
+    shard: dt and x1 (B, S, di) on di, bm and cm (B, S, st) whole
+    (reduced to replicated over ``model`` here, since w_B and w_C are
+    ("model", None) and leave them partial), a_mat (di, st) its rows,
+    h0 (B, di, st) the cache's ``ssm`` shard (bax, "model"), or zeros
+    made as that shard where None. The backward (``ssm.recompute``) runs
+    on the same shards. Returns (y (B, S, di) with dt's placements, the
+    last state (B, di, st) with the cache's), as DTensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dt.device_mesh
+    b, s, di = dt.shape
+    st = a_mat.shape[1]
+    pl_c = _shard_placements(ref, 2, di)               # (B, S, di)
+    pl_n = _shard_placements(ref, None, 0)             # (B, S, st)
+    pl_h = _shard_placements(ref, 1, di)               # (B, di, st)
+    pl_a = [Shard(0) if q == Shard(2) else Replicate() for q in pl_c]
+    dtl, x1l = (mesh_to_local(t, pl_c) for t in (dt, x1))
+    bml, cml = (mesh_to_local(t, pl_n, _work_grads(pl_n, pl_c))
+                for t in (bm, cm))
+    al = mesh_to_local(a_mat, pl_a, _work_grads(pl_a, pl_c))
+    if h0 is None:
+        h0 = torch.zeros((dtl.shape[0], dtl.shape[2], st), device=dtl.device)
+    else:
+        h0 = mesh_to_local(h0, pl_h)
+    y, h = _SSMScan.apply(dtl, x1l, bml, cml, al, h0, chunk)
+    return (local_to_mesh(y, mesh, pl_c, (b, s, di)),
+            local_to_mesh(h, mesh, pl_h, (b, di, st)))
+
+
 def ssm_block(cfg, p, x, state=None, conv_state=None):
     """Selective SSM. x: (B, S, d) -> (out (B, S, d), (h_state (B, di, st)
     float32, conv_state (B, 3, di) in x's dtype)); `state` and
@@ -1271,16 +1417,22 @@ def ssm_block(cfg, p, x, state=None, conv_state=None):
         o2, (h2, c2) = ssm_block(cfg, p, x[:, s_main:], h1, c1)
         return torch.cat([o1, o2], dim=1), (h2, c2)
     x1, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    if is_dtensor(x):          # each half on di over model, conv's layout
+        pl = _shard_placements(x, 2, di)
+        x1, z = (t.redistribute(t.device_mesh, pl) for t in (x1, z))
     x1, conv_state = _ssm_conv(p, x1, conv_state)
     x1 = F.silu(x1)
     dt = _softplus(x1 @ p["w_dt"] + p["b_dt"]).float()       # (B, S, di)
     bm = (x1 @ p["w_B"]).float()                             # (B, S, st)
     cm = (x1 @ p["w_C"]).float()
     a_mat = -torch.exp(p["A_log"])                           # (di, st)
-    if state is None:
-        state = torch.zeros((b, di, st), device=x.device)
     x1f = x1.float()
-    y, h = _SSMScan.apply(dt, x1f, bm, cm, a_mat, state, c0)
+    if is_dtensor(x):
+        y, h = _ssm_scan_on_shards(x, dt, x1f, bm, cm, a_mat, state, c0)
+    else:
+        if state is None:
+            state = torch.zeros((b, di, st), device=x.device)
+        y, h = _SSMScan.apply(dt, x1f, bm, cm, a_mat, state, c0)
     y = y + p["D"] * x1f
     y = y.to(x.dtype) * F.silu(z)
     return y @ p["w_out"], (h, conv_state)

@@ -72,6 +72,20 @@ def sharded_like(t, ref):
                              src_data_rank=None)
 
 
+def batch_like(t, ref):
+    """`t`, the same full tensor on every rank, as a DTensor on `ref`'s
+    mesh split on dim 0 as `ref` splits its dim 0 (the batch) and
+    replicated otherwise, each rank keeping its rows, where `ref` is a
+    DTensor; otherwise `t`. For positions made inside the model, whose
+    rank differs from the activations'."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    if not isinstance(ref, DTensor):
+        return t
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in ref.placements]
+    return distribute_tensor(t, ref.device_mesh, pl, src_data_rank=None)
+
+
 def is_dtensor(x) -> bool:
     """Whether `x` is a DTensor (a tensor on a mesh)."""
     if not torch.distributed.is_available():
@@ -107,6 +121,11 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+def contiguous_grad(t):
+    """`t` itself, whose gradient comes back contiguous."""
+    return _ContiguousGrad.apply(t)
+
+
 def mesh_to_local(t, placements, grad_placements=None):
     """This rank's shard of the DTensor `t` at `placements`,
     differentiable (`grad_placements` as `DTensor.to_local`'s). The
@@ -115,4 +134,4 @@ def mesh_to_local(t, placements, grad_placements=None):
     product's gradient is often a transposed view)."""
     local = t.redistribute(t.device_mesh, placements).to_local(
         grad_placements=grad_placements)
-    return _ContiguousGrad.apply(local)
+    return contiguous_grad(local)

@@ -67,16 +67,22 @@ queries lose keys of their window, and the next layer's SSM carries
 that on: even the last logits then differ from a full forward's, as
 the reference's do.
 
-On a mesh (launch/steps.py's mesh steps) the params, tokens and caches
-are DTensors; the blocks end in `constrain(x, "tokens_bsd")` and the
-head in `constrain(logits, "logits_bsv")`, as the reference's.
-`param_shapes` gives `init_params`' tree as meta tensors (the
-counterpart of `jax.eval_shape`). Placed by hand, at the op: `_embed`
-looks up each rank's ids in the gathered table (DTensor's vocab-sharded
-lookup leaves masked partial sums its backward cannot redistribute);
-the positions take the tokens' placements, and the constants (the
-padded-vocab mask, the embedding scale, the aux accumulator) are
-replicated (`sharding_hooks.replicated_like`).
+On a mesh (launch/steps.py's mesh steps) the params, tokens, caches
+and context inputs are DTensors, for every family; the blocks end in
+`constrain(x, "tokens_bsd")` and the head in `constrain(logits,
+"logits_bsv")`, as the reference's (the encoder and cross blocks add
+none, as the reference's do not). `param_shapes` gives `init_params`'
+tree as meta tensors (the counterpart of `jax.eval_shape`). Placed by
+hand, at the op: `_embed` looks up each rank's ids in the gathered
+table (DTensor's vocab-sharded lookup leaves masked partial sums its
+backward cannot redistribute); the positions take the tokens'
+placements, the encoder's positions the frames' batch placement
+(`sharding_hooks.batch_like`), and the constants (the padded-vocab
+mask, the embedding scale, every family's aux accumulator) are
+replicated (`sharding_hooks.replicated_like`); the context a prefill
+writes into the cache is placed as the cache's ``ctx``, on the batch
+(`_cache_ctx`). The rwkv6 kernel, the selective scan and the cross
+attention's key positions are placed in models/layers.py.
 """
 from __future__ import annotations
 
@@ -87,9 +93,10 @@ import torch.nn.functional as F
 
 from repro_torch.convert import leaves_with_paths, tree_map
 from repro_torch.models import layers as L
-from repro_torch.models.sharding_hooks import (constrain, is_dtensor,
-                                               local_to_mesh, mesh_to_local,
-                                               replicated_like, sharded_like)
+from repro_torch.models.sharding_hooks import (batch_like, constrain,
+                                               is_dtensor, local_to_mesh,
+                                               mesh_to_local, replicated_like,
+                                               sharded_like)
 
 
 ATTENTION_FAMILIES = ("dense", "moe")
@@ -530,7 +537,7 @@ def _hymba_layers(cfg, p, x, positions, cache, long_context):
             ssm_state=None if st is None else st["ssm"],
             conv_state=None if st is None else st["conv"])
         outs.append({"kv": kv, "ssm": h, "conv": conv})
-    aux = torch.zeros((), device=x.device)
+    aux = replicated_like(torch.zeros((), device=x.device), x)
     return x, (None if cache is None else _stack(outs)), aux
 
 
@@ -541,11 +548,22 @@ def _encode(cfg, p, frames, dtype):
     with torch.profiler.record_function("audio.encoder"):
         x = frames.to(dtype) @ p["audio_adapter"]
         b, te = x.shape[:2]
-        pos = torch.arange(te, device=x.device).expand(b, te)
+        pos = batch_like(torch.arange(te, device=x.device).expand(b, te), x)
         for i in range(cfg.n_encoder_layers):
             x = _encoder_block(cfg, tree_map(lambda t: t[i], p["enc_blocks"]),
                                x, pos)
         return L.apply_norm(cfg, p["enc_norm"], x)
+
+
+def _cache_ctx(ctx, cache):
+    """The new cache's context: `ctx`, on a mesh placed as the cache's
+    ``ctx`` ((bax, None, None), `cache_shardings`), whatever layout the
+    encoder or the projection left it in."""
+    if not is_dtensor(ctx):
+        return ctx
+    want = cache["ctx"].placements
+    return ctx if ctx.placements == want else ctx.redistribute(
+        ctx.device_mesh, want)
 
 
 def _audio_layers(cfg, p, x, positions, cache, long_context, aux_inputs):
@@ -573,9 +591,10 @@ def _audio_layers(cfg, p, x, positions, cache, long_context, aux_inputs):
         x = _cross_block(cfg, tree_map(lambda t: t[i], p["cross_blocks"]),
                          x, positions, ctx)
         outs.append(new)
-    aux = torch.zeros((), device=x.device)
-    return x, (None if cache is None else {"kv": _stack(outs),
-                                           "ctx": ctx}), aux
+    aux = replicated_like(torch.zeros((), device=x.device), x)
+    if cache is None:
+        return x, None, aux
+    return x, {"kv": _stack(outs), "ctx": _cache_ctx(ctx, cache)}, aux
 
 
 def _vlm_layers(cfg, p, x, positions, cache, long_context, aux_inputs):
@@ -608,9 +627,10 @@ def _vlm_layers(cfg, p, x, positions, cache, long_context, aux_inputs):
             outs.append(new)
         x = _cross_block(cfg, tree_map(lambda t: t[s], p["cross_blocks"]),
                          x, positions, ctx)
-    aux = torch.zeros((), device=x.device)
-    return x, (None if cache is None else {"kv": _stack(outs),
-                                           "ctx": ctx}), aux
+    aux = replicated_like(torch.zeros((), device=x.device), x)
+    if cache is None:
+        return x, None, aux
+    return x, {"kv": _stack(outs), "ctx": _cache_ctx(ctx, cache)}, aux
 
 
 def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
@@ -653,7 +673,7 @@ def _forward_hidden(cfg, p, tokens, *, mode, cache, positions=None,
         st = None if cache is None else {k: c[i] for k, c in cache.items()}
         x, new = _rwkv_block(cfg, blk, x, mode, st)
         outs.append(new)
-    aux = torch.zeros((), device=x.device)
+    aux = replicated_like(torch.zeros((), device=x.device), x)
     if cache is None and mode != "prefill":
         return x, None, aux
     return x, _stack(outs), aux

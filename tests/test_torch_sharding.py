@@ -12,8 +12,7 @@ int8), the KV preference chain, the `input_specs` of each workload
 kind, and the per-device bf16 bytes of params plus momentum of the four
 largest architectures on the multi-pod mesh (the reference's
 tests/test_sharding.py bound, 16 GB a chip) must be equal. The spec
-placements and the mesh entry points of the families that do not run
-on a mesh yet are checked too.
+placements are checked too.
 
     PYTHONPATH=src python -m pytest tests/test_torch_sharding.py
 """
@@ -248,23 +247,6 @@ def test_param_shapes_match_init_params():
                               leaves_with_paths(meta)):
         assert p == q and a.shape == b.shape and a.dtype == b.dtype
         assert b.is_meta
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b",
-                                  "seamless-m4t-large-v2",
-                                  "llama-3.2-vision-90b"])
-def test_mesh_steps_of_unported_families_raise(arch):
-    """The families whose mesh execution is not ported raise, naming the
-    ROADMAP item, rather than run unsharded (no mesh object is needed
-    for the check)."""
-    cfg = get_config(arch + "-smoke")
-    shape = InputShape("t", 16, 2, "train")
-    mesh = tmesh.ShapeMesh((1, 1), ("data", "model"))
-    for make in (lambda: tst.make_train_step(cfg, shape, mesh),
-                 lambda: tst.make_prefill_step(cfg, shape, mesh=mesh),
-                 lambda: tst.make_decode_step(cfg, shape, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make()
 
 
 def test_pick_n_micro_per_shard_matches_reference():

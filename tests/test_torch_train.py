@@ -446,8 +446,11 @@ def test_train_launcher_batches_are_planned_draws(cfgs):
 
 
 def test_train_launcher_refuses_multi_pod():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """``--multi-pod`` at one rank: the (pod=2, data, model) mesh needs an
+    even number of ranks, refused before any group is made."""
+    with pytest.raises(ValueError, match="do not split into 2 pod"):
         ttrain.main(["--device", "cpu", "--multi-pod"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_train_launcher_sim_round_checkpoint_and_resume(capsys, tmp_path):

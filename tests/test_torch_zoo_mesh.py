@@ -72,8 +72,10 @@ AUX_TOL = 2e-5
 REF_TIMEOUT_S = 300
 
 # The reference at 8 forced XLA devices: every case of the ranks, jitted
-# on a (data=2, model=4) Auto mesh, and moe_block_ep on the MoE case's
-# inputs; writes {key: array} and how often moe_block_ep was traced.
+# on a (data=2, model=4) Auto mesh (with each arch's context input of
+# data['aux'], if any), and moe_block_ep on the MoE case's inputs (if
+# data has them); writes {key: array} and how often moe_block_ep was
+# traced.
 _REFERENCE8 = """
 import dataclasses, pickle, sys
 import numpy as np, jax, jax.numpy as jnp
@@ -95,6 +97,9 @@ def spy(*a, **k):
 L.moe_block_ep = spy
 inp = data['inputs']
 out = {}
+def aux_of(arch):   # the audio family's frames, the vlm family's patches
+    return {k: jnp.asarray(v) for k, v in data.get('aux', {}).get(
+        arch, {}).items()}
 def flat(prefix, tree):
     for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]:
         out[prefix + '/' + sh._path_str(p)] = np.asarray(x)
@@ -109,7 +114,7 @@ with compat.set_mesh(mesh):
                                        mesh, objective=objective, n_micro=1)
             np_, nm_, met = jax.jit(fn)(p, st.init_momentum(p), {
                 'tokens': jnp.asarray(inp['tokens']),
-                'blur': jnp.asarray(inp['blur'])})
+                'blur': jnp.asarray(inp['blur']), **aux_of(arch)})
             key = arch + '/' + objective
             out[key + '/loss'] = np.asarray(met['loss'])
             flat(key + '/params', np_)
@@ -117,7 +122,8 @@ with compat.set_mesh(mesh):
         total = PROMPT + N_DECODE
         pf = st.make_prefill_step(cfg, InputShape('p', total, B, 'prefill'),
                                   mesh, param_dtype=jnp.float32)
-        last, cache = jax.jit(pf)(p, {'tokens': jnp.asarray(inp['prompts'])})
+        last, cache = jax.jit(pf)(p, {'tokens': jnp.asarray(inp['prompts']),
+                                      **aux_of(arch)})
         logits = [np.asarray(last)]
         dec = jax.jit(st.make_decode_step(
             cfg, InputShape('d', total, B, 'decode'), mesh))
@@ -129,12 +135,13 @@ with compat.set_mesh(mesh):
             logits.append(np.asarray(lg))
         out[arch + '/serve_logits'] = np.stack(logits)
     out['ep_calls'] = np.array(len(calls))
-    m = data['moe']
-    cfg = dataclasses.replace(get_config('olmoe-1b-7b').reduced(),
-                              moe_capacity_factor=CF)
-    y, aux = jax.jit(lambda p, x: L.moe_block_ep(cfg, p, x))(
-        jax.tree.map(jnp.asarray, m['params']), jnp.asarray(m['x']))
-    out['moe/y'], out['moe/aux'] = np.asarray(y), np.asarray(aux)
+    m = data.get('moe')
+    if m is not None:
+        cfg = dataclasses.replace(get_config('olmoe-1b-7b').reduced(),
+                                  moe_capacity_factor=CF)
+        y, aux = jax.jit(lambda p, x: L.moe_block_ep(cfg, p, x))(
+            jax.tree.map(jnp.asarray, m['params']), jnp.asarray(m['x']))
+        out['moe/y'], out['moe/aux'] = np.asarray(y), np.asarray(aux)
 np.savez(sys.argv[2], **out)
 """
 
@@ -249,21 +256,6 @@ def test_one_rank_mesh_is_bitwise_the_one_device_steps(runs):
     assert set(runs["rank1"]) == set(runs["one"])
     for key, want in runs["one"].items():
         np.testing.assert_array_equal(runs["rank1"][key], want, err_msg=key)
-
-
-def test_mesh_launchers_refuse_the_families_not_ported():
-    """The drivers' mesh mode (here --model-parallel at world size 1)
-    refuses the rwkv6, hybrid, audio and vlm families before any group
-    is made, naming their ROADMAP item."""
-    from repro_torch.launch import decode as tdecode
-    from repro_torch.launch import train as ttrain
-    for arch in ("rwkv6-1.6b", "hymba-1.5b", "seamless-m4t-large-v2",
-                 "llama-3.2-vision-90b"):
-        for main in (ttrain.main, tdecode.main):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                main(["--arch", arch, "--reduced", "--device", "cpu",
-                      "--model-parallel", "1"])
-    assert not dist.is_initialized()
 
 
 def test_host_and_production_meshes():
