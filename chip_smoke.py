@@ -378,6 +378,24 @@ the JAX package `repro`. Phases, each of which must pass:
      ``vlm.cross`` and ``attention.ctx_kv`` ranges. Every cut is printed
      with its reason.
 
+15. Dry run (``[dryrun]``, after the zoo's mesh phase): the port's
+   launch/dryrun.py in two subprocesses, started before [zoo_mesh] and
+   run beside it, so that their fake process groups never meet the real
+   groups of [mesh] and [zoo_mesh] (they compute nothing on the card:
+   fake tensors on a ``cuda`` mesh):
+   ``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
+   prefill_32k --mesh single`` (256 fake ranks of the (16, 16) mesh) to
+   a temporary ``--out``, whose record must be ok (its FLOPs, collective
+   bytes and counts, argument, temp and peak bytes printed), and a
+   (1, 1) fake trace of a DRYRUN_PREFILL prefill. Meanwhile tinyllama
+   is drawn on the card (bf16, seed 0) and prefills DRYRUN_PREFILL
+   tokens (3,072 is a multiple of 1,024: the flash path): `rank_bytes`
+   on a (1, 1) `ShapeMesh` must equal the bytes of the params and tokens
+   on the card, and the trace's ``output_bytes`` the bytes of the logits
+   and cache the prefill returned, exactly (both are counts); the
+   estimate ``argument_bytes + temp_bytes`` is printed beside the
+   measured bytes and growth of `torch.cuda.max_memory_allocated`.
+
 The q8 kernels are held against their plain versions in phase 2, at
 (5, Ppad), (3, Ppad), (2, Ppad) and (1, Ppad), Ppad = 11,506,688 (the
 cohort, the groups of MultiRSU and the handover, a snapshot): codes,
@@ -743,6 +761,24 @@ VLM_RANGES = ("vlm.vision_proj", "vlm.cross", "attention.ctx_kv")
 # (one sequence each, as [vlm]'s lm). seamless's
 # (8, 1024, 258048) float32 logits (8.5 GB) and their backward peaked at
 # 60.20 GiB alone: 2 micro-batches.
+# [dryrun]: launch/dryrun.py's record of DRYRUN_ARCH's prefill_32k on
+# the (16, 16) fake world, and a one-card prefill of DRYRUN_PREFILL
+# (batch, tokens) beside its (1, 1) fake trace; each subprocess is given
+# at most DRYRUN_TIMEOUT_S
+DRYRUN_ARCH = "tinyllama-1.1b"
+DRYRUN_PREFILL = (16, 3072)
+DRYRUN_TIMEOUT_S = 300
+_ONE_CARD_TRACE = (
+    "import json, sys\n"
+    "from repro_torch.configs import get_config\n"
+    "from repro_torch.configs.base import InputShape\n"
+    "from repro_torch.launch import dryrun as dr\n"
+    "b, s = int(sys.argv[3]), int(sys.argv[4])\n"
+    "rec = dr.trace_step(get_config(sys.argv[2]),\n"
+    "                    InputShape('prefill', s, b, 'prefill'), (1, 1))\n"
+    "with open(sys.argv[1], 'w') as f:\n"
+    "    json.dump(rec, f)\n")
+
 ZOO_MESH_DT = (8, 512, 1)
 ZOO_MESH_LM = MOE_LM
 ZOO_MESH_FAMILY_LM = {"*": (8, 1024, 1), "rwkv6-1.6b": (4, 1024, 1),
@@ -2775,18 +2811,10 @@ def lossless_round(dev, data, state):
 def _rwkv6_work(bh: int, s: int, d: int, state0: bool):
     """(bytes, flops) the rwkv6 recurrence needs for these inputs: r, k,
     v, logw and u read once, o and the state written once (state0 read
-    once if given); per chunk of c valid steps the carry-in c*D*D FMAs,
-    c(c-1)/2 decayed pair products over D (subtract, exp, multiply,
-    FMA), the bonus, the pair and bonus terms times v, the prefix sums
-    and decay factors, and the state update (D*D scale, c*D*D FMAs)."""
+    once if given); the operations are `kernels.rwkv6.work_flops`."""
+    from repro_torch.kernels.rwkv6 import work_flops
     bytes_ = 4 * (bh * s * d * 5 + bh * d + bh * d * d * (2 if state0 else 1))
-    flops = 0
-    for t0 in range(0, s, 16):
-        c = min(16, s - t0)
-        pairs = c * (c - 1) // 2
-        flops += (2 * c * d * d + 4 * pairs * d + 3 * c * d
-                  + 2 * (pairs + c) * d + 5 * c * d + d * d + 2 * c * d * d)
-    return bytes_, bh * flops
+    return bytes_, work_flops(bh, s, d)
 
 
 def rwkv6_kernel_check(dev):
@@ -4997,6 +5025,144 @@ def _zoo_mesh_serve(dev, cfg, params, placed, mesh, smi) -> dict:
     return {k: v // 2 for k, v in counts.items()}
 
 
+def _coll_text(coll: dict) -> str:
+    return ", ".join(f"{k} {coll[k]:.4e} B in {coll['count_' + k]}"
+                     for k in coll if not k.startswith("count_"))
+
+
+def dryrun_start() -> dict:
+    """Starts [dryrun]'s two subprocesses, which need no card and run
+    beside [zoo_mesh]: the dry run's CLI for DRYRUN_ARCH at prefill_32k
+    on the (16, 16) fake world, and its (1, 1) fake trace of a
+    DRYRUN_PREFILL prefill, each writing a JSON file into a temporary
+    directory under build/."""
+    import tempfile
+
+    b, s = DRYRUN_PREFILL
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_",
+                           dir=os.path.join(ROOT, "build"))
+    out, one = os.path.join(tmp, "dryrun.json"), os.path.join(tmp, "one.json")
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_ARCH, "--shape", "prefill_32k", "--mesh", "single",
+             "--out", out],
+            [sys.executable, "-c", _ONE_CARD_TRACE, one, DRYRUN_ARCH,
+             str(b), str(s)]]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    logs = [os.path.join(tmp, f"log{i}.txt") for i in range(len(cmds))]
+    procs = []
+    for c, log in zip(cmds, logs):
+        # a file, not a pipe: nothing reads the output until [dryrun]
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(c, env=env, cwd=ROOT, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    return {"tmp": tmp, "out": out, "one": one, "cmds": cmds,
+            "procs": procs, "logs": logs}
+
+
+def dryrun_stop(started: dict) -> None:
+    """Kills what is left of `dryrun_start`'s subprocesses and removes
+    their directory."""
+    import shutil
+
+    for p in started["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(started["tmp"], ignore_errors=True)
+
+
+def dryrun_path(dev, started: dict) -> None:
+    """[dryrun]: the dry run's record of DRYRUN_ARCH at prefill_32k on
+    the 256 fake ranks of the (16, 16) mesh and its (1, 1) fake trace of
+    a DRYRUN_PREFILL prefill (`dryrun_start`'s subprocesses), beside
+    that prefill on the card: the arguments and outputs the dry run
+    counts must be the card's, byte for byte."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.convert import leaves_with_paths
+    from repro_torch.launch import decode as dec
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import steps as st
+
+    t_phase = time.time()
+    b, s = DRYRUN_PREFILL
+    cfg = get_config(DRYRUN_ARCH)
+    shape = InputShape("prefill", s, b, "prefill")
+    _free()
+    base = torch.cuda.memory_allocated(dev)
+    params = dec.init_model(cfg, 0, torch.bfloat16, dev)
+    tokens = dec.random_prompts(cfg, b, s, 0, dev)
+    have = sum(t.nbytes for _, t in leaves_with_paths(params)) \
+        + tokens.nbytes
+    want = dr.rank_bytes(cfg, shape, dr.ShapeMesh((1, 1), dr.ZOO_AXES))
+    if want["argument_bytes"] != have:
+        raise AssertionError(f"[dryrun] rank_bytes on (1, 1): {want}; the "
+                             f"params and tokens on the card hold {have} "
+                             f"bytes")
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, cache = st.make_prefill_step(cfg, shape)(params,
+                                                     {"tokens": tokens})
+    torch.cuda.synchronize(dev)
+    growth = torch.cuda.max_memory_allocated(dev) - before
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[dryrun] the card's prefill logits are not "
+                             "finite")
+    out_bytes = logits.nbytes + sum(t.nbytes for _, t in
+                                    leaves_with_paths(cache))
+    del params, tokens, logits, cache
+    t_wait = time.time()
+    for p, c, log in zip(started["procs"], started["cmds"],
+                         started["logs"]):
+        if p.wait(timeout=DRYRUN_TIMEOUT_S):
+            with open(log) as f:
+                raise RuntimeError(f"[dryrun] {' '.join(c[1:4])} exited "
+                                   f"{p.returncode}: {f.read()[-3000:]}")
+    t_wait = time.time() - t_wait
+    with open(started["out"]) as f:
+        rec = json.load(f)[f"{DRYRUN_ARCH}|prefill_32k|single|lm"]
+    with open(started["one"]) as f:
+        small = json.load(f)
+    if not rec.get("ok"):
+        raise AssertionError(f"[dryrun] prefill_32k on 16x16 failed: "
+                             f"{rec.get('error')}")
+    mem, cost = rec["memory"], rec["cost"]
+    print(f"[dryrun] {DRYRUN_ARCH} prefill_32k (32 x 32768) on the "
+          f"{rec['mesh']} fake world ({rec['world_size']} ranks, "
+          f"{rec['device_type']} mesh), a rank: flops {cost['flops']:.4e} "
+          f"(kernels {cost['kernel_flops']}), bytes accessed "
+          f"{cost['bytes accessed']:.4e} ({cost['bytes_basis']}); "
+          f"collectives {_coll_text(rec['collectives'])}; argument "
+          f"{mem['argument_bytes']} B, output {mem['output_bytes']} B, temp "
+          f"{mem['temp_bytes']} B, peak {mem['peak_bytes']} B; trace "
+          f"{rec['trace_s']} s, {rec['total_s']} s in all", flush=True)
+    m1 = small["memory"]
+    if m1["argument_bytes"] != have or m1["output_bytes"] != out_bytes:
+        raise AssertionError(f"[dryrun] the (1, 1) trace counts arguments "
+                             f"{m1['argument_bytes']} B and outputs "
+                             f"{m1['output_bytes']} B; the card's prefill "
+                             f"took {have} B and returned {out_bytes} B")
+    est = m1["argument_bytes"] + m1["temp_bytes"]
+    measured = before - base + growth
+    print(f"[dryrun] one card, {b} x {s} prefill: arguments {have} B "
+          f"(rank_bytes on (1, 1): equal), outputs {out_bytes} B (the "
+          f"(1, 1) trace: equal); estimate argument + temp {est} B "
+          f"({est / 2**30:.2f} GiB) against the card's {measured} B "
+          f"({measured / 2**30:.2f} GiB: allocated {before - base} B + peak "
+          f"growth {growth} B), ratio {est / measured:.4f}; temp "
+          f"{m1['temp_bytes']} B against growth {growth} B, ratio "
+          f"{m1['temp_bytes'] / growth:.4f}; (1, 1) trace "
+          f"{small['trace_s']} s", flush=True)
+    _free()
+    print(f"[dryrun] {time.time() - t_phase:.1f} s in the phase ({t_wait:.1f} "
+          f"s of it waiting on the subprocesses, started before "
+          f"[zoo_mesh])", flush=True)
+
+
 def analysis_path(dev, first_build) -> None:
     """[analysis]: the guards live on the card, the registries' contracts
     and the port's lint clean. `first_build` is the tracker around the
@@ -5136,7 +5302,12 @@ def run() -> int:
     vlm_cross_check(dev)
     paths["vlm"] = vlm_full_width(dev)
     _free()
-    paths["zoo_mesh"] = zoo_mesh_path(dev)
+    dry = dryrun_start()        # [dryrun]'s subprocesses, beside [zoo_mesh]
+    try:
+        paths["zoo_mesh"] = zoo_mesh_path(dev)
+        dryrun_path(dev, dry)
+    finally:
+        dryrun_stop(dry)
     for r in rows:      # each kernel's count on the path that runs it
         path = (comms_launches if r["name"].startswith("q8")
                 else zoo_launches if r["name"] == "rwkv6"

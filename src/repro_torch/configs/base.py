@@ -91,8 +91,60 @@ class ModelConfig:
         return pad_vocab(self.vocab_size)
 
     @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
+
+    @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    def _attn_params(self) -> int:
+        d, h = self.d_model, self.head_dim_
+        return (d * (self.n_heads * h) + 2 * d * (self.n_kv_heads * h)
+                + (self.n_heads * h) * d)
+
+    def n_params(self) -> int:
+        """Approximate total parameter count (embeddings + blocks), the
+        reference's formula: attention, (gated) MLP or experts plus
+        router a layer; rwkv6's 6 d^2 mixing in place of attention;
+        hybrid's SSM projections; the cross blocks and encoder layers;
+        the padded vocab's embedding and unembedding."""
+        d, h = self.d_model, self.head_dim_
+        attn = self._attn_params()
+        mlp_mult = 3 if self.gated_mlp else 2
+        if self.is_moe:
+            ff = mlp_mult * d * self.d_ff * (self.n_experts
+                                             + self.n_shared_experts)
+            ff += d * self.n_experts                        # router
+        else:
+            ff = mlp_mult * d * self.d_ff
+        per_layer = attn + ff
+        if self.family == "ssm":
+            per_layer = 6 * d * d + mlp_mult * d * self.d_ff
+        if self.family == "hybrid":
+            d_in = self.ssm_expand * d
+            per_layer = (attn + mlp_mult * d * self.d_ff + 2 * d * d_in
+                         + d_in * d)
+        n = self.n_layers * per_layer
+        if self.cross_attn_period:
+            n_cross = self.n_layers // self.cross_attn_period
+            n += n_cross * (2 * d * d + 2 * d * (self.n_kv_heads * h))
+        if self.is_encdec:
+            n += self.n_encoder_layers * per_layer
+        n += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        return int(n)
+
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: the active and shared experts
+        only), the reference's formula; `n_params` for the others."""
+        if not self.is_moe:
+            return self.n_params()
+        d = self.d_model
+        mlp_mult = 3 if self.gated_mlp else 2
+        dense_ff = mlp_mult * d * self.d_ff * (self.n_experts_active
+                                               + self.n_shared_experts)
+        per_layer = self._attn_params() + dense_ff + d * self.n_experts
+        return int(self.n_layers * per_layer + self.padded_vocab * d * 2)
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family and code path, tiny dims (the

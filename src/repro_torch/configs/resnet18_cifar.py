@@ -11,6 +11,8 @@ CONFIG = register(ModelConfig(
     family="resnet",
     n_layers=18,
     d_model=512,          # final stage width
+    n_heads=1,
+    n_kv_heads=1,
     d_ff=128,             # projector output dim (128-D)
     vocab_size=10,        # CIFAR-10 classes (for the probe head)
     citation="FLSimCo Sec. 5.1 / arXiv:2203.17248 (SimCo)",

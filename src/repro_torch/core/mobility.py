@@ -1,8 +1,8 @@
 """Vehicle mobility + motion-blur model — FLSimCo Eq. (1)-(2).
 
 Counterpart of `repro.core.mobility` (`MobilityModel.pdf/sample/
-blur_level/init_positions/advance_positions`, `motion_blur_kernel`,
-`apply_motion_blur`, `BLUR_KMH_100`).
+blur_level/is_blurred/init_positions/advance_positions`,
+`motion_blur_kernel`, `apply_motion_blur`, `BLUR_KMH_100`).
 
 Velocities are IID truncated Gaussians on [v_min, v_max] (Eq. 1), drawn
 by inverse CDF on a 4097-point grid; the blur level is linear in
@@ -110,6 +110,15 @@ class MobilityModel:
     def blur_level(self, v) -> torch.Tensor:
         """Eq. (2): L = (H*s/Q) * v."""
         return self.camera_const * torch.as_tensor(v, dtype=torch.float32)
+
+    def is_blurred(self, v, threshold=KMH_100) -> torch.Tensor:
+        """Bool tensor: v above `threshold` (m/s; 100 km/h by default),
+        compared in float32 where v is floating, as the reference's
+        float32 arrays are."""
+        v = torch.as_tensor(v)
+        if v.dtype == torch.float64:
+            v = v.float()
+        return v > threshold
 
     # -- positions on a ring road of length road_length (handover) ----------
 

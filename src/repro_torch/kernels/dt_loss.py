@@ -76,6 +76,27 @@ def wide_kernel_attributes(d: int = 2048) -> dict:
                             entry="dt_loss_wide_attributes")
 
 
+def work_flops(c: int, m: int, d: int) -> int:
+    """The operations of c (M, D) pairs (the yardstick of the bound in
+    chip_smoke.py): 2 M^2 D a pair three times, since both kernels form
+    the similarity in 3xTF32 (hi*hi, lo*hi, hi*lo)."""
+    return 3 * 2 * c * m * m * d
+
+
+def dt_loss_fwd_shape_only(q: torch.Tensor, k: torch.Tensor):
+    """(loss_vec, lse_a, lse_b, pos, kernel name, operations) of
+    `dt_loss_fwd_cuda` on fake tensors (a dry run's trace,
+    launch/dryrun.py): four empty float32 outputs of q's leading shape
+    on q's device, the kernel the call would launch (``dt_loss`` or
+    ``dt_loss_wide``) and `work_flops` of it. Nothing launches and
+    nothing is counted."""
+    c, m, d = q.shape if q.dim() == 3 else (1, *q.shape)
+    out = torch.empty((4, *q.shape[:-1]), dtype=torch.float32,
+                      device=q.device)
+    name = "dt_loss_wide" if _is_wide(d) else "dt_loss"
+    return (*out.unbind(0), name, work_flops(c, m, d))
+
+
 def dt_loss_fwd_cuda(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
                      tau_beta: float):
     """q, k (M, D) float32 CUDA -> (loss_vec, lse_a, lse_b, pos), each

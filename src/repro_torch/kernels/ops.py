@@ -37,6 +37,13 @@ a failed build or launch raises too.
 one where it launches its kernel); `add_launches` is for whoever replays
 a CUDA graph, which runs the launches its capture recorded without
 calling the wrappers (core/engine.py).
+
+Fake tensors (`torch._subclasses.fake_tensor.FakeTensor`, a dry run's
+trace in launch/dryrun.py) take a shape-only path in `dt_loss_fwd` and
+`rwkv6`: empty outputs of the kernel's shapes, and the kernel's
+operation count handed to each function in `SHAPE_ONLY_LISTENERS` as
+``fn(kernel name, operations)``. Nothing launches and no counter moves;
+a real tensor never takes that path.
 """
 from __future__ import annotations
 
@@ -51,6 +58,10 @@ from repro_torch.kernels import rwkv6 as _rwkv6_kernel
 from repro_torch.kernels import wagg as _wagg_kernel
 from repro_torch.kernels.qdelta import BQ
 from repro_torch.models.sharding_hooks import is_dtensor
+
+# fn(kernel name, operations) of each shape-only call on fake tensors
+# (launch/dryrun.py adds its counter for the length of a trace)
+SHAPE_ONLY_LISTENERS: list = []
 
 
 def launch_counts() -> dict:
@@ -75,6 +86,17 @@ def add_launches(counts: dict) -> None:
     with _q8_kernel._COUNT_LOCK:
         _q8_kernel.ENCODE_LAUNCHES += counts.get("q8_encode", 0)
         _q8_kernel.DECODE_LAUNCHES += counts.get("q8_decode", 0)
+
+
+def _fake(*ts) -> bool:
+    """Whether any input is a FakeTensor (a dry run's trace)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in ts)
+
+
+def _shape_only(name: str, flops: int) -> None:
+    for fn in SHAPE_ONLY_LISTENERS:
+        fn(name, flops)
 
 
 def _on_cuda(*ts) -> bool:
@@ -137,7 +159,12 @@ def wagg_stacked(stacked_tree, w, mask=None) -> dict:
 def dt_loss_fwd(q: torch.Tensor, k: torch.Tensor, tau_alpha: float,
                 tau_beta: float):
     """(loss_vec, lse_a, lse_b, pos), each (M,) float32 for (M, D) q and
-    k; each (C, M) for a cohort (C, M, D), in one launch on the card."""
+    k; each (C, M) for a cohort (C, M, D), in one launch on the card;
+    shapes only for fake tensors."""
+    if _fake(q, k):
+        *outs, name, flops = _dt_kernel.dt_loss_fwd_shape_only(q, k)
+        _shape_only(name, flops)
+        return tuple(outs)
     if _on_cuda(q, k):
         return _dt_kernel.dt_loss_fwd_cuda(q, k, tau_alpha, tau_beta)
     if q.dim() == 3:
@@ -279,7 +306,13 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _rwkv6_forward(r, k, v, logw, u, state0):
-    """The kernel on the card, the plain chunked version on the CPU."""
+    """The kernel on the card, the plain chunked version on the CPU;
+    shapes only for fake tensors."""
+    if _fake(r, k, v, logw, u, state0):
+        o, state, flops = _rwkv6_kernel.rwkv6_shape_only(r, k, v, logw, u,
+                                                         state0)
+        _shape_only("rwkv6", flops)
+        return o, state
     if _on_cuda(r, k, v, logw, u, state0):
         return _rwkv6_kernel.rwkv6_cuda(r, k, v, logw, u, state0)
     return rwkv6_plain(r, k, v, logw, u, state0)

@@ -77,6 +77,34 @@ def _strides(t: torch.Tensor):
     return t.stride(0), t.stride(2), t.stride(1)
 
 
+def work_flops(bh: int, s: int, d: int) -> int:
+    """The recurrence's operations for `bh` rows of `s` steps at head
+    size `d` (the yardstick of its bound in chip_smoke.py): per chunk of
+    c <= 16 steps the carry-in c*D*D FMAs, c(c-1)/2 decayed pair
+    products over D (subtract, exp, multiply, FMA), the bonus, the pair
+    and bonus terms times v, the prefix sums and decay factors, and the
+    state update (D*D scale, c*D*D FMAs)."""
+    flops = 0
+    for t0 in range(0, s, 16):
+        c = min(16, s - t0)
+        pairs = c * (c - 1) // 2
+        flops += (2 * c * d * d + 4 * pairs * d + 3 * c * d
+                  + 2 * (pairs + c) * d + 5 * c * d + d * d + 2 * c * d * d)
+    return bh * flops
+
+
+def rwkv6_shape_only(r, k, v, logw, u, state0=None):
+    """(o, state, operations) of `rwkv6_cuda` on fake tensors (a dry
+    run's trace, launch/dryrun.py): empty outputs of the kernel's shapes
+    and dtype on r's device, and `work_flops` of the call. Nothing
+    launches and nothing is counted in LAUNCHES."""
+    b, h, s, d = geometry(r)
+    state_shape = (b * h, d, d) if r.dim() == 3 else (b, h, d, d)
+    o = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    state = torch.empty(state_shape, dtype=torch.float32, device=r.device)
+    return o, state, work_flops(b * h, s, d)
+
+
 def rwkv6_cuda(r, k, v, logw, u, state0=None):
     """The RWKV6 recurrence on the CUDA kernel: (o, state), float32. See
     the module doc for the layouts. Raises on anything the kernel does not

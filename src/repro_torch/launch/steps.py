@@ -119,7 +119,7 @@ def _aux_shapes(cfg, b: int, s: int) -> dict:
 
 
 def input_specs(cfg, shape: InputShape, mesh, param_dtype=torch.bfloat16,
-                cache_dtype=None) -> dict:
+                cache_dtype=None, objective: str = "lm") -> dict:
     """`Placed` stand-ins for one workload's inputs, as the reference's:
 
     train:   {"tokens", "blur", aux...}
@@ -128,12 +128,17 @@ def input_specs(cfg, shape: InputShape, mesh, param_dtype=torch.bfloat16,
 
     The batch is on (pod, data) where it divides (`batch_spec`); the
     cache follows `cache_shardings`. `mesh` is a `DeviceMesh` or a
-    `ShapeMesh`."""
+    `ShapeMesh`. A ``dt`` train step (`objective`) also takes its
+    views' drop masks, ``drops`` (2, B, S) bool with the batch on dim 1
+    (the reference draws them inside its step from a key)."""
     b, s = shape.global_batch, shape.seq_len
     bax = sh.batch_spec(mesh, b)[0]
     aux = {k: _placed(mesh, shp, torch.bfloat16, (bax, None, None))
            for k, shp in _aux_shapes(cfg, b, s).items()}
     if shape.kind == "train":
+        if objective == "dt":
+            aux["drops"] = _placed(mesh, (2, b, s), torch.bool,
+                                   (None, bax, None))
         return {"tokens": _placed(mesh, (b, s), torch.int64, (bax, None)),
                 "blur": _placed(mesh, (b,), torch.float32, (bax,)), **aux}
     if shape.kind == "prefill":

@@ -3,7 +3,8 @@ token view, the synthetic token stream and class histogram, the
 list-API aggregators and the list and stacked weighted sums, each
 against the reference on the CPU from the same inputs; and the
 function-level diff of the two packages, which holds only the JAX-only
-and TPU-only names and the queued mesh work.
+and TPU-only names, and its method-level cases, which hold only the
+cohort's tree views.
 
     PYTHONPATH=src python -m pytest tests/test_torch_list_api.py
 """
@@ -46,9 +47,10 @@ AGG_TOL = 1e-6
 # the Pallas kernels and their backend switches are TPU-only (the port's
 # kernels are CUDA C++ behind kernels/ops.py); the jit factories and
 # caches, the ShapeDtypeStruct tree and the shims are JAX-only;
-# launch/dryrun.py's per-rank accounting is queued (ROADMAP.md, Queue A,
-# item 12); launch/mesh.py's axis_size is collectives.axis_size,
-# imported there.
+# launch/dryrun.py's calibrate_one extrapolates XLA's cost analysis,
+# which counts a scan body once, while the port's trace runs every layer
+# in a Python loop and counts them all; launch/mesh.py's axis_size is
+# collectives.axis_size, imported there.
 NOT_PORTED = {
     "kernels/qdelta.py": {"q8_decode_pallas", "q8_encode_pallas"},
     "kernels/wagg.py": {"wagg_pallas"},
@@ -62,8 +64,18 @@ NOT_PORTED = {
                         "reset_cohort_step_caches"},
     "core/federation.py": {"FederatedTrainer"},
     "launch/mesh.py": {"axis_size"},
+    "launch/dryrun.py": {"calibrate_one"},
 }
-NO_PORT_MODULE = {"compat.py", "models/scan_ctx.py", "launch/dryrun.py"}
+NO_PORT_MODULE = {"compat.py", "models/scan_ctx.py"}
+# The public methods of a class both packages define that the port's
+# class lacks (inherited methods resolved within each module): the
+# cohort's tree views, since the port's cohort holds flat rows
+# (`FlatSpec`) and reads no list or stack of trees.
+NOT_PORTED_METHODS = {
+    "core/cohort.py": {"CohortBatch": {"from_list", "from_stacked",
+                                       "unstack", "valid_trees",
+                                       "valid_velocities"}},
+}
 
 
 def _t(x):
@@ -222,10 +234,40 @@ def _defined(path) -> set:
             and not n.name.startswith("_")}
 
 
-def test_function_level_diff_is_only_the_jax_and_tpu_names():
+def _methods(path) -> dict:
+    """{public class: its public methods and properties, those of its
+    bases defined in the same module included}."""
+    tree = ast.parse(open(path).read())
+    own = {n.name: ({b.name for b in n.body
+                     if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef))
+                     and not b.name.startswith("_")},
+                    [b.id for b in n.bases if isinstance(b, ast.Name)])
+           for n in tree.body if isinstance(n, ast.ClassDef)}
+
+    def resolve(name, seen=()):
+        names, bases = own[name]
+        out = set(names)
+        for b in bases:
+            if b in own and b not in seen:
+                out |= resolve(b, seen + (name,))
+        return out
+
+    return {c: resolve(c) for c in own if not c.startswith("_")}
+
+
+def _method_gap(ref, port) -> dict:
+    ref_m, port_m = _methods(ref), _methods(port)
+    return {c: m - port_m[c] for c, m in ref_m.items()
+            if c in port_m and m - port_m[c]}
+
+
+@pytest.mark.parametrize("level", ["function", "method"])
+def test_function_level_diff_is_only_the_jax_and_tpu_names(level):
     """Every public function and class the reference defines, module by
     module, is defined by the port's module of the same path, except
-    NOT_PORTED's names and NO_PORT_MODULE's modules."""
+    NOT_PORTED's names and NO_PORT_MODULE's modules; and (``method``)
+    every public method of a class both define is the port's class's
+    too, except NOT_PORTED_METHODS'."""
     ref_root = os.path.join(ROOT, "src", "repro")
     port_root = os.path.join(ROOT, "src", "repro_torch")
     missing, modules = {}, set()
@@ -238,8 +280,11 @@ def test_function_level_diff_is_only_the_jax_and_tpu_names():
             if not os.path.exists(port):
                 modules.add(rel)
                 continue
-            gap = _defined(os.path.join(dirpath, f)) - _defined(port)
+            ref = os.path.join(dirpath, f)
+            gap = (_defined(ref) - _defined(port) if level == "function"
+                   else _method_gap(ref, port))
             if gap:
                 missing[rel] = gap
     assert modules == NO_PORT_MODULE
-    assert missing == NOT_PORTED
+    assert missing == (NOT_PORTED if level == "function"
+                       else NOT_PORTED_METHODS)
