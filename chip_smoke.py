@@ -159,6 +159,17 @@ the JAX package `repro`. Phases, each of which must pass:
    `repro_torch.launch.serve.serve_campaign` (served/s, fetch p50/p99),
    and one more round with ``codec="delta"`` and with
    ``codec="identity"`` from the same state, bitwise equal on the card.
+   Then ``[drivers]``: the FL drivers of `repro_torch.examples` (the
+   port's entry points, the counterparts of `examples/`) through their
+   ``main`` on the card, each driver's own checks raising through:
+   quickstart, handover, campaign (a CUDA graph; exactly one capture),
+   resume, ``serve_campaign --codec delta_int8``, ``mobility_ablation
+   --rounds 2``, ``train_federated_ssl --preset paper --noniid --rounds
+   2`` (ResNet-18-CIFAR at full width, 95 vehicles, batch 512, the kNN
+   probe) and ``serve_batched`` (the reduced tinyllama, and the reduced
+   rwkv6 with ``--long-context``). The kernel counters are zeroed before
+   each driver and read after it; the phase fails unless wagg, dt_loss,
+   q8_encode, q8_decode and rwkv6 each launched.
 
 8. Zoo path (``[zoo]``): the RWKV6 serving path of the transformer zoo.
    * rwkv6 kernel against its plain chunked version
@@ -2808,6 +2819,75 @@ def lossless_round(dev, data, state):
                              "round, or did not train")
 
 
+DRIVER_RUNS = (
+    ("quickstart", ()), ("handover", ()), ("campaign", ()), ("resume", ()),
+    ("serve_campaign", ("--codec", "delta_int8")),
+    ("mobility_ablation", ("--rounds", "2")),
+    ("train_federated_ssl", ("--preset", "paper", "--noniid", "--rounds",
+                             "2")),
+    ("serve_batched", ()),
+    ("serve_batched", ("--arch", "rwkv6-1.6b", "--long-context")))
+DRIVER_KERNELS = ("wagg", "dt_loss", "q8_encode", "q8_decode", "rwkv6")
+
+
+def _driver_summary(out: dict) -> dict:
+    """The scalars of a driver's returned dict, for its [drivers] line."""
+    return {k: (round(v, 6) if isinstance(v, float) else v)
+            for k, v in out.items()
+            if isinstance(v, (int, float, bool, str)) or k == "compile_counts"}
+
+
+def drivers_path() -> dict:
+    """[drivers]: each FL driver's `main` (repro_torch.examples) on the
+    card, as `DRIVER_RUNS` lists them, its own checks raising through;
+    the counters zeroed before each driver and read after it. The
+    campaign driver must capture exactly one graph. Returns the launches
+    summed over the drivers; fails unless each of DRIVER_KERNELS
+    launched."""
+    import importlib
+    import shutil
+
+    import torch
+
+    from repro_torch.core import engine
+
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_drivers")
+    total, t_phase = {}, time.time()
+    try:
+        for name, argv in DRIVER_RUNS:
+            argv = list(argv)
+            if name == "train_federated_ssl":
+                argv += ["--ckpt-dir", ckpt_dir]
+            driver = importlib.import_module(f"repro_torch.examples.{name}")
+            torch.cuda.synchronize()
+            _zero_counts()
+            t = time.time()
+            out = driver.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.time() - t
+            counts = _counts()
+            total = _add(total, counts)
+            launches = {k: v for k, v in counts.items() if v}
+            print(f"[drivers] {name} {' '.join(argv)}: {seconds:.2f} s; "
+                  f"launches {launches}; {_driver_summary(out)}", flush=True)
+            if name == "campaign" and out["compile_counts"] != {"graph": 1}:
+                raise AssertionError(f"[drivers] campaign captured "
+                                     f"{out['compile_counts']}, not one "
+                                     f"graph")
+            engine.reset_engine_caches()
+            _free()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    missing = [k for k in DRIVER_KERNELS if not total.get(k)]
+    print(f"[drivers] {len(DRIVER_RUNS)} driver runs in "
+          f"{time.time() - t_phase:.1f} s; launches "
+          f"{ {k: v for k, v in total.items() if v} }", flush=True)
+    if missing:
+        raise AssertionError(f"[drivers] no launch of {missing} on the "
+                             f"drivers' paths")
+    return total
+
+
 def _rwkv6_work(bh: int, s: int, d: int, state0: bool):
     """(bytes, flops) the rwkv6 recurrence needs for these inputs: r, k,
     v, logw and u read once, o and the state written once (state0 read
@@ -5277,6 +5357,7 @@ def run() -> int:
     # the zoo's full-width phases
     del main_sc, main_state, sc, state, store
     _free()
+    paths["drivers"] = drivers_path()
     rows.append(rwkv6_kernel_check(dev))
     zoo_cross_check(dev)
     paths["zoo"] = zoo_launches = zoo_full_width(dev)

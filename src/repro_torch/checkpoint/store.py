@@ -19,6 +19,12 @@ tensors, numpy arrays and scalars, Python numbers). The npz holds:
   structure; the reference writes jax's treedef string there and its
   structural restore does not read it either).
 
+Every file (the npz, ``LATEST``, the sidecar) is written to a temporary
+name in its directory and renamed onto its own (`os.replace`), so a
+reader sees the previous file or the whole new one, never part of one.
+A sharded campaign's rank 0 alone writes its checkpoints
+(core/engine.py).
+
 `restore` returns numpy leaves, bfloat16 ones as torch.bfloat16 tensors.
 `restore(path, like)` checks the shapes against `like` and hangs the
 leaves on its structure, as torch tensors on the device of each torch
@@ -117,21 +123,45 @@ def _leaf_arrays(i: int, leaf) -> dict:
     return {f"leaf_{i}": a}
 
 
+def _npz(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _write_replacing(path: str, write) -> None:
+    """`write(f)` into a temporary file beside `path` (opened "wb"), then
+    that file renamed onto `path`; the temporary file is removed if
+    `write` raises."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _write_json(path: str, obj) -> None:
+    _write_replacing(path, lambda f: f.write(json.dumps(obj).encode()))
+
+
 def save(path: str, step: int, tree) -> str:
-    """Write `tree` at `step` to the npz `path` and point LATEST at it."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    """Write `tree` at `step` to the npz `path` (``.npz`` appended where
+    it lacks it, as `np.savez` does) and point LATEST at it."""
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
     arrays = {}
     for i, leaf in enumerate(_leaves(tree)):
         arrays.update(_leaf_arrays(i, leaf))
     spec = _spec(tree, [0])
-    np.savez(path, __step__=np.int64(step),
-             __treedef__=np.frombuffer(
-                 f"PyTreeDef({_describe(spec)})".encode(), np.uint8),
-             __spec__=np.frombuffer(json.dumps(spec).encode(), np.uint8),
-             **arrays)
-    d = os.path.dirname(path) or "."
-    with open(os.path.join(d, "LATEST"), "w") as f:
-        json.dump({"path": os.path.basename(path), "step": step}, f)
+    _write_replacing(_npz(path), lambda f: np.savez(
+        f, __step__=np.int64(step),
+        __treedef__=np.frombuffer(
+            f"PyTreeDef({_describe(spec)})".encode(), np.uint8),
+        __spec__=np.frombuffer(json.dumps(spec).encode(), np.uint8),
+        **arrays))
+    _write_json(os.path.join(d, "LATEST"),
+                {"path": os.path.basename(path), "step": step})
     return path
 
 
@@ -175,8 +205,7 @@ def restore(path: str, like: Any = None) -> Tuple[int, Any]:
     from the stored spec; with an example tree the leaves are checked
     against its shapes and hung on its structure (named tuples included,
     which the spec records as plain tuples)."""
-    if not path.endswith(".npz"):
-        path = path + ".npz"
+    path = _npz(path)
     with np.load(path) as z:
         step = int(z["__step__"])
         if like is None:
@@ -224,9 +253,7 @@ def save_state(path: str, state, scenario=None) -> str:
     it with the experiment's fingerprint (the ``.meta.json`` sidecar)."""
     p = save(path, state.round, state.to_tree())
     if scenario is not None:
-        npz = p if p.endswith(".npz") else p + ".npz"
-        with open(npz + ".meta.json", "w") as f:
-            json.dump(_scenario_fingerprint(scenario), f)
+        _write_json(_npz(p) + ".meta.json", _scenario_fingerprint(scenario))
     return p
 
 
@@ -260,8 +287,7 @@ def restore_state(path: str, scenario=None, device=None, gen_state=None):
     from repro_torch.core.state import FLState
     from repro_torch.runtime import resolve_device
 
-    if not path.endswith(".npz"):
-        path = path + ".npz"
+    path = _npz(path)
     if scenario is not None:
         _check_fingerprint(path, scenario)
         if device is None:

@@ -2,7 +2,9 @@
 
 Counterpart of `repro.core.cohort` (`bucket_size`; `CohortBatch`:
 `empty`, `write`, `concat`, `take`, `with_stats`, `padded_weights`,
-`pad_to`, `sharding_spec`, `shard`, `gather`). The reference stacks
+`pad_to`, `sharding_spec`, `shard`, `gather`; and the reference's tree
+views, which the rounds never call: `from_stacked`, `from_list`,
+`valid_trees`, `unstack`, `valid_velocities`). The reference stacks
 each leaf of the client trees along a leading cohort axis and ravels the
 stack into an (m, P) matrix at the aggregation boundary
 (`ops.wagg_stacked`). The port keeps the cohort in that matrix from the
@@ -37,7 +39,8 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.convert import FlatSpec, leaves_with_paths, ravel_into
+from repro_torch.convert import (FlatSpec, flat_spec, leaves_with_paths,
+                                 ravel_into, tree_map, unflatten, unravel)
 from repro_torch.core.collectives import (all_gather_rows, axis_size,
                                           cohort_rank)
 
@@ -78,6 +81,31 @@ class CohortBatch:
         return cls(flat=flat, spec=spec,
                    losses=torch.zeros(m, dtype=torch.float32, device=device),
                    mask=(torch.arange(m, device=device) < n).float(), n=n)
+
+    @classmethod
+    def from_stacked(cls, trees, losses, n: Optional[int] = None,
+                     **stats) -> "CohortBatch":
+        """The cohort of already-stacked trees (each leaf (m, ...), row i
+        client i's); rows [n, m) are padding, written as given and masked
+        out. The stats are kept as given."""
+        losses = torch.as_tensor(losses, dtype=torch.float32)
+        m = int(losses.shape[0])
+        spec = flat_spec(tree_map(lambda x: x[0], trees))
+        c = cls.empty(spec, m, n=n, device=losses.device)
+        c.write_rows(0, trees, losses)
+        return dataclasses.replace(c, **stats)
+
+    @classmethod
+    def from_list(cls, trees, losses, **stats) -> "CohortBatch":
+        """The cohort of a list of per-client trees (stacked leaf by leaf
+        in the flat row layout's order), every row valid."""
+        stacked = unflatten(
+            [torch.stack(ls) for ls in zip(*(
+                [leaf for _, leaf in leaves_with_paths(t)] for t in trees))],
+            trees[0])
+        if isinstance(losses, (list, tuple)):
+            losses = torch.stack([torch.as_tensor(v) for v in losses])
+        return cls.from_stacked(stacked, losses, n=len(trees), **stats)
 
     @classmethod
     def concat(cls, cohorts) -> "CohortBatch":
@@ -132,6 +160,31 @@ class CohortBatch:
     @property
     def valid_losses(self):
         return self.losses[:self.n]
+
+    @property
+    def valid_trees(self) -> dict:
+        """The n valid rows as one stacked tree (each leaf (n, ...)),
+        views into the buffer."""
+        self._check_whole("valid_trees")
+        return unravel(self.flat[:self.n], self.spec)
+
+    def unstack(self) -> list:
+        """The n valid clients' trees, a list of views into the buffer."""
+        self._check_whole("unstack")
+        return [unravel(self.flat[i], self.spec) for i in range(self.n)]
+
+    def _check_whole(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{what} reads every row, and this cohort is "
+                             f"sharded (this rank holds one block); "
+                             f"gather() it first")
+
+    @property
+    def valid_velocities(self):
+        if self.velocities is None:
+            raise ValueError("cohort has no velocities attached; the "
+                             "topology must call with_stats() first")
+        return self.velocities[:self.n]
 
     @property
     def valid_blur(self):

@@ -94,6 +94,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 from torch.profiler import record_function
 
@@ -638,7 +639,9 @@ def run_campaign(scenario, state: Optional[FLState] = None,
                       `save_state` writes ``round_NNNNNN.npz`` (and the
                       fingerprint sidecar) into `checkpoint_dir`, which it
                       needs; resuming from one is bitwise the
-                      uninterrupted campaign on the CPU
+                      uninterrupted campaign on the CPU. A sharded
+                      campaign's rank 0 writes each checkpoint once and
+                      every rank waits for it (`_checkpoint`)
     log_every         print `run`'s "[round N] loss=... lr=..." lines,
                       from the history fetched once a chunk
     transfer_guard    raise on any host-device synchronisation torch makes
@@ -703,8 +706,21 @@ def run_campaign(scenario, state: Optional[FLState] = None,
             publish(state.round, state.global_tree)
         done += k
         if checkpoint_every:
-            from repro_torch.checkpoint.store import save_state
-            save_state(os.path.join(checkpoint_dir,
-                                    f"round_{state.round:06d}"),
-                       state, scenario)
+            _checkpoint(os.path.join(checkpoint_dir,
+                                     f"round_{state.round:06d}"),
+                        state, scenario)
     return state, history
+
+
+def _checkpoint(path: str, state, scenario) -> None:
+    """`save_state` of a chunk's end. The ranks of a sharded campaign
+    hold the same state and share `path`: global rank 0 alone writes it,
+    then every rank waits at a barrier over the cohort mesh's ranks (the
+    default group, which the mesh spans), so no rank goes on, returns or
+    restores before the files are whole."""
+    from repro_torch.checkpoint.store import save_state
+    sharded = _campaign_mesh(scenario) is not None
+    if not sharded or dist.get_rank() == 0:
+        save_state(path, state, scenario)
+    if sharded:
+        dist.barrier()

@@ -102,16 +102,26 @@ def greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, :cfg.vocab_size], dim=-1)[:, None]
 
 
+def _shape(kind: str, total_len: int, b: int, long_context: bool):
+    """The step's InputShape: the reference's ``long_500k`` name selects
+    the long-context cache (`steps._long_context`)."""
+    return InputShape("long_500k" if long_context else kind, total_len, b,
+                      kind)
+
+
 def run_prefill(cfg, params, prompts, total_len: int, param_dtype,
-                frames=None, patches=None, mesh=None):
+                frames=None, patches=None, mesh=None,
+                long_context: bool = False):
     """Prefill `prompts` (with the ``audio`` family's `frames` (B, Te,
     d_audio) or the ``vlm`` family's `patches` (B, n_vision_tokens,
     d_vision) when given); returns (last-position logits (B, V), cache,
     seconds on the host clock, synchronised). On a zoo `mesh` the params
-    are DTensors and the logits and cache come back as DTensors."""
+    are DTensors and the logits and cache come back as DTensors.
+    `long_context` serves the long-context cache (the reference's
+    ``long_context=True``)."""
     b = prompts.shape[0]
     prefill = st.make_prefill_step(
-        cfg, InputShape("prefill", total_len, b, "prefill"), param_dtype,
+        cfg, _shape("prefill", total_len, b, long_context), param_dtype,
         mesh=mesh)
     batch = {"tokens": prompts}
     for k, v in (("frames", frames), ("patches", patches)):
@@ -125,14 +135,14 @@ def run_prefill(cfg, params, prompts, total_len: int, param_dtype,
 
 
 def run_decode(cfg, params, last, cache, start: int, n_tokens: int,
-               mesh=None):
+               mesh=None, long_context: bool = False):
     """`n_tokens` greedy decode steps from the prefill's `last` logits at
     absolute position `start`. Returns (tokens (B, n_tokens + 1): the
     prefill's pick then each step's, cache, seconds, synchronised). On a
     zoo `mesh` each step's logits are gathered for the pick."""
     b = last.shape[0]
     decode = st.make_decode_step(
-        cfg, InputShape("decode", start + n_tokens, b, "decode"), mesh=mesh)
+        cfg, _shape("decode", start + n_tokens, b, long_context), mesh=mesh)
     last = sh.full(last)
     tok = greedy(cfg, last)
     out = [tok]

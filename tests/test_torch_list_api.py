@@ -1,16 +1,18 @@
 """The last public functions of the reference with a port: AdamW, the
 token view, the synthetic token stream and class histogram, the
-list-API aggregators and the list and stacked weighted sums, each
+list-API aggregators and the list and stacked weighted sums, the
+`FederatedTrainer` shim and the cohort's tree views (`from_list`,
+`from_stacked`, `valid_trees`, `unstack`, `valid_velocities`), each
 against the reference on the CPU from the same inputs; and the
 function-level diff of the two packages, which holds only the JAX-only
-and TPU-only names, and its method-level cases, which hold only the
-cohort's tree views.
+and TPU-only names, and its method-level cases, which hold none.
 
     PYTHONPATH=src python -m pytest tests/test_torch_list_api.py
 """
 from __future__ import annotations
 
 import ast
+import dataclasses
 import os
 
 import jax
@@ -20,6 +22,9 @@ import pytest
 import torch
 
 from repro.core import aggregation as jagg
+from repro.core.cohort import CohortBatch as JCohortBatch
+from repro.core.federation import FederatedTrainer as JFederatedTrainer
+from repro.core.state import FLConfig as JFLConfig
 from repro.core import ssl as jssl
 from repro.data import synthetic as jdata
 from repro.kernels import ops as jops
@@ -28,11 +33,16 @@ from repro.optim import optimizers as jopt
 from repro_torch import convert
 from repro_torch.core import aggregation as tagg
 from repro_torch.core import ssl as tssl
+from repro_torch.core.cohort import CohortBatch
+from repro_torch.core.federation import FederatedTrainer
+from repro_torch.core.scenario import Scenario, run_round
+from repro_torch.core.state import FLConfig
 from repro_torch.data import synthetic as tdata
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.optim import optimizers as topt
 from test_torch_round import torch_threads  # noqa: F401 (autouse)
+from torch_sharded_ranks import _narrow_tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # AdamW: every operation is the reference's in float32, but b ** count
@@ -46,8 +56,9 @@ AGG_TOL = 1e-6
 # The reference's public names the port does not define, each with why:
 # the Pallas kernels and their backend switches are TPU-only (the port's
 # kernels are CUDA C++ behind kernels/ops.py); the jit factories and
-# caches, the ShapeDtypeStruct tree and the shims are JAX-only;
-# launch/dryrun.py's calibrate_one extrapolates XLA's cost analysis,
+# caches, the ShapeDtypeStruct tree and the jax version shims (compat.py)
+# are JAX-only, and so is models/scan_ctx.py (scan unrolling for XLA's
+# cost analysis); launch/dryrun.py's calibrate_one extrapolates XLA's cost analysis,
 # which counts a scan body once, while the port's trace runs every layer
 # in a Python loop and counts them all; launch/mesh.py's axis_size is
 # collectives.axis_size, imported there.
@@ -62,20 +73,13 @@ NOT_PORTED = {
     "core/clients.py": {"cohort_step_cache_size", "make_local_train_step",
                         "make_moco_local_train_step", "raw_local_step",
                         "reset_cohort_step_caches"},
-    "core/federation.py": {"FederatedTrainer"},
     "launch/mesh.py": {"axis_size"},
     "launch/dryrun.py": {"calibrate_one"},
 }
 NO_PORT_MODULE = {"compat.py", "models/scan_ctx.py"}
 # The public methods of a class both packages define that the port's
-# class lacks (inherited methods resolved within each module): the
-# cohort's tree views, since the port's cohort holds flat rows
-# (`FlatSpec`) and reads no list or stack of trees.
-NOT_PORTED_METHODS = {
-    "core/cohort.py": {"CohortBatch": {"from_list", "from_stacked",
-                                       "unstack", "valid_trees",
-                                       "valid_velocities"}},
-}
+# class lacks (inherited methods resolved within each module): none.
+NOT_PORTED_METHODS: dict = {}
 
 
 def _t(x):
@@ -288,3 +292,134 @@ def test_function_level_diff_is_only_the_jax_and_tpu_names(level):
     assert modules == NO_PORT_MODULE
     assert missing == (NOT_PORTED if level == "function"
                        else NOT_PORTED_METHODS)
+
+
+# --------------------------------------------------------------------------
+# FederatedTrainer and the cohort's tree views
+# --------------------------------------------------------------------------
+
+def _trainer_inputs():
+    rs = np.random.RandomState(2)
+    data = [rs.rand(6, 4, 4, 3).astype(np.float32) for _ in range(4)]
+    cfg = FLConfig(n_vehicles=4, vehicles_per_round=2, batch_size=2,
+                   rounds=2, lr=0.4, seed=3)
+    return cfg, data
+
+
+def test_federated_trainer_rounds_are_run_rounds():
+    """Two `round()` calls are two `run_round` calls from the same
+    Scenario, bitwise; a mismatched round index raises as the
+    reference's; `run` prints the reference's lines."""
+    cfg, data = _trainer_inputs()
+    tree = _narrow_tree()
+    ft = FederatedTrainer(cfg, tree, data, device="cpu")
+    recs = [ft.round(), ft.round(r=1)]
+    with pytest.raises(ValueError, match="does not match state round 2"):
+        ft.round(r=0)
+    sc = Scenario(cfg, data=data, global_tree=tree, device="cpu")
+    state, want = sc.init_state(), []
+    for _ in range(2):
+        state, rec = run_round(state, sc)
+        want.append(rec)
+    assert recs == want == ft.history
+    assert ft.state.round == 2 and torch.equal(ft.key, state.gen_state)
+    got = convert.leaves_with_paths(ft.global_tree)
+    for (p, a), (_, b) in zip(got, convert.leaves_with_paths(
+            state.global_tree)):
+        assert torch.equal(a, b), p
+    assert ft.lr_fn(1) == sc.lr_fn(1)
+
+
+def test_federated_trainer_run_logs_and_names_match_reference(capsys):
+    """The public attribute names of the port's trainer are the
+    reference's (``key`` documented as the state's gen_state); `run`
+    prints "[round N] loss=... lr=..." every `log_every` rounds."""
+    cfg, data = _trainer_inputs()
+    tree = _narrow_tree()
+    ft = FederatedTrainer(cfg, tree, data, device="cpu")
+    jtree = jax.tree.map(jnp.asarray, convert.tree_to_numpy(tree))
+    jft = JFederatedTrainer(JFLConfig(**dataclasses.asdict(cfg)), jtree, data)
+
+    def public(obj):
+        return {n for n in dir(obj) if not n.startswith("_")}
+
+    assert public(ft) == public(jft)
+    assert "gen_state" in FederatedTrainer.key.__doc__
+    assert ft.cfg is ft.scenario.cfg and ft.mobility is ft.scenario.mobility
+    hist = ft.run(rounds=2, log_every=1)
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln[:12] for ln in lines] == ["[round    0]", "[round    1]"]
+    assert lines[1] == (f"[round    1] loss={hist[1]['loss']:.4f} "
+                        f"lr={hist[1]['lr']:.4f}")
+
+
+def _view_trees(rs, m):
+    return [{"params": {"w": rs.randn(3, 2).astype(np.float32),
+                        "b": rs.randn(4).astype(np.float32)},
+             "state": {"m": rs.randn(2, 2).astype(np.float32)}}
+            for _ in range(m)]
+
+
+def _assert_tree_bitwise(port_tree, ref_tree):
+    got = convert.leaves_with_paths(convert.tree_to_numpy(port_tree))
+    want = convert.leaves_with_paths(jax.tree.map(np.asarray, ref_tree))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (p, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, p
+        np.testing.assert_array_equal(a, b, err_msg=str(p))
+
+
+def test_cohort_from_list_and_tree_views_match_reference():
+    """`from_list`, `valid_trees` and `unstack` against the reference's
+    on the same numpy trees, bitwise; the losses and mask too."""
+    rs = np.random.RandomState(4)
+    trees = _view_trees(rs, 3)
+    losses = rs.rand(3).astype(np.float32)
+    j = JCohortBatch.from_list([jax.tree.map(jnp.asarray, t) for t in trees],
+                               [jnp.asarray(v) for v in losses])
+    c = CohortBatch.from_list([convert.tree_from_numpy(t) for t in trees],
+                              [torch.tensor(v) for v in losses])
+    assert c.n == j.n == 3 and c.size == j.size
+    np.testing.assert_array_equal(c.losses.numpy(), np.asarray(j.losses))
+    np.testing.assert_array_equal(c.mask.numpy(), np.asarray(j.mask))
+    _assert_tree_bitwise(c.valid_trees, j.valid_trees)
+    for a, b in zip(c.unstack(), j.unstack(), strict=True):
+        _assert_tree_bitwise(a, b)
+    # the rows are the flat row layout of each tree
+    for i, t in enumerate(trees):
+        assert torch.equal(c.flat[i],
+                           convert.ravel(convert.tree_from_numpy(t)))
+
+
+def test_cohort_from_stacked_padding_and_velocities_match_reference():
+    """`from_stacked` with padding rows (n < m) and stats against the
+    reference's, bitwise: the stacked trees, the valid views, mask,
+    velocities and `valid_velocities`; both raise without velocities."""
+    rs = np.random.RandomState(5)
+    trees = _view_trees(rs, 4)
+    stacked = {k: {n: np.stack([t[k][n] for t in trees])
+                   for n in trees[0][k]} for k in trees[0]}
+    losses = rs.rand(4).astype(np.float32)
+    vel = rs.uniform(17, 41, 4).astype(np.float32)
+    j = JCohortBatch.from_stacked(jax.tree.map(jnp.asarray, stacked),
+                                  jnp.asarray(losses), n=2,
+                                  velocities=jnp.asarray(vel))
+    c = CohortBatch.from_stacked(convert.tree_from_numpy(stacked),
+                                 torch.from_numpy(losses), n=2,
+                                 velocities=torch.from_numpy(vel))
+    assert (c.n, c.size) == (j.n, j.size) == (2, 4)
+    np.testing.assert_array_equal(c.mask.numpy(), np.asarray(j.mask))
+    _assert_tree_bitwise(convert.unravel(c.flat, c.spec), j.trees)
+    _assert_tree_bitwise(c.valid_trees, j.valid_trees)
+    assert len(c.unstack()) == len(j.unstack()) == 2
+    np.testing.assert_array_equal(c.valid_velocities.numpy(),
+                                  np.asarray(j.valid_velocities))
+    np.testing.assert_array_equal(c.valid_losses.numpy(),
+                                  np.asarray(j.valid_losses))
+    bare = CohortBatch.from_stacked(convert.tree_from_numpy(stacked),
+                                    torch.from_numpy(losses))
+    jbare = JCohortBatch.from_stacked(jax.tree.map(jnp.asarray, stacked),
+                                      jnp.asarray(losses))
+    for cohort in (bare, jbare):
+        with pytest.raises(ValueError, match="no velocities attached"):
+            cohort.valid_velocities

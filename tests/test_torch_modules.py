@@ -374,6 +374,14 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.configs.hymba_1_5b\n"
         "import repro_torch.configs.seamless_m4t_large_v2\n"
         "import repro_torch.configs.llama_3_2_vision_90b\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.handover\n"
+        "import repro_torch.examples.campaign\n"
+        "import repro_torch.examples.resume\n"
+        "import repro_torch.examples.mobility_ablation\n"
+        "import repro_torch.examples.train_federated_ssl\n"
+        "import repro_torch.examples.serve_campaign\n"
+        "import repro_torch.examples.serve_batched\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")

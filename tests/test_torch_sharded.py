@@ -601,3 +601,37 @@ def test_sharded_campaign_matches_the_sharded_run(ranks):
     for k in ("global", "ef", "gen_state", "host_rng"):
         np.testing.assert_array_equal(r[f"campaign/{k}"], r[f"run/{k}"])
     np.testing.assert_array_equal(r["campaign/loss"], r["run/loss"])
+
+
+def test_sharded_checkpoint_written_once_and_resumed_bitwise(ranks):
+    """A sharded campaign with checkpoint_every=2 into one shared
+    directory: rank 0 alone calls save_state (and save, which writes the
+    npz and LATEST) once a checkpoint, and both checkpoints are whole on
+    every rank when run_campaign returns (read back at once). The chunked
+    campaign, the round-2 checkpoint restored on every rank and run 2
+    more rounds, and two chunks of 2 rounds are each bitwise the straight
+    4-round campaign: every leaf of the FLState, the losses and the
+    schedule; the restored checkpoints are bitwise the states they
+    saved (the reference's tests/multidevice/test_sharded_engine.py
+    holds its sharded resume the same way)."""
+    calls = [r["rank/ckpt_calls"] for r in ranks]
+    np.testing.assert_array_equal(calls[0], [2, 2])
+    np.testing.assert_array_equal(np.sum(calls, axis=0), [2, 2])
+    for r in ranks:
+        assert int(r["ckpt/latest_step"]) == 4
+        assert r["ckpt/same_schedule"].all()
+        leaves = [k.split("/")[-1] for k in r if k.startswith(
+            "ckpt/straight/") and not k.endswith("/loss")]
+        assert len(leaves) > 10
+        for run_, want in (("chunked", "straight"), ("resumed", "straight"),
+                           ("chunks", "straight"),
+                           ("restored_end", "chunked"),
+                           ("restored_mid", "first_chunk")):
+            for k in leaves:
+                np.testing.assert_array_equal(
+                    r[f"ckpt/{run_}/{k}"], r[f"ckpt/{want}/{k}"],
+                    err_msg=f"{run_} vs {want}: {k}")
+        loss = r["ckpt/straight/loss"]
+        np.testing.assert_array_equal(r["ckpt/chunked/loss"], loss)
+        np.testing.assert_array_equal(r["ckpt/chunks/loss"], loss)
+        np.testing.assert_array_equal(r["ckpt/resumed/loss"], loss[2:])

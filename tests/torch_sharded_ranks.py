@@ -313,6 +313,60 @@ def _round_cases(world: int, out: dict, out_dir: str) -> None:
     out["codec/host_rows"] = hc.flat.numpy()
     out["codec/sharded_ef"] = shcomms["ef"].numpy()
     out["codec/host_ef"] = hcomms["ef"].numpy()
+    _checkpoint_cases(out, out_dir)
+
+
+def _flstate(state) -> dict:
+    """Every leaf of an FLState's checkpoint tree (`to_tree`), as numpy,
+    by its index in the checkpoint's leaf order."""
+    from repro_torch.checkpoint.store import _leaves
+    return {f"leaf{i}": (x.numpy() if isinstance(x, torch.Tensor)
+                         else np.asarray(x))
+            for i, x in enumerate(_leaves(state.to_tree()))}
+
+
+def _checkpoint_cases(out: dict, out_dir: str) -> None:
+    """A sharded TINY campaign of 4 rounds, straight; with
+    checkpoint_every=2 into one directory all ranks share (the save_state
+    and save calls on this rank counted; both checkpoints read back as
+    soon as run_campaign returns); resumed from the round-2 checkpoint
+    for 2 more rounds; and as two chunks of 2 rounds."""
+    from repro_torch.checkpoint import store
+    sc = _scenario(size=TINY)
+    ck_dir = os.path.join(out_dir, "campaign_ckpt")
+    runs = {"straight": run_campaign(sc, rounds=4, mode="eager")}
+    with mock.patch.object(store, "save_state",
+                           wraps=store.save_state) as saves, \
+            mock.patch.object(store, "save", wraps=store.save) as writes:
+        runs["chunked"] = run_campaign(sc, rounds=4, mode="eager",
+                                       checkpoint_every=2,
+                                       checkpoint_dir=ck_dir)
+    out["rank/ckpt_calls"] = np.array([saves.call_count, writes.call_count])
+    path, step = store.latest(ck_dir)
+    out["ckpt/latest_step"] = np.array(step)
+    mid = store.restore_state(os.path.join(ck_dir, "round_000002"),
+                              scenario=sc)
+    runs["restored_end"] = (store.restore_state(path, scenario=sc), [])
+    runs["resumed"] = run_campaign(sc, mid, rounds=2, mode="eager")
+    first = run_campaign(sc, rounds=2, mode="eager")
+    second = run_campaign(sc, first[0], rounds=2, mode="eager")
+    runs["chunks"] = (second[0], first[1] + second[1])
+    runs["restored_mid"], runs["first_chunk"] = (mid, []), first
+    for name, (state, hist) in runs.items():
+        for k, v in _flstate(state).items():
+            out[f"ckpt/{name}/{k}"] = v
+        out[f"ckpt/{name}/round"] = np.array(state.round)
+        if hist:
+            out[f"ckpt/{name}/loss"] = _losses(hist)
+
+    def sched(hist):
+        return [_sans_loss(r) for r in hist]
+
+    want = sched(runs["straight"][1])
+    out["ckpt/same_schedule"] = np.array([
+        sched(runs["chunked"][1]) == want,
+        sched(runs["resumed"][1]) == want[2:],
+        sched(runs["chunks"][1]) == want])
 
 
 def _rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
